@@ -1,0 +1,79 @@
+"""The port stands alone: every module imports with JAX made unimportable
+and never loads the JAX package, and its RenderConfig carries the JAX
+package's knobs unchanged."""
+
+import dataclasses
+import os
+import pkgutil
+import subprocess
+import sys
+import warnings
+
+import pytest
+
+import tpu_pathtracer_torch
+from tpu_pathtracer.config import RenderConfig as JConfig
+from tpu_pathtracer_torch.config import RenderConfig
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
+    filter(None, [ROOT, os.environ.get("PYTHONPATH")]))}
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        tpu_pathtracer_torch.__path__, "tpu_pathtracer_torch."))
+
+
+def test_every_module_imports_without_jax():
+    mods = _port_modules()
+    assert "tpu_pathtracer_torch.ops.cuda_spheres" in mods
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"  # any `import jax` now raises
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' and sys.modules[m]\n"
+        "       or m.split('.')[0] == 'tpu_pathtracer']\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT,
+                       env=_ENV)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.startswith("ok")
+
+
+def test_import_builds_nothing():
+    code = ("import tpu_pathtracer_torch.engine.regen, "
+            "tpu_pathtracer_torch.__main__\n"
+            "from tpu_pathtracer_torch.ops import _build\n"
+            "assert _build._LOADED == {}\n")
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT,
+                       env=_ENV)
+    assert p.returncode == 0, p.stderr
+
+
+def test_config_fields_and_defaults_match_jax():
+    jf = [(f.name, f.default) for f in dataclasses.fields(JConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(RenderConfig)]
+    assert tf == jf
+
+
+@pytest.mark.parametrize("kw", [dict(packet_split=True),
+                                dict(oct=True, prefetch=True),
+                                dict(check_nans=True),
+                                dict(packet_width=48),
+                                dict(mx_leaf=True, regroup=True)])
+def test_validate_warns_like_jax(kw):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        assert len(RenderConfig(**kw).validate()) == len(
+            JConfig(**kw).validate()) > 0
+
+
+def test_flush_window_below_zero_is_rejected():
+    with pytest.raises(ValueError, match="flush_window"):
+        RenderConfig(flush_window=-1)
+    assert RenderConfig(flush_window=4).flush_window == 4

@@ -1,0 +1,454 @@
+"""Wavefront path-tracing stages (component-SoA) + the plain batch engine
+(counterpart of ``tpu_pathtracer/engine/wavefront.py``).
+
+A batch of N paths advances one bounce per call of :func:`bounce_step`;
+each stage (intersect, scatter, roulette) is a masked elementwise pass
+over dense ``[N]`` component tensors. Sphere intersection goes through
+:func:`tpu_pathtracer_torch.ops.cuda_spheres.spheres_hit_feat`: the CUDA
+kernel for tensors on the GPU, its plain version on the CPU.
+
+Radiance accumulation reproduces the reference:
+  * miss → ``color += attenuation * sky`` and the path ends;
+  * a specular hit of the light adds ``attenuation * lightColor`` when
+    NEE is off;
+  * roulette from bounce ``rr_start_bounce + 1`` with survival
+    probability max(attenuation).
+
+Ported so far: spheres, the floor plane, the light sphere and the sky.
+A scene with a mesh or an image-texture atlas, or NEE shadow rays
+(``scene.use_nee`` with ``config.shadow``), raises
+``NotImplementedError("slice 2")``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from tpu_pathtracer_torch.camera import Camera
+from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.models import scene as sc
+from tpu_pathtracer_torch.models.scene import Scene
+from tpu_pathtracer_torch.ops import cuda_spheres as _cs
+from tpu_pathtracer_torch.ops import materials as _m
+from tpu_pathtracer_torch.ops import rng as _rng
+from tpu_pathtracer_torch.ops.v3 import V3, where as vwhere
+from tpu_pathtracer_torch.ops.vec import FLT_MAX
+
+
+def check_supported(scene: Scene, config: RenderConfig) -> None:
+    """Raise for scene features whose paths are not ported yet, rather
+    than silently render something else."""
+    if scene.has_mesh:
+        raise NotImplementedError("slice 2: triangle meshes are not "
+                                  "ported yet")
+    if scene.use_nee and config.shadow:
+        raise NotImplementedError("slice 2: NEE shadow rays are not "
+                                  "ported yet")
+    if scene.has_textures and config.textures:
+        raise NotImplementedError("slice 2: image textures are not "
+                                  "ported yet")
+
+
+class MatCols(NamedTuple):
+    """Per-lane material columns of the surface each lane hit."""
+    mtype: torch.Tensor        # [N] int32
+    color: V3
+    color2: V3
+    param: torch.Tensor
+    param2: torch.Tensor
+    absorption: V3
+    scatter_dist: torch.Tensor
+    tex_id: torch.Tensor       # [N] int32
+
+    @staticmethod
+    def zeros(n: int, device) -> "MatCols":
+        z = torch.zeros((n,), device=device)
+        zi = torch.zeros((n,), dtype=torch.int32, device=device)
+        return MatCols(zi, V3.zeros((n,), device), V3.zeros((n,), device),
+                       z, z, V3.zeros((n,), device), z, zi)
+
+
+def _cols_where(mask: torch.Tensor, a: MatCols, b: MatCols) -> MatCols:
+    return MatCols(*(vwhere(mask, x, y) if isinstance(x, V3)
+                     else torch.where(mask, x, y) for x, y in zip(a, b)))
+
+
+def _gather_cols(mats: sc.Materials, mat_id: torch.Tensor) -> MatCols:
+    """Material columns by per-lane gathers."""
+    idx = mat_id.to(torch.int64)
+    g = lambda a: a[idx]
+    g3 = lambda a: V3(a[:, 0][idx], a[:, 1][idx], a[:, 2][idx])
+    return MatCols(mtype=g(mats.mtype), color=g3(mats.color),
+                   color2=g3(mats.color2), param=g(mats.param),
+                   param2=g(mats.param2), absorption=g3(mats.absorption),
+                   scatter_dist=g(mats.scatter_dist), tex_id=g(mats.tex_id))
+
+
+def _material_table(mats: sc.Materials, ids: torch.Tensor) -> torch.Tensor:
+    """[len(ids), 14] material columns joined by id (the feature rows the
+    sphere kernel fetches for its winner)."""
+    idx = ids.to(torch.int64)
+    cols = [mats.mtype.to(torch.float32)[idx],
+            mats.color[:, 0][idx], mats.color[:, 1][idx],
+            mats.color[:, 2][idx],
+            mats.color2[:, 0][idx], mats.color2[:, 1][idx],
+            mats.color2[:, 2][idx],
+            mats.param[idx], mats.param2[idx],
+            mats.absorption[:, 0][idx], mats.absorption[:, 1][idx],
+            mats.absorption[:, 2][idx],
+            mats.scatter_dist[idx], mats.tex_id.to(torch.float32)[idx]]
+    return torch.stack(cols, dim=1)
+
+
+def _cols_from_feats(f, off: int) -> MatCols:
+    """Decode the 14 material columns out of kernel feature outputs."""
+    return MatCols(
+        mtype=f[off + 0].to(torch.int32),
+        color=V3(f[off + 1], f[off + 2], f[off + 3]),
+        color2=V3(f[off + 4], f[off + 5], f[off + 6]),
+        param=f[off + 7], param2=f[off + 8],
+        absorption=V3(f[off + 9], f[off + 10], f[off + 11]),
+        scatter_dist=f[off + 12],
+        tex_id=f[off + 13].to(torch.int32))
+
+
+class SceneView(NamedTuple):
+    """The scene's hot tensors in the layout the bounce loop reads,
+    built once per render."""
+    sph_c: Optional[V3]                # sphere centers, [S] components
+    sph_r: Optional[torch.Tensor]      # [S]
+    sph_feat: Optional[torch.Tensor]   # [S, 18] center, radius, 14 mat cols
+
+
+def make_view(scene: Scene, config: Optional[RenderConfig] = None
+              ) -> SceneView:
+    sph_c = sph_r = sph_feat = None
+    if scene.has_spheres:
+        sph_c = V3.from_array(scene.sphere_center)
+        sph_r = scene.sphere_radius.contiguous()
+        sph_feat = torch.cat(
+            [scene.sphere_center, sph_r[:, None],
+             _material_table(scene.materials, scene.sphere_mat)],
+            dim=1).contiguous()
+    return SceneView(sph_c, sph_r, sph_feat)
+
+
+class Intersection(NamedTuple):
+    """SoA intersection + the hit material's columns."""
+    obj: torch.Tensor     # [N] int32 OBJ_* id
+    t: torch.Tensor       # [N]
+    normal: V3            # flipped to face the ray
+    cols: MatCols         # material of the hit surface
+
+
+class Stats(NamedTuple):
+    """The reference's ray-accounting counters (kernels.cu:48–66) as
+    masked sums, 0-dim int64 tensors on the render's device. Field names
+    and meanings are the JAX package's. The node and leaf counters count
+    BVH traversal steps and stay 0 until meshes are ported."""
+    primary: torch.Tensor
+    primary_hit_mesh: torch.Tensor
+    primary_nohit: torch.Tensor
+    primary_bbox_nohit: torch.Tensor
+    secondary: torch.Tensor
+    secondary_mesh: torch.Tensor
+    secondary_nohit: torch.Tensor
+    secondary_mesh_nohit: torch.Tensor
+    secondary_bbox_nohit: torch.Tensor
+    shadows: torch.Tensor
+    shadows_bbox_nohit: torch.Tensor
+    shadows_nohit: torch.Tensor
+    low_power: torch.Tensor
+    exceed_max_bounce: torch.Tensor
+    roulette_kill: torch.Tensor
+    nans: torch.Tensor
+    nodes_both: torch.Tensor
+    nodes_single: torch.Tensor
+    leaf_visits: torch.Tensor
+    leaf_pop: torch.Tensor
+
+    @staticmethod
+    def zeros(device) -> "Stats":
+        z = torch.zeros((), dtype=torch.int64, device=device)
+        return Stats(*([z] * len(Stats._fields)))
+
+    def add(self, other: "Stats") -> "Stats":
+        return Stats(*(a + b for a, b in zip(self, other)))
+
+    def to_ints(self) -> "Stats":
+        return Stats(*(int(a) for a in self))
+
+
+# ---------------------------------------------------------------------------
+# intersection
+# ---------------------------------------------------------------------------
+
+
+def _sphere_hit_one(origin: V3, direction: V3, center, radius,
+                    t_min, t_max) -> torch.Tensor:
+    """Single-sphere test (the light, kernels.cu:346)."""
+    oc = origin - V3(center[0], center[1], center[2])
+    b = oc.dot(direction)
+    c = oc.dot(oc) - radius * radius
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t1 = -b - sq
+    t2 = -b + sq
+    ok = disc > 0.0
+    t1v = torch.where(ok & (t1 > t_min) & (t1 < t_max), t1, FLT_MAX)
+    t2v = torch.where(ok & (t2 > t_min) & (t2 < t_max), t2, FLT_MAX)
+    return torch.minimum(t1v, t2v)
+
+
+def _plane_hit(scene: Scene, origin: V3, direction: V3, t_min,
+               t_max) -> torch.Tensor:
+    """Single-sided plane (intersections.h:43–52)."""
+    nrm = scene.plane_norm
+    pt = scene.plane_point
+    denom = (direction.x * nrm[0] + direction.y * nrm[1]
+             + direction.z * nrm[2])
+    po_dot_n = ((pt[0] - origin.x) * nrm[0] + (pt[1] - origin.y) * nrm[1]
+                + (pt[2] - origin.z) * nrm[2])
+    t = po_dot_n / denom
+    miss = (denom > -1e-6) | (t < t_min) | (t > t_max)
+    return torch.where(miss, FLT_MAX, t)
+
+
+def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
+                    origin: V3, direction: V3,
+                    specular: torch.Tensor) -> Intersection:
+    """Top-level ``hit()`` (kernels.cu:325–360) over a ray batch.
+
+    Surfaces (spheres, plane) compete by nearest t; the light sphere is
+    tested only for specular lanes and only when no surface was hit
+    (kernels.cu:339–349)."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    eps = config.epsilon
+    t = torch.full((n,), FLT_MAX, device=dev)
+    obj = torch.full((n,), sc.OBJ_NONE, dtype=torch.int32, device=dev)
+    normal = V3.zeros((n,), dev)
+    cols = MatCols.zeros(n, dev)
+    if scene.has_spheres:
+        st, _, f = _cs.spheres_hit_feat(origin, direction, view.sph_c,
+                                        view.sph_r, view.sph_feat, eps,
+                                        FLT_MAX)
+        center = V3(f[0], f[1], f[2])
+        radius = f[3]
+        scols = _cols_from_feats(f, 4)
+        win = st < t
+        p = origin + direction * st
+        nrm = (p - center) * (1.0 / torch.clamp_min(radius, 1e-30))
+        t = torch.where(win, st, t)
+        obj = torch.where(win, sc.OBJ_SPHERE, obj)
+        normal = vwhere(win, nrm, normal)
+        cols = _cols_where(win, scols, cols)
+
+    if scene.has_plane:
+        pt = _plane_hit(scene, origin, direction, eps, FLT_MAX)
+        win = pt < t
+        nrm = scene.plane_norm
+        t = torch.where(win, pt, t)
+        obj = torch.where(win, sc.OBJ_PLANE, obj)
+        normal = vwhere(win, V3(nrm[0], nrm[1], nrm[2]), normal)
+        pcols = _gather_cols(scene.materials, scene.plane_mat.expand(n))
+        cols = _cols_where(win, pcols, cols)
+
+    if scene.use_nee:
+        # light sphere only for specular rays with no surface hit
+        # (kernels.cu:346–349)
+        lt = _sphere_hit_one(origin, direction, scene.light_center,
+                             scene.light_radius, eps, FLT_MAX)
+        win = specular & (obj == sc.OBJ_NONE) & (lt < FLT_MAX)
+        t = torch.where(win, lt, t)
+        obj = torch.where(win, sc.OBJ_LIGHT, obj)
+
+    # flip the normal to face the ray (kernels.cu:354–355)
+    flip = direction.dot(normal) > 0.0
+    normal = vwhere(flip, -normal, normal)
+    return Intersection(obj=obj, t=t, normal=normal, cols=cols)
+
+
+def sky_radiance(scene: Scene, direction: V3) -> V3:
+    """kernels.cu:424 (constant) / kernels.cu:419–421 (RTiOW gradient)."""
+    if scene.sky_mode == sc.SKY_GRADIENT:
+        t = 0.5 * (direction.y + 1.0)
+        return V3(1.0 - 0.5 * t, 1.0 - 0.3 * t, torch.ones_like(t))
+    c = scene.sky_color
+    n = direction.x.shape[0]
+    return V3(c[0].expand(n), c[1].expand(n), c[2].expand(n))
+
+
+# ---------------------------------------------------------------------------
+# one bounce
+# ---------------------------------------------------------------------------
+
+
+class BounceState(NamedTuple):
+    """Per-lane path state threaded through one bounce."""
+    origin: V3
+    direction: V3
+    color: V3
+    attenuation: V3
+    specular: torch.Tensor
+    inside: torch.Tensor
+    alive: torch.Tensor
+    # previous bounce hit the triangle mesh (STATS ``fromMesh``) — only
+    # the stats counters read it
+    from_mesh: torch.Tensor
+
+
+def bounce_step(scene: Scene, view: SceneView, config: RenderConfig,
+                state: BounceState, pixel: torch.Tensor, sample,
+                bounce, stats: Optional[Stats] = None
+                ) -> Tuple[BounceState, Optional[Stats]]:
+    """One wavefront bounce for all lanes — the body of ``color()``
+    (kernels.cu:402–527). ``sample`` and ``bounce`` are ints (plain
+    engine) or per-lane [N] tensors (regeneration engine)."""
+    dev = pixel.device
+    base = _rng.bounce_base(pixel, sample, bounce)
+    bounce = torch.as_tensor(bounce, device=dev)
+    alive = state.alive
+    zeros = lambda: V3.zeros(alive.shape, dev)
+
+    def count(stat, mask):
+        return stat + mask.sum()
+
+    inters = intersect_scene(scene, view, config, state.origin,
+                             state.direction, state.specular)
+    if stats is not None:
+        # per-bounce counters, kernels.cu:404-407
+        primary_m = alive & (bounce == 0)
+        secondary_m = alive & (bounce > 0)
+        low = alive & (state.attenuation.squared_length() < 1e-4)
+        stats = stats._replace(
+            primary=count(stats.primary, primary_m),
+            secondary=count(stats.secondary, secondary_m),
+            secondary_mesh=count(stats.secondary_mesh,
+                                 alive & state.from_mesh),
+            low_power=count(stats.low_power, low))
+
+    # ---- miss → sky (kernels.cu:424)
+    miss = alive & (inters.obj == sc.OBJ_NONE)
+    color = state.color + vwhere(
+        miss, state.attenuation * sky_radiance(scene, state.direction),
+        zeros())
+    is_mesh_hit = inters.obj == sc.OBJ_TRIMESH
+    if stats is not None:
+        hit_any = alive & ~miss
+        stats = stats._replace(
+            # the quirk at kernels.cu:430: a primary ray hitting a
+            # non-mesh surface also counts as primary_nohit
+            primary_nohit=count(
+                stats.primary_nohit,
+                (bounce == 0) & (miss | (hit_any & ~is_mesh_hit))),
+            primary_hit_mesh=count(stats.primary_hit_mesh,
+                                   (bounce == 0) & hit_any & is_mesh_hit),
+            secondary_nohit=count(stats.secondary_nohit,
+                                  miss & (bounce > 0) & ~state.from_mesh),
+            secondary_mesh_nohit=count(
+                stats.secondary_mesh_nohit,
+                miss & (bounce > 0) & state.from_mesh))
+
+    # ---- light hit by a specular path (kernels.cu:433–447)
+    light_hit = alive & (inters.obj == sc.OBJ_LIGHT)
+    if not config.shadow:
+        lc = scene.light_color
+        color = color + vwhere(
+            light_hit, state.attenuation * V3(lc[0], lc[1], lc[2]), zeros())
+
+    surf = alive & ~miss & ~light_hit
+    alive = surf
+
+    # ---- scatter (kernels.cu:452–489); no textures until slice 2
+    cols = inters.cols
+    hit_p = state.origin + state.direction * inters.t
+    out = _m.scatter(
+        wo=state.direction, normal=inters.normal, hit_t=inters.t,
+        hit_p=hit_p, inside=state.inside,
+        mtype=cols.mtype, albedo=cols.color, color2=cols.color2,
+        param=cols.param, param2=cols.param2, absorption=cols.absorption,
+        scatter_dist=cols.scatter_dist, rng_base=base)
+
+    new_origin = vwhere(surf, state.origin + state.direction * out.t,
+                        state.origin)
+    # non-unit SSS directions are normalized at store time (the JAX
+    # package's choice; the reference re-normalizes in the ray ctor)
+    new_dir = vwhere(surf, out.wi.normalized(), state.direction)
+    new_att = vwhere(surf, state.attenuation * out.throughput,
+                     state.attenuation)
+    new_specular = torch.where(surf, out.specular, state.specular)
+    new_inside = torch.where(surf, state.inside ^ out.refracted,
+                             state.inside)
+
+    # ---- Russian roulette (kernels.cu:512–527)
+    if config.russian_roulette:
+        rr = alive & (bounce > config.rr_start_bounce)
+        mx = new_att.max3()
+        kill = rr & (_rng.slot_uniform(base, _rng.S_ROULETTE) > mx)
+        alive = alive & ~kill
+        scale = torch.where(rr & ~kill, 1.0 / torch.clamp_min(mx, 1e-30),
+                            1.0)
+        new_att = new_att * scale
+        if stats is not None:
+            stats = stats._replace(roulette_kill=count(stats.roulette_kill,
+                                                       kill))
+
+    # fromMesh for the next bounce (kernels.cu:430)
+    new_from_mesh = surf & is_mesh_hit
+    return BounceState(origin=new_origin, direction=new_dir, color=color,
+                       attenuation=new_att, specular=new_specular,
+                       inside=new_inside, alive=alive,
+                       from_mesh=new_from_mesh), stats
+
+
+def initial_state(origin: V3, direction: V3,
+                  alive: torch.Tensor) -> BounceState:
+    """Fresh paths: black, unit attenuation, outside, not specular."""
+    dev = alive.device
+    f = torch.zeros_like(alive)
+    return BounceState(
+        origin=origin, direction=direction,
+        color=V3.zeros(alive.shape, dev),
+        attenuation=V3.ones(alive.shape, dev),
+        specular=f, inside=f, alive=alive, from_mesh=f)
+
+
+def trace(scene: Scene, camera: Camera, config: RenderConfig,
+          pixel_id: torch.Tensor, sample: int,
+          valid: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, Stats]:
+    """Trace one sample for each pixel lane; returns ([N,3] radiance,
+    Stats). This is ``color()`` (kernels.cu:396–533) as a wavefront loop
+    that runs until every lane is dead or ``max_depth`` bounces.
+
+    ``valid`` (optional [N] bool) marks real lanes; tail-padding
+    duplicate lanes start dead so they never inflate the Stats."""
+    check_supported(scene, config)
+    dev = pixel_id.device
+    view = make_view(scene, config)
+    origin, direction = camera.generate_rays(pixel_id, sample,
+                                             config.nx, config.ny)
+    alive = (torch.ones(pixel_id.shape, dtype=torch.bool, device=dev)
+             if valid is None else valid.clone())
+    state = initial_state(origin, direction, alive)
+    stats = Stats.zeros(dev)
+    bounce = 0
+    # one host sync per bounce: the loop ends when every lane is dead
+    while bounce < config.max_depth and bool(state.alive.any()):
+        state, new_stats = bounce_step(scene, view, config, state,
+                                       pixel_id, sample, bounce,
+                                       stats if config.stats else None)
+        if new_stats is not None:
+            stats = new_stats
+        bounce += 1
+    if config.stats:
+        stats = stats._replace(
+            exceed_max_bounce=stats.exceed_max_bounce + state.alive.sum())
+    if config.check_nans:
+        isnan = (torch.isnan(state.color.x) | torch.isnan(state.color.y)
+                 | torch.isnan(state.color.z))
+        stats = stats._replace(nans=stats.nans + isnan.sum())
+    return state.color.stack(), stats
