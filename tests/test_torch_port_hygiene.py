@@ -27,7 +27,9 @@ def _port_modules():
 
 def test_every_module_imports_without_jax():
     mods = _port_modules()
-    assert "tpu_pathtracer_torch.ops.cuda_spheres" in mods
+    assert {"tpu_pathtracer_torch.ops.cuda_spheres",
+            "tpu_pathtracer_torch.ops.cuda_tris",
+            "tpu_pathtracer_torch.native"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises
@@ -46,9 +48,13 @@ def test_every_module_imports_without_jax():
 
 def test_import_builds_nothing():
     code = ("import tpu_pathtracer_torch.engine.regen, "
-            "tpu_pathtracer_torch.__main__\n"
+            "tpu_pathtracer_torch.__main__, "
+            "tpu_pathtracer_torch.models.mesh, "
+            "tpu_pathtracer_torch.models.obj\n"
+            "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
-            "assert _build._LOADED == {}\n")
+            "assert _build._LOADED == {}\n"
+            "assert not native._TRIED and native._LIB is None\n")
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=ROOT,
                        env=_ENV)

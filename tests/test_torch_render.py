@@ -23,6 +23,7 @@ from tpu_pathtracer_torch.convert import camera_from_numpy, scene_from_numpy
 from tpu_pathtracer_torch.engine.regen import (render_image_regen,
                                                render_sample_range)
 from tpu_pathtracer_torch.engine.render import Renderer, render_image
+from tpu_pathtracer_torch.models import mesh as tmesh
 from tpu_pathtracer_torch.models import spheres as tspheres
 from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.utils import golden
@@ -43,6 +44,8 @@ def jax_fields(obj):
     if dataclasses.is_dataclass(obj):
         return {f.name: jax_fields(getattr(obj, f.name))
                 for f in dataclasses.fields(obj)}
+    if isinstance(obj, tuple):
+        return tuple(jax_fields(x) for x in obj)
     if obj is None or isinstance(obj, (bool, int, float)):
         return obj
     return np.asarray(obj)
@@ -225,16 +228,20 @@ def test_renderer_lifecycle_and_print_stats(capsys):
 
 
 def test_unported_features_raise():
-    ts, tc = tspheres.three_sphere_scene(8, 8)
-    cfg = RenderConfig(nx=8, ny=8, ns=1, max_depth=2)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        render_image(dataclasses.replace(ts, mesh=object()), tc, cfg)
-    nee = dataclasses.replace(ts, use_nee=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        render_image_regen(nee, tc, cfg)  # NEE with shadow rays
-    render_image_regen(nee, tc, cfg.replace(shadow=False))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        scene_from_numpy({"mesh": object()}, "cpu")
+    """A mesh the JAX package sends to its packet-BVH or traversal
+    kernels (use_bvh, more than packet_threshold triangles) raises naming
+    slice 3, in both engines; with use_bvh off it takes the oracle."""
+    ts, tc = tmesh.procedural_staircase_scene(8, 8)
+    cfg = RenderConfig(nx=8, ny=8, ns=1, max_depth=2, packet_threshold=600)
+    assert ts.mesh.num_tris == 640
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        render_image(ts, tc, cfg)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        render_image_regen(ts, tc, cfg)
+    assert render_image(ts, tc, cfg.replace(use_bvh=False)).mean() > 0
+    render_image(ts, tc, cfg.replace(packet_threshold=640))
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        scene_from_numpy({"mesh": {"bvh4": object()}}, "cpu")
 
 
 def _cli(*args, cwd):
@@ -257,7 +264,7 @@ def test_cli_renders_png_and_stats(tmp_path):
     assert "primary" in p.stderr and (tmp_path / "f12-8.ref").exists()
 
 
-@pytest.mark.parametrize("scene,slice_", [("staircase", "slice 2"),
+@pytest.mark.parametrize("scene,slice_", [("staircase-hires", "slice 3"),
                                           ("knot", "slice 3"),
                                           ("zoo-glass", "slice 3")])
 def test_cli_names_the_slice_of_unported_scenes(tmp_path, scene, slice_):

@@ -3,6 +3,8 @@
 Examples:
   python -m tpu_pathtracer_torch --scene spheres --nx 1200 --ny 800 \
       --ns 100 --max-depth 50 -o out.png
+  python -m tpu_pathtracer_torch --scene staircase --nx 1200 --ny 800 \
+      --ns 100 -o stairs.png
   python -m tpu_pathtracer_torch --scene three-sphere --rmse
 
 Renders on the first CUDA device if there is one, else on the CPU.
@@ -14,16 +16,14 @@ import time
 
 # scenes of the JAX package's CLI and the slice of the port that brings
 # each (ROADMAP queue A)
-_LATER = {"staircase": "slice 2", "staircase-hires": "slice 3",
-          "knot": "slice 3", "dragon": "slice 3", "terrain": "slice 3",
-          "rocks": "slice 3", "terrain-big": "slice 3"}
+_LATER = {"staircase-hires": "slice 3", "knot": "slice 3",
+          "dragon": "slice 3", "terrain": "slice 3", "rocks": "slice 3",
+          "terrain-big": "slice 3"}
 
 
 def _later_slice(scene: str) -> str:
     if scene in _LATER:
         return _LATER[scene]
-    if scene.endswith((".obj", ".bvh")):
-        return "slice 2"
     if scene.startswith("zoo-"):
         return "slice 3"
     return ""
@@ -31,6 +31,7 @@ def _later_slice(scene: str) -> str:
 
 def build(args, device):
     from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.models import mesh as mesh_scenes
     from tpu_pathtracer_torch.models import spheres as sphere_scenes
 
     cfg = RenderConfig(nx=args.nx, ny=args.ny, ns=args.ns,
@@ -44,6 +45,16 @@ def build(args, device):
     elif args.scene == "three-sphere":
         scene, cam = sphere_scenes.three_sphere_scene(cfg.nx, cfg.ny,
                                                       device=device)
+    elif args.scene == "staircase":
+        scene, cam = mesh_scenes.procedural_staircase_scene(
+            cfg.nx, cfg.ny, device=device)
+    elif args.scene.endswith(".obj"):
+        from tpu_pathtracer_torch.models.obj import load_obj_scene
+        scene, cam = load_obj_scene(args.scene, cfg.nx, cfg.ny,
+                                    device=device)
+    elif args.scene.endswith(".bvh"):
+        scene, cam = mesh_scenes.load_staircase_scene(
+            args.scene, args.texture_dir, cfg.nx, cfg.ny, device=device)
     elif _later_slice(args.scene):
         raise SystemExit(f"scene {args.scene!r} is not ported yet: "
                          f"{_later_slice(args.scene)} of the port brings it")
@@ -55,9 +66,11 @@ def build(args, device):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--scene", default="spheres",
-                   help="spheres | three-sphere (the other scenes of "
-                        "main.py come with later slices of the port)")
-    p.add_argument("--texture-dir", default=None)
+                   help="spheres | three-sphere | staircase | "
+                        "path/to/file.obj | path/to/file.bvh (the other "
+                        "scenes of main.py come with slice 3 of the port)")
+    p.add_argument("--texture-dir", default=None,
+                   help="the nine staircase PNGs, for a .bvh scene")
     p.add_argument("--nx", type=int, default=640)
     p.add_argument("--ny", type=int, default=800)
     p.add_argument("--ns", type=int, default=256)

@@ -99,3 +99,12 @@ def make_camera(lookfrom, lookat, vup, vfov_deg: float, aspect: float,
     t = lambda a: torch.as_tensor(np.asarray(a, f32), device=device)
     return Camera(t(origin), t(lower_left_corner), t(horizontal),
                   t(vertical), t(u), t(v), t(w), t(aperture / 2.0))
+
+
+def staircase_camera(nx: int, ny: int, device="cpu") -> Camera:
+    """The staircase scene's camera (staircase_scene.h:62–73)."""
+    lookfrom = (5.555139, 173.679901, 494.515045)
+    lookat = (5.555139, 173.679901, 493.515045)
+    return make_camera(lookfrom, lookat, (0.0, 1.0, 0.0), 42.0,
+                       float(nx) / float(ny), aperture=0.0, focus_dist=1.0,
+                       device=device)

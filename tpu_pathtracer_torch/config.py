@@ -3,7 +3,8 @@
 packages.
 
 The port reads the renderer knobs (resolution, samples, depth, epsilon,
-roulette, shadow, textures, stats, chunking). The remaining fields name
+roulette, shadow, use_bvh, textures, stats, chunking) and
+``packet_threshold``. The remaining fields name
 TPU kernel variants and schedules of the JAX package (packet-BVH
 prefetch schemes, MXU leaf tests, sort keys, interpret mode). They are
 accepted so a config carries across unchanged, and have no effect in
@@ -27,9 +28,12 @@ class RenderConfig:
       epsilon: self-intersection t_min.
       russian_roulette, rr_start_bounce: roulette after bounce
         ``rr_start_bounce`` with survival probability max(attenuation).
-      shadow: next-event estimation toward the sphere light (slice 2 in
-        the port; with it off, specular light hits add the light color).
-      use_bvh, textures: mesh acceleration and image textures (slice 2).
+      shadow: next-event estimation toward the sphere light (with it
+        off, specular light hits add the light color).
+      use_bvh: with it, a mesh takes the brute-force triangle kernel (a
+        mesh above ``packet_threshold`` triangles raises until slice 3);
+        without it, the all-triangles oracle.
+      textures: image textures of mesh materials.
       stats: collect the ray-accounting counters.
       rays_per_chunk: lane count of a chunk (plain engine) or of the
         regeneration pool (0 = auto).
@@ -38,6 +42,9 @@ class RenderConfig:
         window, so values > 0 give the same image.
       check_nans: count NaN radiance samples into Stats.nans (needs
         ``stats``).
+      packet_threshold: the largest mesh (in triangle slots) the JAX
+        package brute-forces with ``use_bvh``; the port brute-forces the
+        same meshes and raises above it.
     """
 
     nx: int = 640
@@ -55,7 +62,8 @@ class RenderConfig:
     rays_per_chunk: int = 0
     flush_window: int = 0
     check_nans: bool = False
-    # TPU kernel knobs of the JAX package: accepted, no effect yet.
+    # TPU kernel knobs of the JAX package: accepted, no effect yet
+    # (packet_threshold excepted: see above).
     interpret: bool = False
     force_feat_kernels: bool = False
     sort_rays: bool = True

@@ -1,9 +1,8 @@
 """SoA scene data model (counterpart of ``tpu_pathtracer/models/scene.py``).
 
-The containers hold tensors on one device. The mesh, plane, light and
-texture fields exist so a scene carries across from the JAX package
-whole; the engine raises ``NotImplementedError("slice 2")`` for a mesh
-or an image-texture atlas until those paths are ported.
+The containers hold tensors on one device: the material table, the
+analytic spheres, the triangle mesh with its implicit-heap BVH, the floor
+plane, the sphere light and the texture atlas.
 """
 
 from __future__ import annotations
@@ -81,6 +80,40 @@ def make_materials(rows, device="cpu") -> Materials:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshData:
+    """Triangle mesh + implicit-heap BVH, SoA.
+
+    The BVH layout matches the reference's invariants (kernels.cu:614,
+    :199–203): a complete binary tree indexed from 1, ``first_leaf =
+    num_nodes // 2``, leaf ``i`` covering triangles
+    ``[(i - first_leaf) * prims_per_leaf, +prims_per_leaf)`` with padding
+    (non-finite sentinel triangles that never hit).
+    """
+    v0: torch.Tensor           # [T,3] f32
+    v1: torch.Tensor           # [T,3] f32
+    v2: torch.Tensor           # [T,3] f32
+    tex_coords: torch.Tensor   # [T,6] f32 (t0u,t0v,t1u,t1v,t2u,t2v)
+    mesh_id: torch.Tensor      # [T] int32, material index
+    bvh_min: torch.Tensor      # [Nn,3] f32
+    bvh_max: torch.Tensor      # [Nn,3] f32
+    bounds_min: torch.Tensor   # [3] f32
+    bounds_max: torch.Tensor   # [3] f32
+    first_leaf: int
+    prims_per_leaf: int
+    # SAH BVH4 tables of the JAX package's packet path: not ported
+    # (slice 3), so always None
+    bvh4: Optional[object] = None
+    # the live triangles without the heap's interleaved sentinel padding,
+    # (v0, v1, v2, tex_coords, mesh_id), for the brute-force kernel; set
+    # by ops.bvh.build_bvh for meshes small enough to take that path
+    brute: Optional[tuple] = None
+
+    @property
+    def num_tris(self) -> int:
+        return self.v0.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     """Unified scene: optional sphere set, optional mesh, optional floor
     plane, sphere light, sky."""
@@ -88,7 +121,7 @@ class Scene:
     sphere_center: Optional[torch.Tensor]  # [S,3]
     sphere_radius: Optional[torch.Tensor]  # [S]
     sphere_mat: Optional[torch.Tensor]     # [S] int32
-    mesh: Optional[object]                 # slice 2
+    mesh: Optional[MeshData]
     plane_point: Optional[torch.Tensor]    # [3]
     plane_norm: Optional[torch.Tensor]     # [3]
     plane_mat: Optional[torch.Tensor]      # [] int32
@@ -96,7 +129,7 @@ class Scene:
     light_radius: torch.Tensor             # []
     light_color: torch.Tensor              # [3]
     sky_color: torch.Tensor                # [3] (const mode)
-    tex_atlas: Optional[torch.Tensor]      # [K,H,W,3] (slice 2)
+    tex_atlas: Optional[torch.Tensor]      # [K,H,W,3]
     tex_width: Optional[torch.Tensor]      # [K] int32
     tex_height: Optional[torch.Tensor]     # [K] int32
     use_nee: bool

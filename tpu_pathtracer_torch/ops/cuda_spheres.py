@@ -198,7 +198,7 @@ def _on_cuda(origin: V3) -> bool:
         return True
     if dev.type == "cpu":
         return False
-    raise ValueError(f"no sphere intersection for tensors on {dev}")
+    raise ValueError(f"no intersection kernel for tensors on {dev}")
 
 
 # ---------------------------------------------------------------------------
