@@ -26,7 +26,8 @@ ATOL = 1e-5
 def test_make_camera_basis(name):
     args = CAMERAS[name]
     j = jmake(*args[:5], aperture=args[5], focus_dist=args[6])
-    t = tmake(*args[:5], aperture=args[5], focus_dist=args[6])
+    t = tmake(*args[:5], aperture=args[5], focus_dist=args[6],
+              device="cpu")
     for field in Camera._fields:
         np.testing.assert_allclose(getattr(t, field).numpy(),
                                    np.asarray(getattr(j, field)),
@@ -38,7 +39,8 @@ def test_make_camera_basis(name):
 def test_generate_rays(name, sample):
     args = CAMERAS[name]
     j = jmake(*args[:5], aperture=args[5], focus_dist=args[6])
-    t = tmake(*args[:5], aperture=args[5], focus_dist=args[6])
+    t = tmake(*args[:5], aperture=args[5], focus_dist=args[6],
+              device="cpu")
     nx, ny = 48, 32
     pix = np.arange(nx * ny, dtype=np.uint32)
     jo, jd = j.generate_rays(jnp.asarray(pix), jnp.uint32(sample), nx, ny)

@@ -1,5 +1,5 @@
-"""The CUDA sphere and triangle kernels against their plain PyTorch
-versions, on the card.
+"""The CUDA sphere, triangle, heap-BVH and BVH4 kernels against their
+plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -9,6 +9,7 @@ one. The file imports no JAX, so it runs on a machine without it:
 (``--noconftest``: the suite's conftest configures JAX.)
 """
 
+import dataclasses
 from unittest import mock
 
 import numpy as np
@@ -18,7 +19,12 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine.regen import render_image_regen
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
+from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
+from tpu_pathtracer_torch.ops import bvh as tbvh
+from tpu_pathtracer_torch.ops import bvh4 as tb4
+from tpu_pathtracer_torch.ops import cuda_bvh as cb
+from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
@@ -174,5 +180,106 @@ def test_small_staircase_kernel_equals_plain(dev):
     assert ct.LAUNCHES["features"] > 0 and ct.LAUNCHES["any_hit"] > 0
     with mock.patch.object(ct, "tris_hit_feat", ct._tris_hit_feat_ref), \
             mock.patch.object(ct, "tris_anyhit_soa", ct._tris_anyhit_ref):
+        ref = render_image_regen(scene, cam, cfg)
+    np.testing.assert_array_equal(img, ref)
+
+
+def _bvh_inputs(dev, n=40_000, t=20_000, seed=0):
+    """A random triangle soup (heap BVH, 16 triangles a leaf) and rays on
+    ``dev``; every 7th ray is a dead lane (t_max = -1)."""
+    rng = np.random.RandomState(seed)
+    base = rng.uniform(-10, 10, (t, 3)).astype(np.float32)
+    v1 = base + rng.uniform(-1, 1, (t, 3)).astype(np.float32)
+    v2 = base + rng.uniform(-1, 1, (t, 3)).astype(np.float32)
+    mesh = tbvh.build_bvh(base, v1, v2, prims_per_leaf=16, bvh4=False,
+                          device=dev)
+    o = rng.uniform(-12, 12, (n, 3)).astype(np.float32)
+    d = rng.uniform(-8, 8, (n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = np.where(np.arange(n) % 7 == 0, -1.0,
+                  rng.uniform(3, 30, n)).astype(np.float32)
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k])).to(dev)
+                       for k in range(3)))
+    return mesh, v(o), v(d), torch.from_numpy(tm).to(dev)
+
+
+def _assert_walks_equal(trace, occluded, trace_ref, occluded_ref, launches,
+                        o, d, tm, tabs):
+    before = dict(launches)
+    for t_max in (FLT_MAX, tm):
+        k = trace(o, d, t_max, tabs, T_MIN)
+        p = trace_ref(o, d, t_max, tabs, T_MIN)
+        for a, b in zip(k, p):  # t, tri, per-ray counters
+            assert torch.equal(a, b)
+        assert (k[1] >= 0).float().mean() > 0.1
+        ok, ck = occluded(o, d, t_max, tabs, T_MIN)
+        op, cp = occluded_ref(o, d, t_max, tabs, T_MIN)
+        assert torch.equal(ok, op) and torch.equal(ck, cp)
+        assert torch.equal(ok, k[1] >= 0)
+    assert not ok[::7].any() and not ck[:, ::7].any()
+    assert launches["nearest"] == before["nearest"] + 2
+    assert launches["any_hit"] == before["any_hit"] + 2
+
+
+@pytest.mark.gpu
+def test_heap_kernel_bit_equal(dev):
+    mesh, o, d, tm = _bvh_inputs(dev)
+    tabs = cb.heap_tables(mesh)
+    _assert_walks_equal(cb.heap_trace, cb.heap_occluded, cb._heap_trace_ref,
+                        cb._heap_occluded_ref, cb.LAUNCHES, o, d, tm, tabs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,quant", [(32, False), (64, True)])
+def test_bvh4_kernel_bit_equal(dev, width, quant):
+    mesh, o, d, tm = _bvh_inputs(dev, seed=1)
+    tabs = cb4.bvh4_tables(tb4.attach_bvh4(mesh, width=width,
+                                           quant=quant).bvh4)
+    _assert_walks_equal(cb4.bvh4_trace, cb4.bvh4_occluded,
+                        cb4._bvh4_trace_ref, cb4._bvh4_occluded_ref,
+                        cb4.LAUNCHES, o, d, tm, tabs)
+
+
+@pytest.mark.gpu
+def test_bvh4_stack_overflow_raises_or_stops(dev):
+    """Tables beyond the kernel's stack capacity are refused; a stack_cap
+    that understates the tree stops the ray (leaf_pop = -1) without
+    writing past the stack, and the plain walk raises."""
+    mesh, o, d, _ = _bvh_inputs(dev, n=2000, seed=2)
+    tabs = cb4.bvh4_tables(tb4.build_bvh4(mesh, width=32))
+    with pytest.raises(ValueError, match="stack"):
+        cb4.bvh4_trace(o, d, FLT_MAX,
+                       tabs._replace(stack_cap=cb4.STACK_CAPACITY + 1),
+                       T_MIN)
+    small = tabs._replace(stack_cap=1)
+    _, _, cnt = cb4.bvh4_trace(o, d, FLT_MAX, small, T_MIN)
+    torch.cuda.synchronize()
+    assert (cnt[3] == -1).any()
+    with pytest.raises(RuntimeError, match="overflow"):
+        cb4._bvh4_trace_ref(o, d, FLT_MAX, small, T_MIN)
+    t, tri, _ = cb4.bvh4_trace(o, d, FLT_MAX, tabs, T_MIN)  # still sound
+    assert torch.equal(tri, cb4._bvh4_trace_ref(o, d, FLT_MAX, tabs,
+                                                T_MIN)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bvh4", [True, False])
+def test_small_packet_render_kernel_equals_plain(dev, bvh4):
+    cfg = RenderConfig(nx=48, ny=32, ns=2, max_depth=8, textures=False,
+                       packet_threshold=1, bvh4=bvh4)
+    scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, nu=96, nv=24,
+                                prims_per_leaf=32, device=dev)
+    scene = dataclasses.replace(
+        scene, mesh=tb4.attach_bvh4(scene.mesh, width=32))
+    mod = cb4 if bvh4 else cb
+    for key in mod.LAUNCHES:
+        mod.LAUNCHES[key] = 0
+    img = render_image_regen(scene, cam, cfg)
+    assert mod.LAUNCHES["nearest"] > 0 and mod.LAUNCHES["any_hit"] > 0
+    names = (("bvh4_trace", "bvh4_occluded") if bvh4
+             else ("heap_trace", "heap_occluded"))
+    with mock.patch.object(mod, names[0], getattr(mod, f"_{names[0]}_ref")), \
+            mock.patch.object(mod, names[1],
+                              getattr(mod, f"_{names[1]}_ref")):
         ref = render_image_regen(scene, cam, cfg)
     np.testing.assert_array_equal(img, ref)

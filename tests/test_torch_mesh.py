@@ -69,7 +69,8 @@ MESHES = {"staircase": lambda: tmesh.procedural_staircase_mesh(),
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_build_bvh_equals_jax(name, builder):
     arrays = MESHES[name]()
-    tm = tbvh.build_bvh(*arrays, prims_per_leaf=5, builder=builder)
+    tm = tbvh.build_bvh(*arrays, prims_per_leaf=5, builder=builder,
+                        device="cpu")
     jm = jbvh.build_bvh(*arrays, prims_per_leaf=5, builder=builder)
     assert_mesh_equal(tm, jm)
     if builder == "auto":
@@ -85,9 +86,9 @@ def test_sah_builder_order():
     if native.load() is None:
         pytest.skip("the native SAH builder does not build here (g++)")
     arrays = MESHES["soup_1000"]()
-    tm = tbvh.build_bvh(*arrays, builder="sah")
+    tm = tbvh.build_bvh(*arrays, builder="sah", device="cpu")
     assert_mesh_equal(tm, jbvh.build_bvh(*arrays, builder="sah"))
-    median = tbvh.build_bvh(*arrays, builder="median")
+    median = tbvh.build_bvh(*arrays, builder="median", device="cpu")
     assert not torch.equal(tm.v0, median.v0)  # a different order
 
 
@@ -104,13 +105,22 @@ def test_median_order_and_node_boxes_equal_jax():
 
 
 def test_bvh4_meshes_raise_naming_slice_3():
+    """The meshes the JAX package gives SAH BVH4 tables (slice 3 of the
+    port, which no longer raises) get the same tables here: "auto" above
+    8192 triangles, True always, "auto" never below."""
     v0, v1, v2, _, _ = _soup(9000, seed=4)
     assert jbvh._bvh4_auto_eligible(9000) == tbvh._bvh4_auto_eligible(9000)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tbvh.build_bvh(v0, v1, v2, builder="median")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tbvh.build_bvh(v0[:50], v1[:50], v2[:50], bvh4=True)
-    small = tbvh.build_bvh(v0[:50], v1[:50], v2[:50], bvh4="auto")
+    cases = [((v0, v1, v2), dict(builder="median")),
+             ((v0[:50], v1[:50], v2[:50]), dict(bvh4=True))]
+    for arrays, kw in cases:
+        tm = tbvh.build_bvh(*arrays, device="cpu", **kw)
+        jm = jbvh.build_bvh(*arrays, **kw)
+        assert tm.bvh4 is not None and jm.bvh4 is not None
+        for k in ("bounds", "refs", "tri_map"):
+            np.testing.assert_array_equal(getattr(tm.bvh4, k).numpy(),
+                                          np.asarray(getattr(jm.bvh4, k)))
+    small = tbvh.build_bvh(v0[:50], v1[:50], v2[:50], bvh4="auto",
+                           device="cpu")
     assert small.bvh4 is None
 
 
@@ -119,14 +129,14 @@ def test_bvh_file_across_packages(tmp_path, writer):
     arrays = tmesh.procedural_staircase_mesh()
     path = str(tmp_path / "stairs.bvh")
     jm = jbvh.build_bvh(*arrays, builder="median")
-    tm = tbvh.build_bvh(*arrays, builder="median")
+    tm = tbvh.build_bvh(*arrays, builder="median", device="cpu")
     if writer == "jax":
         jbvh.save_bvh_file(path, jm)
-        back = tbvh.load_bvh_file(path)
+        back = tbvh.load_bvh_file(path, device="cpu")
         other = jbvh.load_bvh_file(path)
     else:
         tbvh.save_bvh_file(path, tm)
-        back = tbvh.load_bvh_file(path)
+        back = tbvh.load_bvh_file(path, device="cpu")
         other = jbvh.load_bvh_file(path)
     assert back.brute is None  # a file's mesh keeps its heap order
     assert_mesh_equal(back, other)
@@ -143,20 +153,20 @@ def test_bvh_file_across_packages(tmp_path, writer):
 def test_bvh_file_rejects_wide_mesh_ids(tmp_path):
     arrays = list(_soup(20, seed=5))
     arrays[4][3] = 300
-    tm = tbvh.build_bvh(*arrays, builder="median")
+    tm = tbvh.build_bvh(*arrays, builder="median", device="cpu")
     with pytest.raises(ValueError, match="uint8"):
         tbvh.save_bvh_file(str(tmp_path / "x.bvh"), tm)
     with open(tmp_path / "bad.bvh", "wb") as f:
         f.write(b"BVH_00.03\x00")
     with pytest.raises(ValueError, match="header"):
-        tbvh.load_bvh_file(str(tmp_path / "bad.bvh"))
+        tbvh.load_bvh_file(str(tmp_path / "bad.bvh"), device="cpu")
 
 
 def test_staircase_scene_equals_jax():
     for a, b in zip(tmesh.procedural_staircase_mesh(sub=2),
                     jmesh.procedural_staircase_mesh(sub=2)):
         np.testing.assert_array_equal(a, b)
-    ts, tc = tmesh.procedural_staircase_scene(48, 32)
+    ts, tc = tmesh.procedural_staircase_scene(48, 32, device="cpu")
     js, jc = jmesh.procedural_staircase_scene(48, 32)
     want = jax_fields(js)
     for f in dataclasses.fields(Scene):
@@ -179,7 +189,7 @@ def test_staircase_scene_equals_jax():
 
 
 def test_staircase_camera_equals_jax():
-    tc = staircase_camera(64, 48)
+    tc = staircase_camera(64, 48, device="cpu")
     jc = j_stair_cam(64, 48)
     for k in tc._fields:
         np.testing.assert_allclose(getattr(tc, k).numpy(),
@@ -250,7 +260,8 @@ def test_load_obj_equals_jax(tmp_path):
     for a, b in zip(got, jobj.load_obj(path)):
         np.testing.assert_array_equal(a, b)
     assert got[0].shape == (5, 3)
-    ts, tc = tobj.load_obj_scene(path, 32, 24, prims_per_leaf=4)
+    ts, tc = tobj.load_obj_scene(path, 32, 24, prims_per_leaf=4,
+                                  device="cpu")
     js, jc = jobj.load_obj_scene(path, 32, 24, prims_per_leaf=4)
     assert_mesh_equal(ts.mesh, js.mesh)
     for k in ("light_center", "light_radius", "light_color"):
@@ -266,7 +277,7 @@ def test_brute_force_equals_jax(t_max):
     """The oracle on the staircase's padded heap arrays (sentinels
     included) from inside the room. idx exact; t, u, v to XLA's CPU FMA
     contraction: 1e-5 relative on t, 1e-5 absolute on u and v."""
-    tm, _ = tmesh.procedural_staircase_scene(8, 8)
+    tm, _ = tmesh.procedural_staircase_scene(8, 8, device="cpu")
     jm = jmesh.procedural_staircase_scene(8, 8)[0].mesh
     rng = np.random.RandomState(8)
     n = 600

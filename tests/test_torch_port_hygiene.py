@@ -29,6 +29,11 @@ def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert {"tpu_pathtracer_torch.ops.cuda_spheres",
             "tpu_pathtracer_torch.ops.cuda_tris",
+            "tpu_pathtracer_torch.ops.cuda_bvh",
+            "tpu_pathtracer_torch.ops.cuda_bvh4",
+            "tpu_pathtracer_torch.ops.bvh4",
+            "tpu_pathtracer_torch.models.shapes",
+            "tpu_pathtracer_torch.models.presets",
             "tpu_pathtracer_torch.native"} <= set(mods)
     code = (
         "import sys, importlib\n"
@@ -50,7 +55,9 @@ def test_import_builds_nothing():
     code = ("import tpu_pathtracer_torch.engine.regen, "
             "tpu_pathtracer_torch.__main__, "
             "tpu_pathtracer_torch.models.mesh, "
-            "tpu_pathtracer_torch.models.obj\n"
+            "tpu_pathtracer_torch.models.obj, "
+            "tpu_pathtracer_torch.models.shapes, "
+            "tpu_pathtracer_torch.ops.cuda_bvh4\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"

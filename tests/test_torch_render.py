@@ -73,7 +73,7 @@ def assert_close_images(img, ref, ssim_min=SSIM_MIN):
 def test_scene_arrays_equal_jax(name):
     fn, nx, ny = SCENES[name]
     js, jc = getattr(jspheres, fn)(nx, ny)
-    ts, tc = getattr(tspheres, fn)(nx, ny)
+    ts, tc = getattr(tspheres, fn)(nx, ny, device="cpu")
     if name == "spheres":
         assert ts.sphere_center.shape[0] == 486
     want = jax_fields(js)
@@ -104,7 +104,7 @@ def test_scene_arrays_equal_jax(name):
 def test_three_sphere_matches_oracle():
     cfg = RenderConfig(nx=48, ny=32, ns=8, max_depth=8)
     jcfg = JConfig(nx=48, ny=32, ns=8, max_depth=8)
-    ts, tc = tspheres.three_sphere_scene(cfg.nx, cfg.ny)
+    ts, tc = tspheres.three_sphere_scene(cfg.nx, cfg.ny, device="cpu")
     js, jc = jspheres.three_sphere_scene(cfg.nx, cfg.ny)
     assert_close_images(render_image(ts, tc, cfg),
                         render_oracle(js, jc, jcfg))
@@ -157,7 +157,7 @@ def test_regen_matches_plain_engine(name):
     (see test_chunking_invariance) may round differently."""
     fn, nx, ny = SCENES[name]
     cfg = RenderConfig(nx=nx, ny=ny, ns=3, max_depth=8)
-    ts, tc = getattr(tspheres, fn)(nx, ny)
+    ts, tc = getattr(tspheres, fn)(nx, ny, device="cpu")
     np.testing.assert_allclose(render_image_regen(ts, tc, cfg),
                                render_image(ts, tc, cfg), rtol=0, atol=1e-5)
 
@@ -170,7 +170,7 @@ def test_chunking_invariance(engine):
     vectorized code on full SIMD blocks and scalar code on the tail, so a
     lane's result can move by an ulp with its position in the tensor."""
     cfg = RenderConfig(nx=40, ny=24, ns=2, max_depth=4)
-    ts, tc = tspheres.three_sphere_scene(cfg.nx, cfg.ny)
+    ts, tc = tspheres.three_sphere_scene(cfg.nx, cfg.ny, device="cpu")
     fn = render_image_regen if engine == "regen" else render_image
     np.testing.assert_allclose(fn(ts, tc, cfg),
                                fn(ts, tc, cfg.replace(rays_per_chunk=250)),
@@ -179,13 +179,13 @@ def test_chunking_invariance(engine):
 
 def test_max_depth_zero_is_black():
     cfg = RenderConfig(nx=8, ny=8, ns=1, max_depth=0)
-    ts, tc = tspheres.three_sphere_scene(cfg.nx, cfg.ny)
+    ts, tc = tspheres.three_sphere_scene(cfg.nx, cfg.ny, device="cpu")
     np.testing.assert_array_equal(render_image(ts, tc, cfg), 0.0)
 
 
 def test_sample_ranges_add_up():
     cfg = RenderConfig(nx=24, ny=16, ns=3, max_depth=6)
-    ts, tc = tspheres.random_spheres_scene(cfg.nx, cfg.ny)
+    ts, tc = tspheres.random_spheres_scene(cfg.nx, cfg.ny, device="cpu")
     whole = render_sample_range(ts, tc, cfg, 0, 3)
     parts = (render_sample_range(ts, tc, cfg, 0, 2)
              + render_sample_range(ts, tc, cfg, 2, 1))
@@ -215,7 +215,7 @@ def test_stats_match_jax_plain_engine():
 
 def test_renderer_lifecycle_and_print_stats(capsys):
     cfg = RenderConfig(nx=16, ny=12, ns=2, max_depth=4, stats=True)
-    ts, tc = tspheres.three_sphere_scene(cfg.nx, cfg.ny)
+    ts, tc = tspheres.three_sphere_scene(cfg.nx, cfg.ny, device="cpu")
     r = Renderer(ts, tc, cfg)
     fb = r.run()
     assert fb.shape == (12, 16, 3) and r.framebuffer is fb
@@ -228,20 +228,24 @@ def test_renderer_lifecycle_and_print_stats(capsys):
 
 
 def test_unported_features_raise():
-    """A mesh the JAX package sends to its packet-BVH or traversal
-    kernels (use_bvh, more than packet_threshold triangles) raises naming
-    slice 3, in both engines; with use_bvh off it takes the oracle."""
-    ts, tc = tmesh.procedural_staircase_scene(8, 8)
+    """A mesh the JAX package sends to its packet-BVH kernels (use_bvh,
+    more than packet_threshold triangles) renders through the heap walk
+    (slice 3) in both engines, the same image as the brute-force kernel
+    and the oracle; the heap kernel variants that are not ported
+    (fast_math, mx_leaf, regroup) raise naming slice 5b."""
+    ts, tc = tmesh.procedural_staircase_scene(8, 8, device="cpu")
     cfg = RenderConfig(nx=8, ny=8, ns=1, max_depth=2, packet_threshold=600)
     assert ts.mesh.num_tris == 640
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        render_image(ts, tc, cfg)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        render_image_regen(ts, tc, cfg)
+    heap = render_image(ts, tc, cfg)
+    np.testing.assert_array_equal(render_image_regen(ts, tc, cfg), heap)
+    np.testing.assert_array_equal(
+        render_image(ts, tc, cfg.replace(packet_threshold=640)), heap)
     assert render_image(ts, tc, cfg.replace(use_bvh=False)).mean() > 0
-    render_image(ts, tc, cfg.replace(packet_threshold=640))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        scene_from_numpy({"mesh": {"bvh4": object()}}, "cpu")
+    for knob in ("fast_math", "mx_leaf", "regroup"):
+        with pytest.raises(NotImplementedError, match="slice 5b"):
+            render_image(ts, tc, cfg.replace(**{knob: True}))
+        with pytest.raises(NotImplementedError, match="slice 5b"):
+            render_image_regen(ts, tc, cfg.replace(**{knob: True}))
 
 
 def _cli(*args, cwd):
@@ -254,19 +258,25 @@ def _cli(*args, cwd):
 def test_cli_renders_png_and_stats(tmp_path):
     out = tmp_path / "o.png"
     p = _cli("--scene", "three-sphere", "--nx", "16", "--ny", "8", "--ns",
-             "1", "--max-depth", "3", "-o", str(out), cwd=tmp_path)
+             "1", "--max-depth", "3", "-o", str(out), "--device", "cpu",
+             cwd=tmp_path)
     assert p.returncode == 0, p.stderr
     assert out.stat().st_size > 0 and "took" in p.stderr
     p = _cli("--scene", "spheres", "--nx", "12", "--ny", "8", "--ns", "1",
              "--max-depth", "3", "--engine", "plain", "--stats",
-             "--store-ref", cwd=tmp_path)
+             "--store-ref", "--device", "cpu", cwd=tmp_path)
     assert p.returncode == 0, p.stderr
     assert "primary" in p.stderr and (tmp_path / "f12-8.ref").exists()
 
 
-@pytest.mark.parametrize("scene,slice_", [("staircase-hires", "slice 3"),
-                                          ("knot", "slice 3"),
-                                          ("zoo-glass", "slice 3")])
+@pytest.mark.parametrize(
+    "scene,slice_", [("staircase-hires", "slice 3"), ("knot", "slice 3"),
+                     ("zoo-glass", "slice 3")],
+    ids=["staircase-hires-slice 3", "knot-slice 3", "zoo-glass-slice 3"])
 def test_cli_names_the_slice_of_unported_scenes(tmp_path, scene, slice_):
+    """The scenes slice 3 brought are the CLI's; like every scene they
+    render on the card, and without one the CLI exits non-zero naming
+    ``--device cpu`` instead of falling back to the CPU."""
     p = _cli("--scene", scene, "--nx", "8", "--ny", "8", cwd=tmp_path)
-    assert p.returncode != 0 and slice_ in p.stderr
+    assert p.returncode != 0 and "--device cpu" in p.stderr
+    assert "unknown scene" not in p.stderr

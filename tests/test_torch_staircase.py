@@ -78,7 +78,8 @@ def test_variants_match_jax(knob):
 def test_matches_oracle():
     """tests/test_render_golden.py:26-33, through the port."""
     cfg = RenderConfig(nx=40, ny=50, ns=4, max_depth=5)
-    ts, tc = tmesh.procedural_staircase_scene(cfg.nx, cfg.ny)
+    ts, tc = tmesh.procedural_staircase_scene(cfg.nx, cfg.ny,
+                                              device="cpu")
     js, jc = jmesh.procedural_staircase_scene(cfg.nx, cfg.ny)
     ref = render_oracle(js, jc, JConfig(nx=40, ny=50, ns=4, max_depth=5))
     img = render_image(ts, tc, cfg)
@@ -92,7 +93,8 @@ def test_committed_golden():
     the port's own scene: PyTorch contracts no FMA on the CPU, and the
     image agrees with the golden to float32 rounding."""
     cfg = RenderConfig(nx=24, ny=16, ns=2, max_depth=6, rays_per_chunk=128)
-    ts, tc = tmesh.procedural_staircase_scene(cfg.nx, cfg.ny)
+    ts, tc = tmesh.procedural_staircase_scene(cfg.nx, cfg.ny,
+                                              device="cpu")
     img = render_image(ts, tc, cfg)
     ref = golden.load_reference(os.path.join(
         ROOT, "assets", "staircase_24x16_2spp.ref"), 24, 16)
@@ -106,7 +108,8 @@ def test_bvh_on_equals_off(engine):
     the all-triangles oracle over the padded heap (use_bvh=False) trace
     the same paths bit for bit."""
     cfg = RenderConfig(nx=32, ny=40, ns=2, max_depth=4)
-    ts, tc = tmesh.procedural_staircase_scene(cfg.nx, cfg.ny)
+    ts, tc = tmesh.procedural_staircase_scene(cfg.nx, cfg.ny,
+                                              device="cpu")
     fn = render_image_regen if engine == "regen" else render_image
     np.testing.assert_array_equal(fn(ts, tc, cfg),
                                   fn(ts, tc, cfg.replace(use_bvh=False)))
@@ -114,7 +117,8 @@ def test_bvh_on_equals_off(engine):
 
 def test_regen_matches_plain_engine():
     cfg = RenderConfig(nx=24, ny=20, ns=3, max_depth=10)
-    ts, tc = tmesh.procedural_staircase_scene(cfg.nx, cfg.ny)
+    ts, tc = tmesh.procedural_staircase_scene(cfg.nx, cfg.ny,
+                                              device="cpu")
     np.testing.assert_allclose(render_image_regen(ts, tc, cfg),
                                render_image(ts, tc, cfg), rtol=0,
                                atol=1e-5)
@@ -193,7 +197,8 @@ def test_loaded_bvh_scene_matches_jax(tmp_path):
     jbvh.save_bvh_file(bvh, jmesh.procedural_staircase_scene(8, 8)[0].mesh)
     tex = _texture_dir(tmp_path)
     cfg, jcfg = _configs(nx=32, ny=24, ns=2, max_depth=6)
-    ts, tc = tmesh.load_staircase_scene(bvh, tex, cfg.nx, cfg.ny)
+    ts, tc = tmesh.load_staircase_scene(bvh, tex, cfg.nx, cfg.ny,
+                                        device="cpu")
     js, jc = jmesh.load_staircase_scene(bvh, tex, cfg.nx, cfg.ny)
     assert ts.mesh.brute is None and ts.tex_atlas.shape == (9, 12, 16, 3)
     img = render_image(ts, tc, cfg)
@@ -205,7 +210,7 @@ def test_loaded_bvh_scene_matches_jax(tmp_path):
 def test_scene_on_a_cuda_device_needs_the_kernel():
     """The engine passes the mesh to the kernel wrappers, which take the
     plain version only for CPU tensors."""
-    ts, tc = tmesh.procedural_staircase_scene(8, 8)
+    ts, tc = tmesh.procedural_staircase_scene(8, 8, device="cpu")
     calls = []
     real = ct.tris_hit_feat
 
@@ -230,18 +235,24 @@ def _cli(*args, cwd):
 def test_cli_renders_the_mesh_scenes(tmp_path):
     p = _cli("--scene", "staircase", "--nx", "16", "--ny", "12", "--ns",
              "1", "--max-depth", "3", "--engine", "plain", "--stats",
-             "-o", str(tmp_path / "s.png"), cwd=tmp_path)
+             "-o", str(tmp_path / "s.png"), "--device", "cpu", cwd=tmp_path)
     assert p.returncode == 0, p.stderr
     assert "shadows" in p.stderr and (tmp_path / "s.png").exists()
     bvh = str(tmp_path / "stairs.bvh")
     jbvh.save_bvh_file(bvh, jmesh.procedural_staircase_scene(8, 8)[0].mesh)
     p = _cli("--scene", bvh, "--texture-dir", _texture_dir(tmp_path),
              "--nx", "12", "--ny", "8", "--ns", "1", "--max-depth", "2",
-             cwd=tmp_path)
+             "--device", "cpu", cwd=tmp_path)
     assert p.returncode == 0, p.stderr
     obj = tmp_path / "tet.obj"
     obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\n"
                    "f 1 3 2\nf 1 2 4\nf 1 4 3\nf 2 3 4\n")
     p = _cli("--scene", str(obj), "--nx", "12", "--ny", "8", "--ns", "1",
-             "--max-depth", "2", "--no-bvh", cwd=tmp_path)
+             "--max-depth", "2", "--no-bvh", "--device", "cpu", cwd=tmp_path)
     assert p.returncode == 0, p.stderr
+    # a slice-3 scene: the 12k-triangle torus takes the BVH4 tier
+    p = _cli("--scene", "zoo-glass", "--nx", "8", "--ny", "6", "--ns", "1",
+             "--max-depth", "2", "--engine", "plain", "--stats",
+             "--device", "cpu", cwd=tmp_path)
+    assert p.returncode == 0, p.stderr
+    assert "leaf_visits" in p.stderr

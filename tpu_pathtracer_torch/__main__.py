@@ -5,28 +5,34 @@ Examples:
       --ns 100 --max-depth 50 -o out.png
   python -m tpu_pathtracer_torch --scene staircase --nx 1200 --ny 800 \
       --ns 100 -o stairs.png
+  python -m tpu_pathtracer_torch --scene staircase-hires --nx 1200 \
+      --ny 800 --ns 100 -o hires.png
   python -m tpu_pathtracer_torch --scene three-sphere --rmse
+  python -m tpu_pathtracer_torch --scene staircase --nx 64 --ny 48 \
+      --ns 2 --device cpu -o small.png
 
-Renders on the first CUDA device if there is one, else on the CPU.
+Renders on the CUDA device (``--device``, default ``cuda``). Without a
+CUDA device it exits non-zero unless ``--device cpu`` asks for the CPU.
 """
 
 import argparse
 import sys
 import time
 
-# scenes of the JAX package's CLI and the slice of the port that brings
-# each (ROADMAP queue A)
-_LATER = {"staircase-hires": "slice 3", "knot": "slice 3",
-          "dragon": "slice 3", "terrain": "slice 3", "rocks": "slice 3",
-          "terrain-big": "slice 3"}
 
-
-def _later_slice(scene: str) -> str:
-    if scene in _LATER:
-        return _LATER[scene]
-    if scene.startswith("zoo-"):
-        return "slice 3"
-    return ""
+# the large-mesh scenes of main.py: (models.shapes function, arguments)
+_SHAPE_SCENES = {
+    "knot": ("knot_zoo_scene", {}),
+    # dragon-class 872k-triangle knot
+    "dragon": ("knot_zoo_scene", dict(nu=1664, nv=262)),
+    # irregular: fBm terrain + thin struts (~168k triangles)
+    "terrain": ("terrain_zoo_scene", {}),
+    # irregular dragon-scale rock pile (~845k triangles)
+    "rocks": ("rocks_zoo_scene", {}),
+    # dragon-scale irregular terrain (~668k triangles): the quant BVH4 tier
+    "terrain-big": ("terrain_big_zoo_scene", {}),
+}
+_ZOO = ("coat", "diffuse", "glass", "sss")
 
 
 def build(args, device):
@@ -48,6 +54,20 @@ def build(args, device):
     elif args.scene == "staircase":
         scene, cam = mesh_scenes.procedural_staircase_scene(
             cfg.nx, cfg.ny, device=device)
+    elif args.scene == "staircase-hires":
+        # asset-scale tessellation (~154k triangles), the BVH4 tier
+        scene, cam = mesh_scenes.procedural_staircase_scene(
+            cfg.nx, cfg.ny, prims_per_leaf=64, sub=20, device=device)
+    elif args.scene in _SHAPE_SCENES or args.scene.startswith("zoo-"):
+        from tpu_pathtracer_torch.models import shapes
+        if args.scene.startswith("zoo-"):
+            scene, cam = shapes.model_zoo_scene(cfg.nx, cfg.ny,
+                                                args.scene[4:],
+                                                device=device)
+        else:
+            fn, kw = _SHAPE_SCENES[args.scene]
+            scene, cam = getattr(shapes, fn)(cfg.nx, cfg.ny, device=device,
+                                             **kw)
     elif args.scene.endswith(".obj"):
         from tpu_pathtracer_torch.models.obj import load_obj_scene
         scene, cam = load_obj_scene(args.scene, cfg.nx, cfg.ny,
@@ -55,9 +75,6 @@ def build(args, device):
     elif args.scene.endswith(".bvh"):
         scene, cam = mesh_scenes.load_staircase_scene(
             args.scene, args.texture_dir, cfg.nx, cfg.ny, device=device)
-    elif _later_slice(args.scene):
-        raise SystemExit(f"scene {args.scene!r} is not ported yet: "
-                         f"{_later_slice(args.scene)} of the port brings it")
     else:
         raise SystemExit(f"unknown scene {args.scene!r}")
     return scene, cam, cfg
@@ -67,8 +84,13 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--scene", default="spheres",
                    help="spheres | three-sphere | staircase | "
-                        "path/to/file.obj | path/to/file.bvh (the other "
-                        "scenes of main.py come with slice 3 of the port)")
+                        "staircase-hires | knot | dragon | rocks | "
+                        "terrain | terrain-big | "
+                        "zoo-{coat,diffuse,glass,sss} | path/to/file.obj | "
+                        "path/to/file.bvh")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; the run fails without a CUDA "
+                        "device) or cpu")
     p.add_argument("--texture-dir", default=None,
                    help="the nine staircase PNGs, for a .bvh scene")
     p.add_argument("--nx", type=int, default=640)
@@ -95,9 +117,15 @@ def main(argv=None):
         raise SystemExit("--tiled is not ported yet: slice 4 of the port "
                          "brings it")
 
+    if args.scene.startswith("zoo-") and args.scene[4:] not in _ZOO:
+        raise SystemExit(f"unknown scene {args.scene!r}")
+
     import torch
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device (torch.cuda.is_available() is "
+                         "False): pass --device cpu to render on the CPU")
     scene, cam, cfg = build(args, device)
     print(f"Rendering a {cfg.nx}x{cfg.ny} image with {cfg.ns} samples per "
           f"pixel and max depth {cfg.max_depth} on {device}.",

@@ -74,7 +74,7 @@ def _unit(a: np.ndarray) -> np.ndarray:
 
 def make_camera(lookfrom, lookat, vup, vfov_deg: float, aspect: float,
                 aperture: float = 0.0, focus_dist: float | None = None,
-                device="cpu") -> Camera:
+                device="cuda") -> Camera:
     """Build a camera exactly as helper_structs.h:194–206 (vfov is the full
     vertical field of view in degrees, top to bottom)."""
     f32 = np.float32
@@ -101,7 +101,7 @@ def make_camera(lookfrom, lookat, vup, vfov_deg: float, aspect: float,
                   t(vertical), t(u), t(v), t(w), t(aperture / 2.0))
 
 
-def staircase_camera(nx: int, ny: int, device="cpu") -> Camera:
+def staircase_camera(nx: int, ny: int, device="cuda") -> Camera:
     """The staircase scene's camera (staircase_scene.h:62–73)."""
     lookfrom = (5.555139, 173.679901, 494.515045)
     lookat = (5.555139, 173.679901, 493.515045)

@@ -46,11 +46,15 @@
 // Numerics: built with -fmad=false and without --use_fast_math (IEEE
 // division), and each expression is written in the operation order of the
 // plain PyTorch version in ops/cuda_tris.py, so the two agree bit for bit.
+// The per-pair test is pt::mt_hit of bvh_common.cuh, shared with the BVH
+// kernels.
 
 #include <cfloat>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "bvh_common.cuh"
 
 namespace {
 
@@ -94,30 +98,9 @@ tris_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     __syncthreads();
     if (done) continue;
     for (int k = 0; k < cnt; ++k) {
-      const float4 p = tile[3 * k];
-      const float4 q4 = tile[3 * k + 1];
-      const float4 r = tile[3 * k + 2];
-      const float v0x = p.x, v0y = p.y, v0z = p.z;
-      const float g1x = p.w, g1y = q4.x, g1z = q4.y;
-      const float g2x = q4.z, g2y = q4.w, g2z = r.x;
-      const float n1 = r.y, n2 = r.z, n3 = r.w;
-      const float a = -(d1 * n1 + d2 * n2 + d3 * n3);
-      const bool parallel = fabsf(a) < 1e-7f;
-      const float f = 1.0f / a;
-      const float sx = o1 - v0x;
-      const float sy = o2 - v0y;
-      const float sz = o3 - v0z;
-      const float qx = sy * d3 - sz * d2;
-      const float qy = sz * d1 - sx * d3;
-      const float qz = sx * d2 - sy * d1;
-      const float u = f * (qx * g2x + qy * g2y + qz * g2z);
-      const float v = -(f * (qx * g1x + qy * g1y + qz * g1z));
-      const float t = f * (sx * n1 + sy * n2 + sz * n3);
-      // min(u, v) < 0 with NaN propagated: false if either is NaN
-      const bool neg = (u < 0.f || v < 0.f) && !isnan(u) && !isnan(v);
-      const bool bad = parallel || neg || (u + v > 1.f) || !(t > t_min) ||
-                       !(t < t_best);
-      if (!bad) {
+      float t, u, v;
+      if (pt::mt_hit(tile[3 * k], tile[3 * k + 1], tile[3 * k + 2], o1, o2,
+                     o3, d1, d2, d3, t_min, t_best, t, u, v)) {
         i_best = base + k;
         if (MODE == kAnyHit) {  // any win decides the ray
           done = true;

@@ -23,17 +23,26 @@ import torch
 from tpu_pathtracer_torch.camera import Camera
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine.wavefront import (
-    BounceState, Stats, bounce_step, check_supported, initial_state,
-    make_view)
+    BounceState, Stats, _use_packet, bounce_step, check_supported,
+    initial_state, make_view)
 from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.ops.v3 import V3, where as vwhere
 
 
-def _pool_size(config: RenderConfig, num_pixels: int) -> int:
-    """Lane-pool size: ``rays_per_chunk`` if set, else 32768 lanes (the
-    JAX package's choice for sphere scenes; smaller pools cover more
-    pixels per lane and average away the heavy-pixel tail)."""
-    m = config.rays_per_chunk or (1 << 15)
+def _pool_size(config: RenderConfig, num_pixels: int,
+               scene: Scene | None = None) -> int:
+    """Lane-pool size: ``rays_per_chunk`` if set; else the JAX package's
+    choices: on its packet-BVH path 128k lanes with image textures and
+    192k without, elsewhere 32768 (smaller pools cover more pixels per
+    lane and average away the heavy-pixel tail). The pool sets the
+    iteration count, and so the number of host syncs."""
+    if config.rays_per_chunk:
+        m = config.rays_per_chunk
+    elif scene is not None and _use_packet(scene, config):
+        textured = config.textures and scene.tex_atlas is not None
+        m = (1 << 17) if textured else (3 << 16)
+    else:
+        m = 1 << 15
     return int(min(m, num_pixels))
 
 
@@ -54,7 +63,7 @@ def render_regen(scene: Scene, camera: Camera, config: RenderConfig,
     dev = camera.device
     n = num_pixels if num_pixels is not None else config.num_pixels
     ns = int(config.ns if ns is None else ns)
-    m = _pool_size(config, n)
+    m = _pool_size(config, n, scene)
     rounds = (n + m - 1) // m
     view = make_view(scene, config)
 

@@ -96,7 +96,8 @@ class Renderer:
 
     def print_stats(self) -> None:
         """printStats — the reference's counter report
-        (kernels.cu:116–137)."""
+        (kernels.cu:116–137). The node and leaf rows count per ray,
+        summed over rays (see ``Stats``)."""
         if self.stats is None:
             return
         s = self.stats
@@ -118,7 +119,7 @@ class Renderer:
                 ("russian roulette", s.roulette_kill),
                 ("both nodes hit", s.nodes_both),
                 ("single node hit", s.nodes_single),
-                ("leaf visits (pkt)", s.leaf_visits),
+                ("leaf visits", s.leaf_visits),
                 ("leaf pop-entered", s.leaf_pop)]
         for name, v in rows:
             print(f" {name:20s}: {v}")

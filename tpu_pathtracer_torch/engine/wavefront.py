@@ -4,13 +4,22 @@
 A batch of N paths advances one bounce per call of :func:`bounce_step`;
 each stage (intersect, scatter, roulette) is a masked elementwise pass
 over dense ``[N]`` component tensors. Sphere intersection goes through
-:func:`tpu_pathtracer_torch.ops.cuda_spheres.spheres_hit_feat` and
-triangle-mesh intersection (``use_bvh``) through
-:func:`tpu_pathtracer_torch.ops.cuda_tris.tris_hit_feat`, the shadow rays
-through their any-hit modes: the CUDA kernels for tensors on the GPU,
-their plain versions on the CPU. This is the JAX package's dispatch on a
-TPU for a small mesh. ``use_bvh=False`` takes the all-triangles oracle
-:func:`tpu_pathtracer_torch.ops.bvh.brute_force`.
+:func:`tpu_pathtracer_torch.ops.cuda_spheres.spheres_hit_feat`; the
+shadow rays through the any-hit modes. A triangle mesh takes one of four
+tiers (:func:`mesh_tier`), as the JAX package dispatches on a TPU:
+
+  * ``bvh4``: a mesh above ``packet_threshold`` triangle slots with SAH
+    BVH4 tables and ``config.bvh4`` — ``ops/cuda_bvh4.py``;
+  * ``heap``: any other mesh above ``packet_threshold``, or above
+    ``TRI_BRUTE_MAX`` — the heap BVH walk ``ops/cuda_bvh.py``;
+  * ``brute``: a smaller mesh — ``ops/cuda_tris.py``;
+  * ``oracle``: ``use_bvh=False`` — the all-triangles scan
+    :func:`tpu_pathtracer_torch.ops.bvh.brute_force`.
+
+Each runs its CUDA kernel for tensors on the GPU and its plain version
+on the CPU. The two BVH tiers trace one ray per thread; the rays are
+sorted by a coherence key first (``sort_rays``, ``shadow_sort``), which
+groups similar rays into warps and does not change any ray's result.
 
 Radiance accumulation reproduces the reference:
   * miss → ``color += attenuation * sky`` and the path ends;
@@ -21,9 +30,13 @@ Radiance accumulation reproduces the reference:
   * roulette from bounce ``rr_start_bounce + 1`` with survival
     probability max(attenuation).
 
-A mesh that the JAX package sends to its packet-BVH or traversal kernels
-(``use_bvh`` with more than ``packet_threshold`` triangles) raises
-``NotImplementedError("slice 3")``.
+The TPU schedule knobs of the JAX package's packet kernels
+(``packet_packs``, ``packet_split``, ``oct``, ``prefetch``, ``pair_pf``,
+``leaf_cull``, ``tree_min``, ``packet_scratch``, ``bvh4_pf``,
+``bvh4_spec``, ``bvh4_pair``, ``bvh4_scratch``, ``packet_width``) change
+how a packet of rays is scheduled, not what it hits; a per-ray walk has
+no packets, so they have no effect here. The knobs that change results
+(``fast_math``, ``mx_leaf``, ``regroup``) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -38,6 +51,8 @@ from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.models import scene as sc
 from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.ops import bvh as _bvh
+from tpu_pathtracer_torch.ops import cuda_bvh as _cb
+from tpu_pathtracer_torch.ops import cuda_bvh4 as _cb4
 from tpu_pathtracer_torch.ops import cuda_spheres as _cs
 from tpu_pathtracer_torch.ops import cuda_tris as _ct
 from tpu_pathtracer_torch.ops import materials as _m
@@ -47,22 +62,46 @@ from tpu_pathtracer_torch.ops.intersect import BBOX_T_MIN
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 
 TRI_BRUTE_MAX = 16384  # the JAX package's largest brute-force mesh
+# knobs of the JAX package's heap packet kernels that change results;
+# not ported (ROADMAP queue B, slice 5b)
+_UNPORTED_KNOBS = ("fast_math", "mx_leaf", "regroup")
+
+
+def _use_packet(scene: Scene, config: RenderConfig) -> bool:
+    """The JAX package's packet-path rule: ``use_bvh`` and more than
+    ``packet_threshold`` triangle slots, on a heap with a power-of-two
+    leaf row."""
+    if not (scene.has_mesh and config.use_bvh):
+        return False
+    fl = scene.mesh.first_leaf
+    thresh = config.packet_threshold or TRI_BRUTE_MAX
+    return scene.mesh.num_tris > thresh and fl & (fl - 1) == 0
+
+
+def mesh_tier(scene: Scene, config: RenderConfig) -> str:
+    """Which intersection the mesh takes: "bvh4", "heap", "brute" or
+    "oracle" ("" without a mesh). Large meshes off the packet path take
+    the heap walk, which is the JAX package's ``traverse``."""
+    if not scene.has_mesh:
+        return ""
+    if not config.use_bvh:
+        return "oracle"
+    if _use_packet(scene, config):
+        return "bvh4" if (config.bvh4 and scene.mesh.bvh4 is not None) \
+            else "heap"
+    return "heap" if scene.mesh.num_tris > TRI_BRUTE_MAX else "brute"
 
 
 def check_supported(scene: Scene, config: RenderConfig) -> None:
-    """Raise for a mesh whose path is not ported yet, rather than render
-    it another way: with ``use_bvh``, the JAX package brute-forces a mesh
-    of at most ``packet_threshold`` (and ``TRI_BRUTE_MAX``) triangles and
-    traverses a BVH for a larger one."""
-    if not (scene.has_mesh and config.use_bvh):
-        return
-    n = scene.mesh.num_tris
-    limit = min(config.packet_threshold or TRI_BRUTE_MAX, TRI_BRUTE_MAX)
-    if n > limit:
-        raise NotImplementedError(
-            f"slice 3: a {n}-triangle mesh with use_bvh takes the JAX "
-            f"package's packet-BVH or traversal path (more than {limit} "
-            "triangles), which is not ported yet")
+    """Raise for a knob that would change the image and is not ported:
+    ``fast_math``, ``mx_leaf`` and ``regroup`` select other kernels for a
+    heap-tier mesh on the JAX package's packet path (slice 5b)."""
+    if _use_packet(scene, config) and mesh_tier(scene, config) == "heap":
+        for knob in _UNPORTED_KNOBS:
+            if getattr(config, knob):
+                raise NotImplementedError(
+                    f"slice 5b: {knob}=True selects a JAX packet kernel "
+                    "variant that is not ported yet")
 
 
 class MatCols(NamedTuple):
@@ -140,6 +179,10 @@ class SceneView(NamedTuple):
     tri_n: Optional[V3] = None         # face normals e1×e2
     tri_feat: Optional[torch.Tensor] = None  # [T, 26] e1, e2, tc, 14 mat cols
     atlas: Optional[torch.Tensor] = None     # [K*H*W, 3] texel rows
+    # BVH tiers: the kernel's tables (cuda_bvh.HeapTables or
+    # cuda_bvh4.Bvh4Tables) and the [n_mats, 14] material rows
+    packet: Optional[tuple] = None
+    mat_rows: Optional[torch.Tensor] = None
 
 
 def make_view(scene: Scene, config: Optional[RenderConfig] = None
@@ -153,10 +196,17 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
              _material_table(scene.materials, scene.sphere_mat)],
             dim=1).contiguous()
     tri_v0 = tri_e1 = tri_e2 = tri_n = tri_feat = None
-    if scene.has_mesh:
+    packet = mat_rows = None
+    tier = mesh_tier(scene, config) if config is not None else "oracle"
+    if tier in ("bvh4", "heap"):
+        packet = (_cb4.bvh4_tables(scene.mesh.bvh4) if tier == "bvh4"
+                  else _cb.heap_tables(scene.mesh))
+        mats = scene.materials
+        mat_rows = _material_table(
+            mats, torch.arange(mats.count, device=mats.mtype.device))
+    elif scene.has_mesh:
         m = scene.mesh
-        if (m.brute is not None and config is not None and config.use_bvh
-                and m.num_tris <= TRI_BRUTE_MAX):
+        if m.brute is not None and tier == "brute":
             # the live triangles without the heap's sentinel padding: the
             # brute-force kernel reads only these (384 of 640 slots on the
             # staircase). Triangle ids then index these arrays, which only
@@ -181,7 +231,7 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
         # [K,H,W,3] -> [K*H*W, 3]: one row gather fetches a texel
         atlas = scene.tex_atlas.reshape(-1, 3)
     return SceneView(sph_c, sph_r, sph_feat, tri_v0, tri_e1, tri_e2, tri_n,
-                     tri_feat, atlas)
+                     tri_feat, atlas, packet, mat_rows)
 
 
 class Intersection(NamedTuple):
@@ -197,9 +247,14 @@ class Intersection(NamedTuple):
 class Stats(NamedTuple):
     """The reference's ray-accounting counters (kernels.cu:48–66) as
     masked sums, 0-dim int64 tensors on the render's device. Field names
-    and meanings are the JAX package's. The node and leaf counters count
-    BVH traversal steps: the brute-force triangle path visits no nodes,
-    so they stay 0 until the traversals (slice 3)."""
+    are the JAX package's. The traversal counters come from the BVH
+    kernels and count per ray, summed over rays (the JAX package's packet
+    kernels count per 1024-ray packet, so the two are not comparable):
+    ``nodes_both``/``nodes_single``, interior steps that enter two / one
+    child (heap) or find two or more / one hit child (BVH4);
+    ``leaf_visits``, leaf visits; ``leaf_pop``, the BVH4 visits entered by
+    popping a leaf ref (0 on the heap). The brute-force and oracle paths
+    visit no nodes and leave them 0."""
     primary: torch.Tensor
     primary_hit_mesh: torch.Tensor
     primary_nohit: torch.Tensor
@@ -300,16 +355,125 @@ def _mesh_bbox_hit(scene: Scene, origin: V3, direction: V3,
     return tmax_acc >= tmin_acc
 
 
+def _ray_sort_key(scene: Scene, origin: V3, direction: V3) -> torch.Tensor:
+    """18-bit coherence key of the JAX package: the direction octant
+    (bits 15-17) over a 15-bit morton code of the origin quantized to 32
+    steps an axis within the mesh bounds."""
+    lo = scene.mesh.bounds_min
+    ext = torch.clamp_min(scene.mesh.bounds_max - lo, 1e-9)
+
+    def q5(x, a):
+        v = torch.clamp((x - lo[a]) / ext[a] * 31.0, 0.0, 31.0)
+        return v.to(torch.int64)
+
+    qx, qy, qz = q5(origin.x, 0), q5(origin.y, 1), q5(origin.z, 2)
+    m = torch.zeros_like(qx)
+    for b in range(5):
+        m = m | (((qx >> b) & 1) << (3 * b))
+        m = m | (((qy >> b) & 1) << (3 * b + 1))
+        m = m | (((qz >> b) & 1) << (3 * b + 2))
+    octant = ((direction.x < 0).to(torch.int64)
+              | ((direction.y < 0).to(torch.int64) << 1)
+              | ((direction.z < 0).to(torch.int64) << 2))
+    return (octant << 15) | m
+
+
+def _shadow_sort_key(scene: Scene, config: RenderConfig, origin: V3,
+                     direction: V3, t_max: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``shadow_sort`` keys, with the lanes that carry
+    no shadow ray (t_max <= 0) sorted to the end."""
+    if config.shadow_sort == "origin":
+        key = _ray_sort_key(scene, origin, direction) & 0x7FFF
+    elif config.shadow_sort == "light":
+        lc = scene.light_center
+        octant = ((origin.x > lc[0]).to(torch.int64)
+                  | ((origin.y > lc[1]).to(torch.int64) << 1)
+                  | ((origin.z > lc[2]).to(torch.int64) << 2))
+        key = (octant << 15) | (_ray_sort_key(scene, origin, direction)
+                                & 0x7FFF)
+    else:  # "scatter"
+        key = _ray_sort_key(scene, origin, direction)
+    return key | ((t_max <= 0.0).to(torch.int64) << 18)
+
+
+def _sorted(key: Optional[torch.Tensor], origin: V3, direction: V3,
+            t_max: torch.Tensor):
+    """(permutation or None, origin, direction, t_max) in key order."""
+    if key is None:
+        return None, origin, direction, t_max
+    perm = torch.sort(key, stable=True).indices
+    g = lambda v: V3(*(c[perm] for c in v))
+    return perm, g(origin), g(direction), t_max[perm]
+
+
+def _unsorted(perm: Optional[torch.Tensor], a: torch.Tensor) -> torch.Tensor:
+    if perm is None:
+        return a
+    out = torch.empty_like(a)
+    out[perm] = a
+    return out
+
+
+def _packet_nearest(scene: Scene, view: SceneView, config: RenderConfig,
+                    origin: V3, direction: V3, t_min: float,
+                    t_max: torch.Tensor):
+    """Large-mesh nearest hit through the BVH kernels, sorted by the
+    coherence key when ``sort_rays``, then the winner's features. Returns
+    ((t, tri, u, v, normal V3, tu, tv, mid), per-ray counters [5, N])."""
+    key = (_ray_sort_key(scene, origin, direction) if config.sort_rays
+           else None)
+    perm, o_s, d_s, tm = _sorted(key, origin, direction, t_max)
+    if isinstance(view.packet, _cb4.Bvh4Tables):
+        t, tri, cnt = _cb4.bvh4_trace(o_s, d_s, tm, view.packet, t_min)
+    else:
+        t, tri, cnt = _cb.heap_trace(o_s, d_s, tm, view.packet, t_min)
+    t, tri = _unsorted(perm, t), _unsorted(perm, tri)
+    t, tri, u, v, nx, ny, nz, tu, tv, mid = _cb.winner_features(
+        origin, direction, t, tri, view.packet.tri_feat)
+    return (t, tri, u, v, V3(nx, ny, nz), tu, tv, mid), cnt
+
+
+def _packet_shadow(scene: Scene, view: SceneView, config: RenderConfig,
+                   origin: V3, direction: V3, t_min: float,
+                   t_max: torch.Tensor):
+    """Large-mesh any-hit occlusion through the BVH kernels, sorted by
+    the shadow key when ``sort_rays``. Returns (occ [N], counters)."""
+    key = (_shadow_sort_key(scene, config, origin, direction, t_max)
+           if config.sort_rays else None)
+    perm, o_s, d_s, tm = _sorted(key, origin, direction, t_max)
+    if isinstance(view.packet, _cb4.Bvh4Tables):
+        occ, cnt = _cb4.bvh4_occluded(o_s, d_s, tm, view.packet, t_min)
+    else:
+        occ, cnt = _cb.heap_occluded(o_s, d_s, tm, view.packet, t_min)
+    return _unsorted(perm, occ), cnt
+
+
+def _cols_from_rows(rows: torch.Tensor) -> MatCols:
+    """Decode [N, 14] material-column rows (one row gather from the
+    [n_mats, 14] table)."""
+    return MatCols(
+        mtype=rows[:, 0].to(torch.int32),
+        color=V3(rows[:, 1], rows[:, 2], rows[:, 3]),
+        color2=V3(rows[:, 4], rows[:, 5], rows[:, 6]),
+        param=rows[:, 7], param2=rows[:, 8],
+        absorption=V3(rows[:, 9], rows[:, 10], rows[:, 11]),
+        scatter_dist=rows[:, 12],
+        tex_id=rows[:, 13].to(torch.int32))
+
+
 def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
                     origin: V3, direction: V3, specular: torch.Tensor,
-                    alive: Optional[torch.Tensor] = None) -> Intersection:
+                    alive: Optional[torch.Tensor] = None):
     """Top-level ``hit()`` (kernels.cu:325–360) over a ray batch.
 
     Surfaces (spheres, plane, mesh) compete by nearest t; the analytic
     surfaces go first and their best t bounds the mesh test. The light
     sphere is tested only for specular lanes and only when no surface was
     hit (kernels.cu:339–349). Lanes with ``alive`` False trace the mesh
-    with t_max = -1, which no triangle can beat."""
+    with t_max = -1, which no triangle can beat.
+
+    Returns (Intersection, per-ray traversal counters [5, N] of the BVH
+    tiers, or None)."""
     n = origin.x.shape[0]
     dev = origin.x.device
     eps = config.epsilon
@@ -344,9 +508,21 @@ def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
         pcols = _gather_cols(scene.materials, scene.plane_mat.expand(n))
         cols = _cols_where(win, pcols, cols)
 
+    counters = None
     if scene.has_mesh:
         t_ray_max = t if alive is None else torch.where(alive, t, -1.0)
-        if config.use_bvh:
+        if view.packet is not None:
+            (tt, tri_id, u, vv, nrm_raw, tu, tv,
+             mid), counters = _packet_nearest(scene, view, config, origin,
+                                               direction, eps, t_ray_max)
+            hit = tri_id >= 0
+            mid_c = torch.clamp(mid, 0, scene.materials.count - 1)
+            mcols = _cols_from_rows(view.mat_rows[mid_c.to(torch.int64)])
+            # miss lanes gather row 0: guard the normalize
+            z = torch.zeros_like(tt)
+            nrm = vwhere(hit, nrm_raw, V3(z, z, z + 1.0))
+            nrm = nrm.normalized()  # kernels.cu:336
+        elif config.use_bvh:
             tt, tri_id, u, vv, f = _ct.tris_hit_feat(
                 origin, direction, view.tri_v0, view.tri_e1, view.tri_e2,
                 view.tri_n, view.tri_feat, eps, t_ray_max)
@@ -358,6 +534,7 @@ def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
             tu = u * f[8] + vv * f[10] + w0 * f[6]
             tv = u * f[9] + vv * f[11] + w0 * f[7]
             mcols = _cols_from_feats(f, 12)
+            nrm = e1.cross(e2).normalized()  # kernels.cu:336
         else:
             res = _mesh_nearest(scene, origin, direction, eps, t_ray_max)
             tt = res.t
@@ -373,7 +550,7 @@ def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
             mcols = _gather_cols(
                 scene.materials, torch.clamp(scene.mesh.mesh_id[tri], 0,
                                              scene.materials.count - 1))
-        nrm = e1.cross(e2).normalized()  # kernels.cu:336
+            nrm = e1.cross(e2).normalized()  # kernels.cu:336
         win = hit & (tt < t)
         t = torch.where(win, tt, t)
         obj = torch.where(win, sc.OBJ_TRIMESH, obj)
@@ -395,18 +572,24 @@ def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
     flip = direction.dot(normal) > 0.0
     normal = vwhere(flip, -normal, normal)
     return Intersection(obj=obj, t=t, normal=normal, cols=cols,
-                        tex_u=tex_u, tex_v=tex_v)
+                        tex_u=tex_u, tex_v=tex_v), counters
 
 
 def occluded(scene: Scene, view: SceneView, config: RenderConfig,
-             origin: V3, direction: V3,
-             t_max: torch.Tensor) -> torch.Tensor:
+             origin: V3, direction: V3, t_max: torch.Tensor):
     """Shadow-ray occlusion (any-hit) against the mesh (kernels.cu:340)
-    and, in analytic scenes, the spheres. Returns [N] bool."""
+    and, in analytic scenes, the spheres. Returns ([N] bool, per-ray
+    traversal counters [5, N] of the BVH tiers or None)."""
     occ = torch.zeros(origin.x.shape, dtype=torch.bool,
                       device=origin.x.device)
+    counters = None
     if scene.has_mesh:
-        if config.use_bvh:
+        if view.packet is not None:
+            mesh_occ, counters = _packet_shadow(scene, view, config, origin,
+                                                direction, config.epsilon,
+                                                t_max)
+            occ = occ | mesh_occ
+        elif config.use_bvh:
             occ = occ | _ct.tris_anyhit_soa(
                 origin, direction, view.tri_v0, view.tri_e1, view.tri_e2,
                 view.tri_n, config.epsilon, t_max)
@@ -417,7 +600,7 @@ def occluded(scene: Scene, view: SceneView, config: RenderConfig,
     if scene.has_spheres:
         occ = occ | _cs.spheres_anyhit_soa(origin, direction, view.sph_c,
                                            view.sph_r, config.epsilon, t_max)
-    return occ
+    return occ, counters
 
 
 def sky_radiance(scene: Scene, direction: V3) -> V3:
@@ -526,9 +709,21 @@ def bounce_step(scene: Scene, view: SceneView, config: RenderConfig,
     def count(stat, mask):
         return stat + mask.sum()
 
-    inters = intersect_scene(scene, view, config, state.origin,
-                             state.direction, state.specular, alive=alive)
+    def add_counters(stats, cnt):
+        if cnt is None:
+            return stats
+        tot = cnt[:4].sum(dim=1, dtype=torch.int64)
+        return stats._replace(
+            nodes_both=stats.nodes_both + tot[0],
+            nodes_single=stats.nodes_single + tot[1],
+            leaf_visits=stats.leaf_visits + tot[2],
+            leaf_pop=stats.leaf_pop + tot[3])
+
+    inters, cnt = intersect_scene(scene, view, config, state.origin,
+                                  state.direction, state.specular,
+                                  alive=alive)
     if stats is not None:
+        stats = add_counters(stats, cnt)
         # per-bounce counters, kernels.cu:404-407
         primary_m = alive & (bounce == 0)
         secondary_m = alive & (bounce > 0)
@@ -614,11 +809,12 @@ def bounce_step(scene: Scene, view: SceneView, config: RenderConfig,
             _rng.slot_uniform(base, _rng.S_NEE1))
         nee_mask = nee_mask & valid
         # lanes without a shadow ray get t_max = -1: no occluder can hit
-        occ = occluded(scene, view, config, new_origin, sdir,
-                       torch.where(nee_mask, ldist, -1.0))
+        occ, cnt = occluded(scene, view, config, new_origin, sdir,
+                            torch.where(nee_mask, ldist, -1.0))
         lit = nee_mask & ~occ
         color = color + vwhere(lit, contrib, zeros())
         if stats is not None:
+            stats = add_counters(stats, cnt)
             stats = stats._replace(
                 shadows=count(stats.shadows, nee_mask),
                 shadows_nohit=count(stats.shadows_nohit, lit))

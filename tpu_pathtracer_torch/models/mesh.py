@@ -26,7 +26,7 @@ from tpu_pathtracer_torch.ops import texture as _tex
 from tpu_pathtracer_torch.ops.bvh import build_bvh, load_bvh_file
 
 
-def staircase_materials(device="cpu"):
+def staircase_materials(device):
     """The 20-material staircase table, bit-for-bit from
     staircase_scene.h:140–160 (indexing = meshID, kernels.cu:455)."""
     return make_materials([
@@ -169,7 +169,7 @@ def procedural_textures() -> List[np.ndarray]:
 
 def procedural_staircase_scene(nx: int, ny: int, prims_per_leaf: int = 5,
                                num_steps: int = 14, sub: int = 1,
-                               device="cpu"):
+                               device="cuda"):
     """Self-contained staircase-style scene: mesh + BVH + textures + NEE
     light + const sky. Returns (scene, camera)."""
     v0, v1, v2, tc, mid = procedural_staircase_mesh(num_steps,
@@ -185,7 +185,7 @@ def procedural_staircase_scene(nx: int, ny: int, prims_per_leaf: int = 5,
 
 
 def load_staircase_scene(bvh_path: str, texture_dir: Optional[str],
-                         nx: int, ny: int, device="cpu"):
+                         nx: int, ny: int, device="cuda"):
     """Assemble the real staircase scene from a reference-format ``.bvh``
     plus the 9 texture PNGs (load_scene, staircase_scene.h:120–164).
     Returns (scene, camera)."""

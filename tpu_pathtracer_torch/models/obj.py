@@ -67,7 +67,7 @@ def load_obj(path: str):
 def load_obj_scene(path: str, nx: int, ny: int,
                    material: Optional[dict] = None,
                    prims_per_leaf: int = 64, use_nee: bool = True,
-                   device="cpu"):
+                   device="cuda"):
     """OBJ → BVH → renderable scene with an auto-framed camera: on the +z
     side looking at the mesh center at a distance framing its bounding
     sphere, with the NEE light above-right, scaled to the scene. Returns

@@ -56,7 +56,7 @@ class Materials:
         return self.mtype.shape[0]
 
 
-def make_materials(rows, device="cpu") -> Materials:
+def make_materials(rows, device) -> Materials:
     """rows: list of dicts with keys type, color, and optional color2,
     param, param2, absorption, scatter_dist, tex_id."""
     m = len(rows)
@@ -100,8 +100,7 @@ class MeshData:
     bounds_max: torch.Tensor   # [3] f32
     first_leaf: int
     prims_per_leaf: int
-    # SAH BVH4 tables of the JAX package's packet path: not ported
-    # (slice 3), so always None
+    # SAH BVH4 tables (ops.bvh4.Bvh4Data) when the mesh takes that tier
     bvh4: Optional[object] = None
     # the live triangles without the heap's interleaved sentinel padding,
     # (v0, v1, v2, tex_coords, mesh_id), for the brute-force kernel; set

@@ -11,7 +11,7 @@ from tpu_pathtracer_torch.models.scene import (
     DIFFUSE, GLASS, METAL, SKY_GRADIENT, make_materials, make_scene)
 
 
-def three_sphere_scene(nx: int, ny: int, device="cpu"):
+def three_sphere_scene(nx: int, ny: int, device="cuda"):
     """Three diffuse spheres + ground — the CPU-golden scene of BASELINE
     config 1. Returns (scene, camera)."""
     mats = make_materials([
@@ -37,7 +37,7 @@ def three_sphere_scene(nx: int, ny: int, device="cpu"):
 
 
 def random_spheres_scene(nx: int, ny: int, seed: int = 1984,
-                         device="cpu"):
+                         device="cuda"):
     """The RTiOW final scene (486 spheres, all three material families) —
     BASELINE configs 2–3. Returns (scene, camera)."""
     rng = np.random.RandomState(seed)

@@ -1,6 +1,7 @@
 """Lazy builder for the port's CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. On
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (it
+may include the shared headers ``csrc/*.cuh``). On
 its first use in a process, :func:`load` compiles it with ``nvcc`` into a
 shared library under ``tpu_pathtracer_torch/_build/`` and loads it with
 ``ctypes``. The library's file name carries a hash of the source and the
@@ -46,8 +47,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` goes."""
+    """Where the library built from ``csrc/<name>.cu`` goes. The hash
+    covers the shared headers ``csrc/*.cuh`` too."""
     h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

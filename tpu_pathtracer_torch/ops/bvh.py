@@ -10,9 +10,12 @@ no-BVH all-triangles oracle (counterpart of ``tpu_pathtracer/ops/bvh.py``).
   * :func:`load_bvh_file` / :func:`save_bvh_file` — bit-compatible
     ``BVH_00.04`` serialization.
   * :func:`brute_force` — the all-triangles scan ``use_bvh=False`` takes.
+  * :func:`traverse` — the dual-node bitstack traversal of the reference's
+    ``hitBvh`` (kernels.cu:148–224), one ray at a time: the plain version
+    of the heap kernel ``csrc/bvh.cu`` (``ops/cuda_bvh.py``).
 
-The BVH traversals and the BVH4 tables of large meshes come with slice 3
-of the port.
+Meshes the JAX package gives SAH BVH4 tables get them here too
+(``ops/bvh4.py``).
 """
 
 from __future__ import annotations
@@ -24,12 +27,11 @@ import numpy as np
 import torch
 
 from tpu_pathtracer_torch.models.scene import MeshData
+from tpu_pathtracer_torch.ops import bvh4 as _b4
+from tpu_pathtracer_torch.ops import cuda_bvh as _cb
+from tpu_pathtracer_torch.ops.cuda_spheres import _tmax_vector
 from tpu_pathtracer_torch.ops.intersect import triangles_hit
-
-# BVH4 table budgets of the JAX package's packet path (ops/bvh4.py), read
-# only to decide which meshes it would attach BVH4 tables to
-_SMEM_TABLE_BUDGET = 400 << 10
-_QUANT_TABLE_BUDGET = 640 << 10
+from tpu_pathtracer_torch.ops.v3 import V3
 
 # ---------------------------------------------------------------------------
 # Builder
@@ -49,7 +51,7 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
               prims_per_leaf: int = 5,
               builder: str = "auto",
               bvh4: str | bool = "auto",
-              device="cpu") -> MeshData:
+              device="cuda") -> MeshData:
     """Build an implicit-heap BVH over triangles (host-side, NumPy) and
     return it as tensors on ``device``.
 
@@ -57,11 +59,11 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     builder compiles (``tpu_pathtracer_torch.native``) and the NumPy
     median split otherwise; "sah" / "median" force one.
 
-    ``bvh4``: the JAX package attaches SAH BVH4 tables to meshes of more
-    than 8192 triangles ("auto") or always (True). Those tables feed the
-    packet-BVH kernels of slice 3, so here "auto" attaches nothing and
-    raises for a mesh the JAX package would attach them to, and True
-    raises.
+    ``bvh4``: "auto" attaches SAH BVH4 tables (``ops.bvh4.attach_bvh4``)
+    to meshes of more than 8192 triangles whose node table plausibly fits
+    one of the JAX package's tiers, with its quant-tier cost gate; True
+    forces the attach, False skips it. The tables feed the BVH4 kernels
+    (``ops/cuda_bvh4.py``); a mesh without them takes the heap kernels.
 
     Median split: largest centroid-extent axis; the complete tree is
     packed left-first so every leaf except a right-edge tail is full.
@@ -81,10 +83,6 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
     T = v0.shape[0]
-    if bvh4 is True or (bvh4 == "auto" and _bvh4_auto_eligible(T)):
-        raise NotImplementedError(
-            f"slice 3: BVH4 tables for a {T}-triangle mesh (the packet-BVH "
-            "path) are not ported yet")
     if tex_coords is None:
         tex_coords = np.zeros((T, 6), np.float32)
     if mesh_id is None:
@@ -127,20 +125,31 @@ def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
         live = slots >= 0
         brute = (t(rv0[live]), t(rv1[live]), t(rv2[live]), t(rtc[live]),
                  t(rmid[live]))
-    return MeshData(
+    mesh = MeshData(
         v0=t(rv0), v1=t(rv1), v2=t(rv2), tex_coords=t(rtc),
         mesh_id=t(rmid), bvh_min=t(bvh_min), bvh_max=t(bvh_max),
         bounds_min=t(bvh_min[1]), bounds_max=t(bvh_max[1]),
         first_leaf=num_leaves, prims_per_leaf=P, brute=brute)
+    if bvh4 is True or (bvh4 == "auto" and _bvh4_auto_eligible(T)):
+        # the host arrays, so the attach reads nothing back from the card
+        host = dict(v0=rv0, v1=rv1, v2=rv2, tex_coords=rtc, mesh_id=rmid,
+                    bvh_min=bvh_min, bvh_max=bvh_max)
+        mesh = _b4.attach_bvh4(
+            mesh, silent=(bvh4 == "auto"),
+            auto_ratio=_b4.QUANT_AUTO_RATIO if bvh4 == "auto" else None,
+            host=host)
+    return mesh
 
 
 def _bvh4_auto_eligible(n_tris: int, width: int = 64) -> bool:
     """The JAX package's rule for attaching BVH4 tables by default:
-    packet-path meshes (more than 8192 triangles) whose node table plausibly
-    fits one of its SMEM tiers."""
+    meshes above the packet threshold (8192 triangles) whose node table
+    plausibly fits one of its tiers (the estimate assumes one cluster a
+    node, about twice the measured count; ``attach_bvh4`` decides)."""
     est_nodes = -(-n_tris // width)
-    return n_tris > 8192 and (112 * est_nodes <= 2 * _SMEM_TABLE_BUDGET
-                              or 64 * est_nodes <= 2 * _QUANT_TABLE_BUDGET)
+    return n_tris > 8192 and (112 * est_nodes <= 2 * _b4.SMEM_TABLE_BUDGET
+                              or 64 * est_nodes
+                              <= 2 * _b4.QUANT_TABLE_BUDGET)
 
 
 def _median_order(centroids: np.ndarray, num_leaves: int,
@@ -210,7 +219,7 @@ _TRI_DTYPE = np.dtype([
 assert _TRI_DTYPE.itemsize == 64
 
 
-def load_bvh_file(path: str, device="cpu") -> MeshData:
+def load_bvh_file(path: str, device="cuda") -> MeshData:
     """Read a reference-format ``.bvh`` scene binary into MeshData on
     ``device``. The triangles keep the file's heap order with sentinel
     padding, and no compacted ``brute`` copy is made."""
@@ -292,10 +301,29 @@ class TraceResult(NamedTuple):
     tri_id: torch.Tensor  # [N] int32, -1 = miss
     u: torch.Tensor       # [N] barycentric u
     v: torch.Tensor       # [N] barycentric v
-    # traversal steps into both / a single child (kernels.cu:220-221);
-    # 0 on the brute-force path, which visits no nodes
+    # traversal steps into both / a single child (kernels.cu:220-221),
+    # summed over rays; 0 on the brute-force path, which visits no nodes
     nodes_both: int = 0
     nodes_single: int = 0
+
+
+def traverse(mesh: MeshData, origin: torch.Tensor, direction: torch.Tensor,
+             t_min, t_max, is_shadow: bool = False) -> TraceResult:
+    """The reference's dual-node bitstack traversal (kernels.cu:154–224)
+    of every ray (``origin``/``direction`` [N, 3]): the plain version of
+    the heap kernel (``ops.cuda_bvh``), with u and v recomputed for the
+    winner. With ``is_shadow`` a ray stops at its first hit: ``tri_id`` is
+    that hit's slot (>= 0 exactly on occluded rays) and ``t`` stays
+    ``t_max``."""
+    tabs = _cb.heap_tables(mesh)
+    o, d = V3.from_array(origin), V3.from_array(direction)
+    tmax = _tmax_vector(t_max, origin.shape[0], o.x)
+    t, tri, _, cnt = _cb._heap_walk_ref(o, d, tmax, tabs, float(t_min),
+                                        any_hit=is_shadow)
+    _, _, u, v, *_ = _cb.winner_features(o, d, t, tri, tabs.tri_feat)
+    return TraceResult(t=t, tri_id=tri, u=u, v=v,
+                       nodes_both=int(cnt[0].sum(dtype=torch.int64)),
+                       nodes_single=int(cnt[1].sum(dtype=torch.int64)))
 
 
 BRUTE_CHUNK = 2048  # triangles per pass (bounds the [N, chunk] temporaries)
