@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--sort-ab]
 
 Drives the port's ported paths on the card through
 ``tpu_pathtracer_torch.engine.regen``: the random-spheres headline
@@ -34,7 +34,8 @@ non-zero:
      primary rays from across the 1200x800 frame, the same lanes'
      second-bounce rays and their first bounce's NEE shadow rays (lanes
      without one at t_max = -1): t bit-equal, ids equal except exact
-     ties, occlusion and per-ray counters equal; times as in phase 3;
+     ties, occlusion and per-ray counters equal; times as in phase 3; the
+     distinct node rows and leaves the plain walk read (its bytes bound);
  10. heap BVH (K5, K6) vs plain on the dragon-class knot, in the same way;
  11. small: staircase-hires 96x64, 4 spp, depth 8, kernels vs plain, and
      with bvh4=False (through K5/K6) against the BVH4 render;
@@ -43,24 +44,30 @@ non-zero:
      seconds, Mpaths/s, regen iterations, launches of each kernel, mean;
  13. dragon: the 872k knot 512x512, 4 spp, depth 50, untextured, timed
      and gated against assets/bench_dragon_4spp.ref;
- 14. profile: one sample per pixel of each full-size frame (headline,
-     staircase, config 4, dragon), over its middle rows, two lane pools'
-     worth of pixels (the profiler's cost grows with the kernels it
-     records), under torch.profiler: host dispatches and device kernel
-     time per regen iteration, the device's busy share, the kernels that
-     take most.
+ 14. with --profile only: one sample per pixel of each full-size frame
+     (headline, staircase, config 4, dragon), over its middle rows, two
+     lane pools' worth of pixels (the profiler's cost grows with the
+     kernels it records), under torch.profiler: host dispatches and device
+     kernel time per regen iteration, the device's busy share, the kernels
+     that take most.
+
+With --sort-ab it builds the kernels and then only times config 4 and
+the dragon end to end with the engine's coherence sort on and off
+(sort_rays), in the order on, off, off, on, and exits.
 
 Each full-size run resets the launch counts just before it and reads
 them just after. Every kernel's record carries its bound: the larger of
 its FP32 operations (counted from the source and this run's inputs, for
 the BVH kernels from the node steps and leaf slots its per-ray counters
 report) over 67 TFLOP/s and its bytes (inputs read once, outputs written
-once) over 3.35 TB/s. The line before the last is the kernels' JSON
+once; of a BVH's tables only the distinct node rows and leaf triangle
+rows this run's rays read) over 3.35 TB/s. The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Needs a CUDA
 device: without one it exits non-zero and prints no result. Imports
 nothing of JAX.
 """
 
+import argparse
 import concurrent.futures
 import contextlib
 import json
@@ -114,6 +121,7 @@ FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
 # counted): a ray-sphere pair (spheres.cu), a ray-triangle slot
 # (bvh_common.cuh mt_hit, its division counted as one), a slab test
 SPHERE_FLOPS, MT_FLOPS, SLAB_FLOPS = 20, 37, 12
+TRI_ROW_BYTES = 48  # a [T, 12] f32 triangle row: v0, e1, e2, n
 NO_LIBRARY = None  # no single PyTorch call computes these hits
 
 
@@ -396,14 +404,14 @@ def tri_slots_tested(origin, direction, view, eps, t_max):
 
 def compare_tri_anyhit(tag, origin, direction, view, eps, t_max):
     """The triangle kernel's any-hit mode against the plain version.
-    Returns (kernel ms, plain ms, bound)."""
+    Returns (lanes whose occlusion differs, kernel ms, plain ms, bound)."""
     args = (origin, direction, view.tri_v0, view.tri_e1, view.tri_e2,
             view.tri_n, eps, t_max)
     o_k = ct.tris_anyhit_soa(*args)
     o_p = ct._tris_anyhit_ref(*args)
-    if not torch.equal(o_k, o_p):
-        raise AssertionError(f"{tag}: any-hit differs on "
-                             f"{(o_k != o_p).sum().item()} lanes")
+    differ = int((o_k != o_p).sum())
+    if differ:
+        raise AssertionError(f"{tag}: any-hit differs on {differ} lanes")
     if bool(o_k[t_max <= eps].any()):
         raise AssertionError(f"{tag}: a lane without a shadow ray is "
                              "occluded")
@@ -416,7 +424,7 @@ def compare_tri_anyhit(tag, origin, direction, view, eps, t_max):
           f"rays) x {T} triangles: occ equal ({int(o_k.sum())} occluded); "
           f"any-hit {ms:.3f} ms vs plain {plain_ms:.3f} ms ({tests} "
           f"triangle tests, bound {bnd[0]:.4f} ms by {bnd[1]})")
-    return ms, plain_ms, bnd
+    return differ, ms, plain_ms, bnd
 
 
 def build_all():
@@ -443,7 +451,7 @@ def build_all():
         else "NumPy median (the native builder did not build)"))
 
 
-def spheres_path(dev):
+def spheres_path(dev, profile):
     """Phases 3-5. Returns the kernel's JSON record."""
     cfg = RenderConfig(**HEADLINE)
     scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device=dev)
@@ -484,12 +492,13 @@ def spheres_path(dev):
           f"{launches} kernel launches = regen iterations, mean "
           f"{img.mean():.4f}; crop vs TPU golden rmse {r5:.3e} "
           f"ssim {s5:.6f}")
-    profile_frame("headline", scene, cam, cfg)
+    if profile:
+        profile_frame("headline", scene, cam, cfg)
     return record("spheres_hit_feat", "spheres.cu", "pallas_spheres.py:73",
                   launches, max(err1, err2), ms, plain_ms, bnd)
 
 
-def staircase_path(dev):
+def staircase_path(dev, profile):
     """Phases 6-8. Returns the kernel's JSON records (features mode, the
     nearest hit of the path, and any-hit, its shadow rays)."""
     cfg = RenderConfig(**STAIRCASE)
@@ -505,7 +514,7 @@ def staircase_path(dev):
                                         plain)
     err2, _, _, _ = compare_tri_nearest("tris bounce-2", o2, d2, view,
                                         cfg.epsilon, t2)
-    ms_any, plain_any, bnd_any = compare_tri_anyhit(
+    err_any, ms_any, plain_any, bnd_any = compare_tri_anyhit(
         "tris NEE shadows", *shadow[:2], view, cfg.epsilon, shadow[2])
 
     scfg = RenderConfig(**SMALL)
@@ -530,12 +539,14 @@ def staircase_path(dev):
           f"regen iterations, kernel launches {launches}, mean "
           f"{img.mean():.4f}; crop vs TPU golden rmse {r8:.3e} "
           f"ssim {s8:.6f}")
-    profile_frame("staircase", scene, cam, cfg)
+    if profile:
+        profile_frame("staircase", scene, cam, cfg)
     return [record("tris_hit_feat", "tris.cu", "pallas_tris.py:77",
                    launches["features"], max(err1, err2), ms, plain_ms,
                    bnd),
             record("tris_anyhit_soa", "tris.cu", "pallas_tris.py:77",
-                   launches["any_hit"], 0.0, ms_any, plain_any, bnd_any)]
+                   launches["any_hit"], err_any, ms_any, plain_any,
+                   bnd_any)]
 
 
 def profile_frame(tag, scene, cam, cfg):
@@ -583,19 +594,19 @@ def profile_frame(tag, scene, cam, cfg):
 
 class BvhKernels:
     """The wrappers of one BVH tier, its plain versions and its cost
-    model (slab tests a node step, triangle slots a leaf visit)."""
+    model (slab tests a node step, triangle slots a leaf visit, the bytes
+    of a node row and of a leaf's triangle rows)."""
 
     def __init__(self, tier, tabs):
         self.tier, self.tabs = tier, tabs
         if tier == "bvh4":
             self.mod, self.slabs, self.slots = cb4, 4, tabs.width
             self.walk = cb4._bvh4_walk_ref
-            self.table_bytes = (tabs.bounds.numel() + tabs.refs.numel()
-                                + tabs.tri.numel()) * 4
+            self.node_bytes = 4 * (6 * 4 + 4)  # four child boxes and refs
         else:
             self.mod, self.slabs, self.slots = cb, 2, tabs.prims_per_leaf
             self.walk = cb._heap_walk_ref
-            self.table_bytes = (tabs.nodes.numel() + tabs.tri.numel()) * 4
+            self.node_bytes = 6 * 4  # one child box (min, max)
         name = "bvh4" if tier == "bvh4" else "heap"
         self.trace = getattr(self.mod, f"{name}_trace")
         self.occluded = getattr(self.mod, f"{name}_occluded")
@@ -606,6 +617,21 @@ class BvhKernels:
         """Patches that send the engine through the plain versions."""
         return [(self.mod, self.trace.__name__, self.trace_ref),
                 (self.mod, self.occluded.__name__, self.occluded_ref)]
+
+    def walk_plain(self, origin, direction, t_max, eps, any_hit):
+        """The plain walk, and the distinct node rows and leaves it read.
+        Returns (t, tri, occ, counters, nodes read, leaves read)."""
+        visits = {"nodes": [], "leaves": []}
+        out = self.walk(origin, direction, t_max, self.tabs, eps,
+                        any_hit=any_hit, visits=visits)
+        distinct = lambda ids: (torch.unique(torch.cat(ids)).numel()
+                                if ids else 0)
+        return (*out, distinct(visits["nodes"]), distinct(visits["leaves"]))
+
+    def table_bytes(self, nodes, leaves):
+        """Bytes of the distinct table rows a walk needs, each read
+        once."""
+        return nodes * self.node_bytes + leaves * self.slots * TRI_ROW_BYTES
 
     def nearest_flops(self, n, cnt):
         c = cnt.sum(dim=1, dtype=torch.int64)
@@ -628,8 +654,12 @@ def compare_bvh_nearest(tag, kern, origin, direction, t_max, eps):
     Returns (max abs error of t, kernel ms, plain ms, bound)."""
     tabs = kern.tabs
     t_k, i_k, c_k = kern.trace(origin, direction, t_max, tabs, eps)
-    t_p, i_p, c_p = kern.trace_ref(origin, direction, t_max, tabs, eps)
+    t_p, i_p, _, c_p, nodes, leaves = kern.walk_plain(origin, direction,
+                                                      t_max, eps, False)
     torch.cuda.synchronize()
+    if kern.tier == "bvh4":
+        cb4.check_stack(tabs)
+    err = (t_k - t_p).abs().max().item()
     if not torch.equal(t_k, t_p):
         bad = t_k != t_p
         raise AssertionError(f"{tag}: t differs on {int(bad.sum())} lanes "
@@ -647,29 +677,33 @@ def compare_bvh_nearest(tag, kern, origin, direction, t_max, eps):
                                               tabs, eps), reps=2)
     n = origin.x.shape[0]
     bnd = bound(kern.nearest_flops(n, c_k), n * (28 + 8 + 20)
-                + kern.table_bytes)
+                + kern.table_bytes(nodes, leaves))
     c = c_k.sum(dim=1, dtype=torch.int64).tolist()
     phase("kernel", f"{tag}: {n} rays ({int((t_max > 0).sum())} live): "
           f"t bit-equal, winners equal on {n - int(mism.sum())}/{n} lanes "
           f"({int(mism.sum())} ties), hits {int((i_k >= 0).sum())}, "
-          f"counters equal {dict(zip(cb.COUNTERS, c))}; kernel {ms:.3f} "
-          f"ms vs plain {plain_ms:.3f} ms (bound {bnd[0]:.4f} ms by "
-          f"{bnd[1]})")
-    return 0.0, ms, plain_ms, bnd
+          f"counters equal {dict(zip(cb.COUNTERS, c))}; read {nodes} "
+          f"distinct node rows, {leaves} leaves; kernel {ms:.3f} ms vs "
+          f"plain {plain_ms:.3f} ms (bound {bnd[0]:.4f} ms by {bnd[1]})")
+    return err, ms, plain_ms, bnd
 
 
 def compare_bvh_anyhit(tag, kern, origin, direction, t_max, eps):
     """A BVH tier's any-hit kernel against its plain version: occlusion
-    and per-ray counters equal. Returns (kernel ms, plain ms, bound)."""
+    and per-ray counters equal. Returns (lanes whose occlusion differs,
+    kernel ms, plain ms, bound)."""
     tabs = kern.tabs
     o_k, c_k = kern.occluded(origin, direction, t_max, tabs, eps)
-    _, best, o_p, c_p = kern.walk(origin, direction, t_max, tabs, eps,
-                                  any_hit=True)
+    _, best, o_p, c_p, nodes, leaves = kern.walk_plain(origin, direction,
+                                                       t_max, eps, True)
     torch.cuda.synchronize()
-    if not (torch.equal(o_k, o_p) and torch.equal(c_k, c_p)):
-        raise AssertionError(f"{tag}: any-hit differs on "
-                             f"{int((o_k != o_p).sum())} lanes, counters "
-                             f"on {int((c_k != c_p).any(0).sum())}")
+    if kern.tier == "bvh4":
+        cb4.check_stack(tabs)
+    differ = int((o_k != o_p).sum())
+    if differ or not torch.equal(c_k, c_p):
+        raise AssertionError(f"{tag}: any-hit differs on {differ} lanes, "
+                             f"counters on "
+                             f"{int((c_k != c_p).any(0).sum())}")
     if bool(o_k[t_max <= 0].any()):
         raise AssertionError(f"{tag}: a lane without a shadow ray is "
                              "occluded")
@@ -678,19 +712,20 @@ def compare_bvh_anyhit(tag, kern, origin, direction, t_max, eps):
                                                  tabs, eps), reps=2)
     n = origin.x.shape[0]
     bnd = bound(kern.anyhit_flops(n, c_k, o_k, best),
-                n * (28 + 1 + 20) + kern.table_bytes)
+                n * (28 + 1 + 20) + kern.table_bytes(nodes, leaves))
     phase("kernel", f"{tag}: {n} lanes ({int((t_max > 0).sum())} shadow "
           f"rays): occ equal ({int(o_k.sum())} occluded), counters equal; "
-          f"kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms (bound "
-          f"{bnd[0]:.4f} ms by {bnd[1]})")
-    return ms, plain_ms, bnd
+          f"read {nodes} distinct node rows, {leaves} leaves; kernel "
+          f"{ms:.3f} ms vs plain {plain_ms:.3f} ms (bound {bnd[0]:.4f} ms "
+          f"by {bnd[1]})")
+    return differ, ms, plain_ms, bnd
 
 
 def bvh_kernel_phase(tag, scene, cam, cfg, kern):
     """Phases 9 and 10: the tier's kernels against their plain versions
     on BVH_RAYS primary rays taken from across the frame, the same lanes'
     second-bounce rays and their NEE shadow rays. Returns (err, ms,
-    plain_ms, bound) of nearest and (ms, plain_ms, bound) of any-hit."""
+    plain_ms, bound) of nearest and of any-hit."""
     dev = cam.device
     view = wf.make_view(scene, cfg)
     pix = torch.linspace(0, cfg.num_pixels - 1, BVH_RAYS,
@@ -714,7 +749,7 @@ def bvh_kernel_phase(tag, scene, cam, cfg, kern):
     return near, anyh
 
 
-def staircase_hires_path(dev):
+def staircase_hires_path(dev, profile):
     """Phases 9, 11 and 12. Returns the JSON records of K8 and K9."""
     cfg = RenderConfig(**CONFIG4)
     t0 = time.perf_counter()
@@ -727,8 +762,8 @@ def staircase_hires_path(dev):
           f"{b4.n_clusters} clusters of {b4.width}, stack_cap "
           f"{b4.stack_cap}, quant {b4.quant}")
     kern = BvhKernels("bvh4", cb4.bvh4_tables(b4))
-    (err, ms, plain_ms, bnd), (ms_a, plain_a, bnd_a) = bvh_kernel_phase(
-        "bvh4 staircase-hires", scene, cam, cfg, kern)
+    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a) = \
+        bvh_kernel_phase("bvh4 staircase-hires", scene, cam, cfg, kern)
 
     scfg = RenderConfig(**SMALL)
     sscene, scam = procedural_staircase_scene(scfg.nx, scfg.ny, device=dev,
@@ -773,14 +808,15 @@ def staircase_hires_path(dev):
           f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, {iters} "
           f"regen iterations ({secs / iters * 1e3:.2f} ms each), kernel "
           f"launches {launches}, mean {img.mean():.4f}")
-    profile_frame("config 4", scene, cam, cfg)
+    if profile:
+        profile_frame("config 4", scene, cam, cfg)
     return [record("bvh4_trace", "bvh4.cu", "pallas_bvh4.py:295",
                    launches["nearest"], err, ms, plain_ms, bnd),
             record("bvh4_occluded", "bvh4.cu", "pallas_bvh4.py:598",
-                   launches["any_hit"], 0.0, ms_a, plain_a, bnd_a)]
+                   launches["any_hit"], err_a, ms_a, plain_a, bnd_a)]
 
 
-def dragon_path(dev):
+def dragon_path(dev, profile):
     """Phases 10 and 13. Returns the JSON records of K5 and K6."""
     cfg = RenderConfig(**DRAGON)
     t0 = time.perf_counter()
@@ -792,8 +828,8 @@ def dragon_path(dev):
           f"slots, first_leaf {scene.mesh.first_leaf}, "
           f"{scene.mesh.prims_per_leaf} a leaf, tier heap")
     kern = BvhKernels("heap", cb.heap_tables(scene.mesh))
-    (err, ms, plain_ms, bnd), (ms_a, plain_a, bnd_a) = bvh_kernel_phase(
-        "heap dragon", scene, cam, cfg, kern)
+    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a) = \
+        bvh_kernel_phase("heap dragon", scene, cam, cfg, kern)
 
     render_regen(scene, cam, cfg, ns=1)  # warm-up
     for mod in (cb4, cb, ct):
@@ -815,14 +851,46 @@ def dragon_path(dev):
           f"regen iterations, kernel launches {launches}, mean "
           f"{img.mean():.4f}; crop vs TPU golden rmse {r:.3e} "
           f"ssim {s:.6f}")
-    profile_frame("dragon", scene, cam, cfg)
+    if profile:
+        profile_frame("dragon", scene, cam, cfg)
     return [record("heap_trace", "bvh.cu", "pallas_bvh.py:937",
                    launches["nearest"], err, ms, plain_ms, bnd),
             record("heap_occluded", "bvh.cu", "pallas_bvh.py:1393",
-                   launches["any_hit"], 0.0, ms_a, plain_a, bnd_a)]
+                   launches["any_hit"], err_a, ms_a, plain_a, bnd_a)]
+
+
+def sort_ab(dev):
+    """Config 4 at 100 spp and the dragon end to end with the coherence
+    sort (sort_rays) on and off, in the order on, off, off, on."""
+    for tag, cfg, make in (
+            ("config4", RenderConfig(**CONFIG4), lambda c: (
+                procedural_staircase_scene(c.nx, c.ny, device=dev,
+                                           **HIRES))),
+            ("dragon", RenderConfig(**DRAGON), lambda c: knot_zoo_scene(
+                c.nx, c.ny, device=dev, **DRAGON_MESH))):
+        scene, cam = make(cfg)
+        render_regen(scene, cam, cfg, ns=1)  # warm-up
+        reps = 1 if tag == "config4" else 3
+        secs = {True: [], False: []}
+        for srt in (True, False, False, True):
+            c = cfg.replace(sort_rays=srt)
+            for _ in range(reps):
+                _, s, _ = render_timed(lambda: render_regen(scene, cam, c))
+                secs[srt].append(s)
+        phase("sort-ab", f"{tag} {cfg.nx}x{cfg.ny} {cfg.ns} spp: sort on "
+              f"{[round(s, 3) for s in secs[True]]} s, off "
+              f"{[round(s, 3) for s in secs[False]]} s (CUDA events; "
+              f"runs in the order on, off, off, on)")
 
 
 def main():
+    args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    args.add_argument("--profile", action="store_true",
+                      help="add phase 14, the torch.profiler pass")
+    args.add_argument("--sort-ab", action="store_true",
+                      help="time only config 4 and the dragon with the "
+                           "coherence sort on and off")
+    opts = args.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "False); nothing runs on the CPU in its place")
@@ -838,8 +906,13 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     build_all()
-    kernels = [spheres_path(dev), *staircase_path(dev),
-               *staircase_hires_path(dev), *dragon_path(dev)]
+    if opts.sort_ab:
+        sort_ab(dev)
+        return
+    kernels = [spheres_path(dev, opts.profile),
+               *staircase_path(dev, opts.profile),
+               *staircase_hires_path(dev, opts.profile),
+               *dragon_path(dev, opts.profile)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

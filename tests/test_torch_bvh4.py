@@ -219,6 +219,11 @@ def test_stack_overflow_raises():
                     torch.full((200,), FLT_MAX), big, T_MIN)
     # the tables' own bound is enough
     cb4.bvh4_trace(tv(o), tv(d), FLT_MAX, tabs, T_MIN)
+    cb4.check_stack(tabs)
+    # the flag a kernel sets on the card makes check_stack raise
+    flagged = tabs._replace(overflow=torch.ones_like(tabs.overflow))
+    with pytest.raises(RuntimeError, match="overflow"):
+        cb4.check_stack(flagged)
 
 
 def test_convert_carries_bvh4_tables():

@@ -244,22 +244,45 @@ def test_bvh4_kernel_bit_equal(dev, width, quant):
 def test_bvh4_stack_overflow_raises_or_stops(dev):
     """Tables beyond the kernel's stack capacity are refused; a stack_cap
     that understates the tree stops the ray (leaf_pop = -1) without
-    writing past the stack, and the plain walk raises."""
+    writing past the stack and sets the flag check_stack raises for, and
+    the plain walk raises."""
     mesh, o, d, _ = _bvh_inputs(dev, n=2000, seed=2)
     tabs = cb4.bvh4_tables(tb4.build_bvh4(mesh, width=32))
     with pytest.raises(ValueError, match="stack"):
         cb4.bvh4_trace(o, d, FLT_MAX,
                        tabs._replace(stack_cap=cb4.STACK_CAPACITY + 1),
                        T_MIN)
-    small = tabs._replace(stack_cap=1)
+    small = tabs._replace(stack_cap=1,
+                          overflow=torch.zeros_like(tabs.overflow))
     _, _, cnt = cb4.bvh4_trace(o, d, FLT_MAX, small, T_MIN)
     torch.cuda.synchronize()
     assert (cnt[3] == -1).any()
+    with pytest.raises(RuntimeError, match="overflow"):
+        cb4.check_stack(small)
     with pytest.raises(RuntimeError, match="overflow"):
         cb4._bvh4_trace_ref(o, d, FLT_MAX, small, T_MIN)
     t, tri, _ = cb4.bvh4_trace(o, d, FLT_MAX, tabs, T_MIN)  # still sound
     assert torch.equal(tri, cb4._bvh4_trace_ref(o, d, FLT_MAX, tabs,
                                                 T_MIN)[1])
+    cb4.check_stack(tabs)
+
+
+@pytest.mark.gpu
+def test_bvh4_render_stack_overflow_raises(dev):
+    """A render through the BVH4 kernels over tables whose stack_cap
+    understates the tree raises after its loop."""
+    cfg = RenderConfig(nx=48, ny=32, ns=1, max_depth=4, textures=False,
+                       packet_threshold=1)
+    scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, nu=96, nv=24,
+                                prims_per_leaf=32, device=dev)
+    mesh = tb4.attach_bvh4(scene.mesh, width=32)
+    mesh = dataclasses.replace(
+        mesh, bvh4=dataclasses.replace(mesh.bvh4, stack_cap=0))
+    scene = dataclasses.replace(scene, mesh=mesh)
+    cb4.LAUNCHES["nearest"] = 0
+    with pytest.raises(RuntimeError, match="overflow"):
+        render_image_regen(scene, cam, cfg)
+    assert cb4.LAUNCHES["nearest"] > 0
 
 
 @pytest.mark.gpu

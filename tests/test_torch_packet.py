@@ -184,6 +184,20 @@ def test_packet_counters_per_ray():
         assert getattr(s4, k) == getattr(sh, k) == getattr(sb, k), k
 
 
+@pytest.mark.parametrize("engine", [render_image_regen, render_image])
+def test_render_stack_overflow_raises(engine):
+    """BVH4 tables whose stack_cap understates the tree make a render
+    raise, not return a wrong image."""
+    js, jc, kw = _jax_scene("knot")
+    ts, tc = converted(js, jc)
+    cfg = RenderConfig(ns=1, max_depth=2, packet_threshold=1, **kw)
+    small = dataclasses.replace(ts.mesh.bvh4, stack_cap=0)
+    ts = dataclasses.replace(ts, mesh=dataclasses.replace(ts.mesh,
+                                                          bvh4=small))
+    with pytest.raises(RuntimeError, match="overflow"):
+        engine(ts, tc, cfg)
+
+
 def test_tiers_knobs_and_pool_size():
     js, jc, kw = _jax_scene("staircase")
     ts, _ = converted(js, jc)

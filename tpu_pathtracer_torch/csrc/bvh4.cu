@@ -28,8 +28,10 @@
 //     node_steps (all node steps);
 //   * the stack holds `cap` refs (the tables' stack_cap = 3*depth + 8,
 //     which bounds it: each level pushes at most three). A push past cap
-//     never writes: the ray stops and its leaf_pop counter is set to -1.
-//     The wrapper refuses tables whose stack_cap exceeds kStackCap.
+//     never writes: the ray stops, its leaf_pop counter is set to -1 and
+//     *overflow is set to 1, which the wrapper's check_stack turns into an
+//     error at the caller's next sync. The wrapper refuses tables whose
+//     stack_cap exceeds kStackCap.
 //
 // Design. The TPU kernel runs a packet of 1024 rays on one scalar ref
 // stack in SMEM, votes the descent order by majority, DMAs the whole node
@@ -72,7 +74,8 @@ bvh4_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
             const int* __restrict__ refs, const float4* __restrict__ tri,
             int width, int cap, float t_min, int n,
             float* __restrict__ t_out, int* __restrict__ tri_out,
-            bool* __restrict__ occ_out, int* __restrict__ cnt) {
+            bool* __restrict__ occ_out, int* __restrict__ cnt,
+            int* __restrict__ overflow_flag) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const float o1 = ox[i], o2 = oy[i], o3 = oz[i];
@@ -123,6 +126,7 @@ bvh4_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
           nsg += nhit == 1;
           if (sp + nhit - 1 > cap) {
             overflow = true;
+            *overflow_flag = 1;
             break;
           }
           for (int j = nhit - 1; j >= 1; --j) stack[sp++] = rs[j];
@@ -174,16 +178,17 @@ extern "C" int bvh4_stack_capacity() { return kStackCap; }
 // Launches one mode on `stream`; returns cudaGetLastError() (0 = launched).
 // bounds is [n_nodes*24] f32, refs [n_nodes*4] int32, tri [C*width, 12]
 // f32 rows (v0, e1, e2, n), 16-byte aligned; cnt is [5, n] int32; cap <=
-// kStackCap. Pointers the mode does not use may be null.
+// kStackCap; overflow is one int32 the kernel sets to 1 if a ray's stack
+// would outgrow cap. Pointers the mode does not use may be null.
 extern "C" int bvh4_launch(int mode, const float* ox, const float* oy,
                            const float* oz, const float* dx, const float* dy,
                            const float* dz, const float* tmax,
                            const float* bounds, const int* refs,
                            const float* tri, int width, int cap, float t_min,
                            int n, float* t_out, int* tri_out, bool* occ_out,
-                           int* cnt, void* stream) {
+                           int* cnt, int* overflow, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (width < 1 || cap < 0 || cap > kStackCap)
+  if (width < 1 || cap < 0 || cap > kStackCap || overflow == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kThreads - 1) / kThreads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -192,12 +197,12 @@ extern "C" int bvh4_launch(int mode, const float* ox, const float* oy,
     case kNearest:
       bvh4_kernel<kNearest><<<grid, kThreads, 0, st>>>(
           ox, oy, oz, dx, dy, dz, tmax, bounds, refs, tb, width, cap, t_min,
-          n, t_out, tri_out, occ_out, cnt);
+          n, t_out, tri_out, occ_out, cnt, overflow);
       break;
     case kAnyHit:
       bvh4_kernel<kAnyHit><<<grid, kThreads, 0, st>>>(
           ox, oy, oz, dx, dy, dz, tmax, bounds, refs, tb, width, cap, t_min,
-          n, t_out, tri_out, occ_out, cnt);
+          n, t_out, tri_out, occ_out, cnt, overflow);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -12,7 +12,8 @@ of the lane schedule, so each path's radiance is bit-identical to the
 plain engine's; only the per-pixel summation order can differ.
 
 The loop checks ``done.all()`` on the host once per iteration: one
-device sync an iteration (ROADMAP C-7).
+device sync an iteration (ROADMAP C-7). After it, the BVH4 kernels'
+stack-overflow flag is read once (``check_traversal``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from tpu_pathtracer_torch.camera import Camera
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine.wavefront import (
     BounceState, Stats, _use_packet, bounce_step, check_supported,
-    initial_state, make_view)
+    check_traversal, initial_state, make_view)
 from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.ops.v3 import V3, where as vwhere
 
@@ -136,6 +137,7 @@ def render_regen(scene: Scene, camera: Camera, config: RenderConfig,
         state = state._replace(alive=state.alive
                                & (bounce < config.max_depth))
         iters += 1
+    check_traversal(view)
 
     fb = out[:n]
     if normalize:

@@ -234,6 +234,15 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
                      tri_feat, atlas, packet, mat_rows)
 
 
+def check_traversal(view: SceneView) -> None:
+    """Raise if a BVH4 kernel launch over the view's tables stopped a
+    ray whose ref stack would have outgrown ``stack_cap``
+    (``cuda_bvh4.check_stack``: one device sync); other tiers cannot
+    overflow. The engines call it once a render, after their loop."""
+    if isinstance(view.packet, _cb4.Bvh4Tables):
+        _cb4.check_stack(view.packet)
+
+
 class Intersection(NamedTuple):
     """SoA intersection + the hit material's columns."""
     obj: torch.Tensor     # [N] int32 OBJ_* id
@@ -885,6 +894,7 @@ def trace(scene: Scene, camera: Camera, config: RenderConfig,
         if new_stats is not None:
             stats = new_stats
         bounce += 1
+    check_traversal(view)
     if config.stats:
         stats = stats._replace(
             exceed_max_bounce=stats.exceed_max_bounce + state.alive.sum())

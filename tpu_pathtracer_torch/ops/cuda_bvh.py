@@ -23,7 +23,7 @@ leaf_pop, node_steps (see ``COUNTERS``).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -156,10 +156,14 @@ def _ctz32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _heap_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
-                   tabs: HeapTables, t_min: float, any_hit: bool):
+                   tabs: HeapTables, t_min: float, any_hit: bool,
+                   visits: Optional[dict] = None):
     """(closest [N], tri [N] int32, occ [N] bool, counters [5, N] int32):
     the kernel's walk with every ray advancing one step per pass; with
-    ``any_hit``, tri is the slot whose hit ended the walk."""
+    ``any_hit``, tri is the slot whose hit ended the walk. ``visits``, if
+    given, gathers the ids of the node boxes (``visits["nodes"]``) and
+    leaves (``visits["leaves"]``) the walk reads, a tensor of each a
+    pass."""
     o = origin.stack()
     d = direction.stack()
     inv = 1.0 / d
@@ -190,7 +194,10 @@ def _heap_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
         if inner.numel():
             c = closest[inner]
             l = idx[inner] * 2
-            box = tabs.nodes[torch.stack([l, l + 1], dim=1)]  # [M, 2, 8]
+            pair = torch.stack([l, l + 1], dim=1)
+            if visits is not None:
+                visits["nodes"].append(pair.flatten())
+            box = tabs.nodes[pair]  # [M, 2, 8]
             h = slab_entry(box[..., 0:3], box[..., 3:6], o[inner][:, None],
                            inv[inner][:, None], neg[inner][:, None],
                            c[:, None].expand(-1, 2))
@@ -208,6 +215,8 @@ def _heap_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
             idx[inner] = torch.where(go, child, idx[inner])
             pop(inner[~go])
         if leaf.numel():
+            if visits is not None:
+                visits["leaves"].append(idx[leaf] - fl)
             base = (idx[leaf] - fl) * P
             rows = tabs.tri[base[:, None] + slots]  # [M, P, 12]
             hit, new_c, j, first = leaf_step(rows, o[leaf], d[leaf], t_min,

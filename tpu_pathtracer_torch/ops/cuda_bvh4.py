@@ -18,7 +18,7 @@ to heap slots. The winner's features come from
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,6 +46,8 @@ class Bvh4Tables(NamedTuple):
     tri_feat: torch.Tensor  # [C*width, 19] f32
     width: int
     stack_cap: int
+    overflow: torch.Tensor  # [1] int32: the kernel sets it to 1 when a
+    # ray's stack would outgrow stack_cap (check_stack raises for it)
 
 
 def dequantize(words: torch.Tensor, qparams: torch.Tensor) -> torch.Tensor:
@@ -67,7 +69,19 @@ def bvh4_tables(b4: Bvh4Data) -> Bvh4Tables:
     quant tier) beside the tables as they are."""
     bounds = dequantize(b4.bounds, b4.qparams) if b4.quant else b4.bounds
     return Bvh4Tables(bounds.contiguous(), b4.refs.contiguous(), b4.tri,
-                      b4.tri_feat.contiguous(), b4.width, b4.stack_cap)
+                      b4.tri_feat.contiguous(), b4.width, b4.stack_cap,
+                      torch.zeros((1,), dtype=torch.int32,
+                                  device=b4.refs.device))
+
+
+def check_stack(tabs: Bvh4Tables) -> None:
+    """Raise if a kernel launch over ``tabs`` stopped a ray whose ref
+    stack would have outgrown ``stack_cap`` (that ray's hit is then
+    wrong). Reads the kernel's flag, so it waits for the launches before
+    it on the card."""
+    if bool(tabs.overflow[0]):
+        raise RuntimeError(f"BVH4 ref stack overflow: a ray needed more "
+                           f"than stack_cap = {tabs.stack_cap} entries")
 
 
 # ---------------------------------------------------------------------------
@@ -76,11 +90,14 @@ def bvh4_tables(b4: Bvh4Data) -> Bvh4Tables:
 
 
 def _bvh4_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
-                   tabs: Bvh4Tables, t_min: float, any_hit: bool):
+                   tabs: Bvh4Tables, t_min: float, any_hit: bool,
+                   visits: Optional[dict] = None):
     """(closest [N], tri [N] int32, occ [N] bool, counters [5, N] int32):
     the kernel's walk with every ray advancing one step per pass; with
     ``any_hit``, tri is the slot whose hit ended the walk. Raises if a
-    ray's stack would outgrow ``stack_cap``."""
+    ray's stack would outgrow ``stack_cap``. ``visits``, if given, gathers
+    the ids of the nodes (``visits["nodes"]``) and leaf clusters
+    (``visits["leaves"]``) the walk reads, a tensor of each a pass."""
     o = origin.stack()
     d = direction.stack()
     inv = 1.0 / d
@@ -116,6 +133,8 @@ def _bvh4_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
         inner, leaf = lanes[c_now > 0], lanes[c_now < 0]
         if inner.numel():
             node = cur[inner] - 1
+            if visits is not None:
+                visits["nodes"].append(node)
             c = closest[inner]
             box = bounds[node]  # [M, 4, 6]
             r = refs[node]      # [M, 4]
@@ -148,6 +167,8 @@ def _bvh4_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
             leaf = torch.cat([leaf, now_leaf])
         if leaf.numel():
             cl = -cur[leaf] - 1
+            if visits is not None:
+                visits["leaves"].append(cl)
             base = cl * w
             rows = tabs.tri[base[:, None] + slots]  # [M, width, 12]
             hit, new_c, j, first = leaf_step(rows, o[leaf], d[leaf], t_min,
@@ -179,7 +200,7 @@ def _lib() -> ctypes.CDLL:
         p = ctypes.c_void_p
         fn.argtypes = ([ctypes.c_int] + [p] * 10
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_int] + [p] * 5)
+                          ctypes.c_int] + [p] * 6)
         fn.restype = ctypes.c_int
         lib.bvh4_stack_capacity.restype = ctypes.c_int
         if lib.bvh4_stack_capacity() != STACK_CAPACITY:
@@ -204,6 +225,7 @@ def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
     n_nodes = tabs.refs.shape[0] // 4
     _check("bounds", tabs.bounds, dev, f32, (n_nodes * 24,))
     _check("refs", tabs.refs, dev, torch.int32, (n_nodes * 4,))
+    _check("overflow", tabs.overflow, dev, torch.int32, (1,))
     s = tabs.tri.shape[0]
     if s % tabs.width:
         raise ValueError(f"{s} triangle slots are not whole clusters of "
@@ -227,7 +249,7 @@ def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
                 tabs.bounds.data_ptr(), tabs.refs.data_ptr(),
                 tabs.tri.data_ptr(), tabs.width, tabs.stack_cap,
                 float(t_min), n, ptr(t_out), ptr(tri_out), ptr(occ_out),
-                cnt.data_ptr(), stream)
+                cnt.data_ptr(), tabs.overflow.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"BVH4 kernel launch failed: CUDA error {rc}")
         LAUNCHES[_MODE_NAMES[mode]] += 1
@@ -259,7 +281,9 @@ def bvh4_trace(origin: V3, direction: V3, t_max, tabs: Bvh4Tables,
                t_min: float) -> Tuple[torch.Tensor, ...]:
     """Nearest hit: (t [N], the ray's t_max on a miss; tri [N] int32 SAH
     slot, -1 on a miss; counters [5, N] int32). On the card a ray whose
-    stack would overflow stops with leaf_pop = -1."""
+    stack would overflow stops with leaf_pop = -1 and sets
+    ``tabs.overflow``, which :func:`check_stack` raises for; the plain
+    version raises at once."""
     if _on_cuda(origin):
         tmax = _tmax_vector(t_max, origin.x.shape[0], origin.x)
         t, tri, _, cnt = _launch(_NEAREST, origin, direction, tmax, tabs,
@@ -271,7 +295,8 @@ def bvh4_trace(origin: V3, direction: V3, t_max, tabs: Bvh4Tables,
 def bvh4_occluded(origin: V3, direction: V3, t_max, tabs: Bvh4Tables,
                   t_min: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Any hit in (t_min, t_max): (occ [N] bool, counters [5, N] int32).
-    Lanes with t_max <= 0 test nothing."""
+    Lanes with t_max <= 0 test nothing. A stack overflow is handled as in
+    :func:`bvh4_trace`."""
     if _on_cuda(origin):
         tmax = _tmax_vector(t_max, origin.x.shape[0], origin.x)
         _, _, occ, cnt = _launch(_ANY_HIT, origin, direction, tmax, tabs,
