@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--sort-ab]
+    python3 chip_smoke.py
 
 Drives the port's ported paths on the card through
 ``tpu_pathtracer_torch.engine.regen``: the random-spheres headline
@@ -44,16 +44,11 @@ non-zero:
      seconds, Mpaths/s, regen iterations, launches of each kernel, mean;
  13. dragon: the 872k knot 512x512, 4 spp, depth 50, untextured, timed
      and gated against assets/bench_dragon_4spp.ref;
- 14. with --profile only: one sample per pixel of each full-size frame
-     (headline, staircase, config 4, dragon), over its middle rows, two
-     lane pools' worth of pixels (the profiler's cost grows with the
-     kernels it records), under torch.profiler: host dispatches and device
-     kernel time per regen iteration, the device's busy share, the kernels
-     that take most.
-
-With --sort-ab it builds the kernels and then only times config 4 and
-the dragon end to end with the engine's coherence sort on and off
-(sort_rays), in the order on, off, off, on, and exits.
+ 14. profile: one sample per pixel of config 4's frame, over its middle
+     rows, two lane pools' worth of pixels (the profiler's cost grows with
+     the kernels it records), under torch.profiler: host dispatches and
+     device kernel time per regen iteration, the device's busy share, the
+     kernels that take most.
 
 Each full-size run resets the launch counts just before it and reads
 them just after. Every kernel's record carries its bound: the larger of
@@ -67,7 +62,6 @@ device: without one it exits non-zero and prints no result. Imports
 nothing of JAX.
 """
 
-import argparse
 import concurrent.futures
 import contextlib
 import json
@@ -451,7 +445,7 @@ def build_all():
         else "NumPy median (the native builder did not build)"))
 
 
-def spheres_path(dev, profile):
+def spheres_path(dev):
     """Phases 3-5. Returns the kernel's JSON record."""
     cfg = RenderConfig(**HEADLINE)
     scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device=dev)
@@ -492,13 +486,11 @@ def spheres_path(dev, profile):
           f"{launches} kernel launches = regen iterations, mean "
           f"{img.mean():.4f}; crop vs TPU golden rmse {r5:.3e} "
           f"ssim {s5:.6f}")
-    if profile:
-        profile_frame("headline", scene, cam, cfg)
     return record("spheres_hit_feat", "spheres.cu", "pallas_spheres.py:73",
                   launches, max(err1, err2), ms, plain_ms, bnd)
 
 
-def staircase_path(dev, profile):
+def staircase_path(dev):
     """Phases 6-8. Returns the kernel's JSON records (features mode, the
     nearest hit of the path, and any-hit, its shadow rays)."""
     cfg = RenderConfig(**STAIRCASE)
@@ -539,8 +531,6 @@ def staircase_path(dev, profile):
           f"regen iterations, kernel launches {launches}, mean "
           f"{img.mean():.4f}; crop vs TPU golden rmse {r8:.3e} "
           f"ssim {s8:.6f}")
-    if profile:
-        profile_frame("staircase", scene, cam, cfg)
     return [record("tris_hit_feat", "tris.cu", "pallas_tris.py:77",
                    launches["features"], max(err1, err2), ms, plain_ms,
                    bnd),
@@ -737,19 +727,12 @@ def bvh_kernel_phase(tag, scene, cam, cfg, kern):
                                eps)
     (o2, d2, t2), shadow = first_bounce(scene, view, cfg, o1, d1, pix,
                                         kern.plain())
-    _, ms2, _, _ = compare_bvh_nearest(f"{tag} bounce-2", kern, o2, d2, t2,
-                                       eps)
-    # the engine's coherence sort (sort_rays) on the same rays
-    perm, o_s, d_s, t_s = wf._sorted(wf._ray_sort_key(scene, o2, d2), o2,
-                                     d2, t2)
-    ms_sorted = cuda_ms(lambda: kern.trace(o_s, d_s, t_s, kern.tabs, eps))
-    phase("kernel", f"{tag} bounce-2 sorted by the coherence key: "
-          f"{ms_sorted:.3f} ms against {ms2:.3f} ms unsorted")
+    compare_bvh_nearest(f"{tag} bounce-2", kern, o2, d2, t2, eps)
     anyh = compare_bvh_anyhit(f"{tag} NEE shadows", kern, *shadow, eps)
     return near, anyh
 
 
-def staircase_hires_path(dev, profile):
+def staircase_hires_path(dev):
     """Phases 9, 11 and 12. Returns the JSON records of K8 and K9."""
     cfg = RenderConfig(**CONFIG4)
     t0 = time.perf_counter()
@@ -808,15 +791,14 @@ def staircase_hires_path(dev, profile):
           f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, {iters} "
           f"regen iterations ({secs / iters * 1e3:.2f} ms each), kernel "
           f"launches {launches}, mean {img.mean():.4f}")
-    if profile:
-        profile_frame("config 4", scene, cam, cfg)
+    profile_frame("config 4", scene, cam, cfg)
     return [record("bvh4_trace", "bvh4.cu", "pallas_bvh4.py:295",
                    launches["nearest"], err, ms, plain_ms, bnd),
             record("bvh4_occluded", "bvh4.cu", "pallas_bvh4.py:598",
                    launches["any_hit"], err_a, ms_a, plain_a, bnd_a)]
 
 
-def dragon_path(dev, profile):
+def dragon_path(dev):
     """Phases 10 and 13. Returns the JSON records of K5 and K6."""
     cfg = RenderConfig(**DRAGON)
     t0 = time.perf_counter()
@@ -851,46 +833,13 @@ def dragon_path(dev, profile):
           f"regen iterations, kernel launches {launches}, mean "
           f"{img.mean():.4f}; crop vs TPU golden rmse {r:.3e} "
           f"ssim {s:.6f}")
-    if profile:
-        profile_frame("dragon", scene, cam, cfg)
     return [record("heap_trace", "bvh.cu", "pallas_bvh.py:937",
                    launches["nearest"], err, ms, plain_ms, bnd),
             record("heap_occluded", "bvh.cu", "pallas_bvh.py:1393",
                    launches["any_hit"], err_a, ms_a, plain_a, bnd_a)]
 
 
-def sort_ab(dev):
-    """Config 4 at 100 spp and the dragon end to end with the coherence
-    sort (sort_rays) on and off, in the order on, off, off, on."""
-    for tag, cfg, make in (
-            ("config4", RenderConfig(**CONFIG4), lambda c: (
-                procedural_staircase_scene(c.nx, c.ny, device=dev,
-                                           **HIRES))),
-            ("dragon", RenderConfig(**DRAGON), lambda c: knot_zoo_scene(
-                c.nx, c.ny, device=dev, **DRAGON_MESH))):
-        scene, cam = make(cfg)
-        render_regen(scene, cam, cfg, ns=1)  # warm-up
-        reps = 1 if tag == "config4" else 3
-        secs = {True: [], False: []}
-        for srt in (True, False, False, True):
-            c = cfg.replace(sort_rays=srt)
-            for _ in range(reps):
-                _, s, _ = render_timed(lambda: render_regen(scene, cam, c))
-                secs[srt].append(s)
-        phase("sort-ab", f"{tag} {cfg.nx}x{cfg.ny} {cfg.ns} spp: sort on "
-              f"{[round(s, 3) for s in secs[True]]} s, off "
-              f"{[round(s, 3) for s in secs[False]]} s (CUDA events; "
-              f"runs in the order on, off, off, on)")
-
-
 def main():
-    args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    args.add_argument("--profile", action="store_true",
-                      help="add phase 14, the torch.profiler pass")
-    args.add_argument("--sort-ab", action="store_true",
-                      help="time only config 4 and the dragon with the "
-                           "coherence sort on and off")
-    opts = args.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "False); nothing runs on the CPU in its place")
@@ -906,13 +855,8 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     build_all()
-    if opts.sort_ab:
-        sort_ab(dev)
-        return
-    kernels = [spheres_path(dev, opts.profile),
-               *staircase_path(dev, opts.profile),
-               *staircase_hires_path(dev, opts.profile),
-               *dragon_path(dev, opts.profile)]
+    kernels = [spheres_path(dev), *staircase_path(dev),
+               *staircase_hires_path(dev), *dragon_path(dev)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

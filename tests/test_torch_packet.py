@@ -11,7 +11,7 @@ C-3). t: rtol 2e-6, u and v: atol 1e-5, normals: rtol 2e-6 and atol
 XLA contracts multiply-adds into FMAs on the CPU, PyTorch does not).
 Renders: rmse < 1e-5 against the JAX render, the bound of
 ``tests/test_bvh4.py:329``; BVH4 on or off and ``sort_rays`` on or off
-give the same image bit for bit.
+(accepted, no effect in the port) give the same image bit for bit.
 """
 
 import dataclasses
@@ -143,8 +143,8 @@ def _jax_scene(name):
 @pytest.mark.parametrize("name", ["knot", "staircase"])
 def test_forced_packet_renders_match_jax(name):
     """A small knot and a textured staircase, forced onto the packet path,
-    in both engines, BVH4 on and off, sorted and unsorted, against the
-    JAX package's CPU render."""
+    in both engines, BVH4 on and off, ``sort_rays`` on and off, against
+    the JAX package's CPU render."""
     js, jc, kw = _jax_scene(name)
     jcfg = JConfig(ns=1, max_depth=3, rays_per_chunk=64, **kw)
     ref = np.asarray(j_render(js, jc, jcfg))

@@ -30,9 +30,9 @@ class RenderConfig:
         ``rr_start_bounce`` with survival probability max(attenuation).
       shadow: next-event estimation toward the sphere light (with it
         off, specular light hits add the light color).
-      use_bvh: with it, a mesh takes the brute-force triangle kernel (a
-        mesh above ``packet_threshold`` triangles raises until slice 3);
-        without it, the all-triangles oracle.
+      use_bvh: with it, a mesh takes the brute-force triangle kernel, or
+        above ``packet_threshold`` triangle slots the BVH kernels; without
+        it, the all-triangles oracle.
       textures: image textures of mesh materials.
       stats: collect the ray-accounting counters.
       rays_per_chunk: lane count of a chunk (plain engine) or of the
@@ -44,7 +44,9 @@ class RenderConfig:
         ``stats``).
       packet_threshold: the largest mesh (in triangle slots) the JAX
         package brute-forces with ``use_bvh``; the port brute-forces the
-        same meshes and raises above it.
+        same meshes and traces larger ones through a BVH.
+      bvh4: a mesh above ``packet_threshold`` with SAH BVH4 tables takes
+        the BVH4 kernels; without it, the heap BVH kernels.
     """
 
     nx: int = 640
@@ -63,7 +65,9 @@ class RenderConfig:
     flush_window: int = 0
     check_nans: bool = False
     # TPU kernel knobs of the JAX package: accepted, no effect yet
-    # (packet_threshold excepted: see above).
+    # (packet_threshold, bvh4 and the unported knobs that raise excepted:
+    # see engine/wavefront.py). sort_rays and shadow_sort keep no effect:
+    # a per-ray CUDA walk gained nothing from the sort (ROADMAP A-12).
     interpret: bool = False
     force_feat_kernels: bool = False
     sort_rays: bool = True

@@ -17,9 +17,7 @@ tiers (:func:`mesh_tier`), as the JAX package dispatches on a TPU:
     :func:`tpu_pathtracer_torch.ops.bvh.brute_force`.
 
 Each runs its CUDA kernel for tensors on the GPU and its plain version
-on the CPU. The two BVH tiers trace one ray per thread; the rays are
-sorted by a coherence key first (``sort_rays``, ``shadow_sort``), which
-groups similar rays into warps and does not change any ray's result.
+on the CPU. The two BVH tiers trace one ray per thread, in lane order.
 
 Radiance accumulation reproduces the reference:
   * miss → ``color += attenuation * sky`` and the path ends;
@@ -33,10 +31,13 @@ Radiance accumulation reproduces the reference:
 The TPU schedule knobs of the JAX package's packet kernels
 (``packet_packs``, ``packet_split``, ``oct``, ``prefetch``, ``pair_pf``,
 ``leaf_cull``, ``tree_min``, ``packet_scratch``, ``bvh4_pf``,
-``bvh4_spec``, ``bvh4_pair``, ``bvh4_scratch``, ``packet_width``) change
-how a packet of rays is scheduled, not what it hits; a per-ray walk has
-no packets, so they have no effect here. The knobs that change results
-(``fast_math``, ``mx_leaf``, ``regroup``) are not ported and raise.
+``bvh4_spec``, ``bvh4_pair``, ``bvh4_scratch``, ``packet_width``, and the
+coherence sort ``sort_rays``/``shadow_sort``) change how a packet of rays
+is scheduled, not what it hits; a per-ray walk has no packets, so they
+have no effect here. (Sorting the rays by the JAX package's key before
+the CUDA walk was measured on an H100 and gained nothing: ROADMAP A-12.)
+The knobs that change results (``fast_math``, ``mx_leaf``, ``regroup``)
+are not ported and raise.
 """
 
 from __future__ import annotations
@@ -364,97 +365,30 @@ def _mesh_bbox_hit(scene: Scene, origin: V3, direction: V3,
     return tmax_acc >= tmin_acc
 
 
-def _ray_sort_key(scene: Scene, origin: V3, direction: V3) -> torch.Tensor:
-    """18-bit coherence key of the JAX package: the direction octant
-    (bits 15-17) over a 15-bit morton code of the origin quantized to 32
-    steps an axis within the mesh bounds."""
-    lo = scene.mesh.bounds_min
-    ext = torch.clamp_min(scene.mesh.bounds_max - lo, 1e-9)
-
-    def q5(x, a):
-        v = torch.clamp((x - lo[a]) / ext[a] * 31.0, 0.0, 31.0)
-        return v.to(torch.int64)
-
-    qx, qy, qz = q5(origin.x, 0), q5(origin.y, 1), q5(origin.z, 2)
-    m = torch.zeros_like(qx)
-    for b in range(5):
-        m = m | (((qx >> b) & 1) << (3 * b))
-        m = m | (((qy >> b) & 1) << (3 * b + 1))
-        m = m | (((qz >> b) & 1) << (3 * b + 2))
-    octant = ((direction.x < 0).to(torch.int64)
-              | ((direction.y < 0).to(torch.int64) << 1)
-              | ((direction.z < 0).to(torch.int64) << 2))
-    return (octant << 15) | m
-
-
-def _shadow_sort_key(scene: Scene, config: RenderConfig, origin: V3,
-                     direction: V3, t_max: torch.Tensor) -> torch.Tensor:
-    """The JAX package's ``shadow_sort`` keys, with the lanes that carry
-    no shadow ray (t_max <= 0) sorted to the end."""
-    if config.shadow_sort == "origin":
-        key = _ray_sort_key(scene, origin, direction) & 0x7FFF
-    elif config.shadow_sort == "light":
-        lc = scene.light_center
-        octant = ((origin.x > lc[0]).to(torch.int64)
-                  | ((origin.y > lc[1]).to(torch.int64) << 1)
-                  | ((origin.z > lc[2]).to(torch.int64) << 2))
-        key = (octant << 15) | (_ray_sort_key(scene, origin, direction)
-                                & 0x7FFF)
-    else:  # "scatter"
-        key = _ray_sort_key(scene, origin, direction)
-    return key | ((t_max <= 0.0).to(torch.int64) << 18)
-
-
-def _sorted(key: Optional[torch.Tensor], origin: V3, direction: V3,
-            t_max: torch.Tensor):
-    """(permutation or None, origin, direction, t_max) in key order."""
-    if key is None:
-        return None, origin, direction, t_max
-    perm = torch.sort(key, stable=True).indices
-    g = lambda v: V3(*(c[perm] for c in v))
-    return perm, g(origin), g(direction), t_max[perm]
-
-
-def _unsorted(perm: Optional[torch.Tensor], a: torch.Tensor) -> torch.Tensor:
-    if perm is None:
-        return a
-    out = torch.empty_like(a)
-    out[perm] = a
-    return out
-
-
-def _packet_nearest(scene: Scene, view: SceneView, config: RenderConfig,
-                    origin: V3, direction: V3, t_min: float,
-                    t_max: torch.Tensor):
-    """Large-mesh nearest hit through the BVH kernels, sorted by the
-    coherence key when ``sort_rays``, then the winner's features. Returns
-    ((t, tri, u, v, normal V3, tu, tv, mid), per-ray counters [5, N])."""
-    key = (_ray_sort_key(scene, origin, direction) if config.sort_rays
-           else None)
-    perm, o_s, d_s, tm = _sorted(key, origin, direction, t_max)
+def _packet_nearest(view: SceneView, origin: V3, direction: V3,
+                    t_min: float, t_max: torch.Tensor):
+    """Large-mesh nearest hit through the BVH kernels, then the winner's
+    features. Returns ((t, tri, u, v, normal V3, tu, tv, mid), per-ray
+    counters [5, N])."""
     if isinstance(view.packet, _cb4.Bvh4Tables):
-        t, tri, cnt = _cb4.bvh4_trace(o_s, d_s, tm, view.packet, t_min)
+        t, tri, cnt = _cb4.bvh4_trace(origin, direction, t_max, view.packet,
+                                      t_min)
     else:
-        t, tri, cnt = _cb.heap_trace(o_s, d_s, tm, view.packet, t_min)
-    t, tri = _unsorted(perm, t), _unsorted(perm, tri)
+        t, tri, cnt = _cb.heap_trace(origin, direction, t_max, view.packet,
+                                     t_min)
     t, tri, u, v, nx, ny, nz, tu, tv, mid = _cb.winner_features(
         origin, direction, t, tri, view.packet.tri_feat)
     return (t, tri, u, v, V3(nx, ny, nz), tu, tv, mid), cnt
 
 
-def _packet_shadow(scene: Scene, view: SceneView, config: RenderConfig,
-                   origin: V3, direction: V3, t_min: float,
-                   t_max: torch.Tensor):
-    """Large-mesh any-hit occlusion through the BVH kernels, sorted by
-    the shadow key when ``sort_rays``. Returns (occ [N], counters)."""
-    key = (_shadow_sort_key(scene, config, origin, direction, t_max)
-           if config.sort_rays else None)
-    perm, o_s, d_s, tm = _sorted(key, origin, direction, t_max)
+def _packet_shadow(view: SceneView, origin: V3, direction: V3,
+                   t_min: float, t_max: torch.Tensor):
+    """Large-mesh any-hit occlusion through the BVH kernels. Returns
+    (occ [N], counters)."""
     if isinstance(view.packet, _cb4.Bvh4Tables):
-        occ, cnt = _cb4.bvh4_occluded(o_s, d_s, tm, view.packet, t_min)
-    else:
-        occ, cnt = _cb.heap_occluded(o_s, d_s, tm, view.packet, t_min)
-    return _unsorted(perm, occ), cnt
+        return _cb4.bvh4_occluded(origin, direction, t_max, view.packet,
+                                  t_min)
+    return _cb.heap_occluded(origin, direction, t_max, view.packet, t_min)
 
 
 def _cols_from_rows(rows: torch.Tensor) -> MatCols:
@@ -522,8 +456,8 @@ def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
         t_ray_max = t if alive is None else torch.where(alive, t, -1.0)
         if view.packet is not None:
             (tt, tri_id, u, vv, nrm_raw, tu, tv,
-             mid), counters = _packet_nearest(scene, view, config, origin,
-                                               direction, eps, t_ray_max)
+             mid), counters = _packet_nearest(view, origin, direction, eps,
+                                               t_ray_max)
             hit = tri_id >= 0
             mid_c = torch.clamp(mid, 0, scene.materials.count - 1)
             mcols = _cols_from_rows(view.mat_rows[mid_c.to(torch.int64)])
@@ -594,9 +528,8 @@ def occluded(scene: Scene, view: SceneView, config: RenderConfig,
     counters = None
     if scene.has_mesh:
         if view.packet is not None:
-            mesh_occ, counters = _packet_shadow(scene, view, config, origin,
-                                                direction, config.epsilon,
-                                                t_max)
+            mesh_occ, counters = _packet_shadow(view, origin, direction,
+                                                config.epsilon, t_max)
             occ = occ | mesh_occ
         elif config.use_bvh:
             occ = occ | _ct.tris_anyhit_soa(
