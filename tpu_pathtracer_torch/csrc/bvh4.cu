@@ -29,9 +29,9 @@
 //   * the stack holds `cap` refs (the tables' stack_cap = 3*depth + 8,
 //     which bounds it: each level pushes at most three). A push past cap
 //     never writes: the ray stops, its leaf_pop counter is set to -1 and
-//     *overflow is set to 1, which the wrapper's check_stack turns into an
-//     error at the caller's next sync. The wrapper refuses tables whose
-//     stack_cap exceeds kStackCap.
+//     *overflow is set to 1, which the wrapper's check_stack reads and
+//     raises for. The wrapper refuses tables whose stack_cap exceeds
+//     kStackCap.
 //
 // Design. The TPU kernel runs a packet of 1024 rays on one scalar ref
 // stack in SMEM, votes the descent order by majority, DMAs the whole node
