@@ -9,14 +9,17 @@ staircase (the staircase-toy row of bench.py: 1200x800, 100 spp, max
 depth 64; triangle mesh, textures, NEE shadow rays), the asset-scale
 staircase (BASELINE config 4, staircase-hires: 154k triangles, the SAH
 BVH4 tier) and the dragon-class knot (872k triangles, the heap BVH
-tier). It builds the CUDA kernels from ``tpu_pathtracer_torch/csrc``
+tier), also under the knobs that pick the heap tier's other kernels
+(mx_leaf, regroup, fast_math, packet_packs with packet_split). It builds
+the CUDA kernels from ``tpu_pathtracer_torch/csrc``
 first and holds each against its plain PyTorch version at the shapes its
 path gives it. Phases, one line each; any failure raises and exits
 non-zero:
 
   1. device: the nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc builds spheres.cu, tris.cu, bvh.cu and bvh4.cu side by
-     side, g++ the native BVH builder (seconds, ptxas lines);
+  2. build: nvcc builds spheres.cu, tris.cu, bvh.cu, bvh4.cu, bvh_mx.cu
+     and bvh_rg.cu side by side, g++ the native BVH builder (seconds,
+     ptxas lines);
   3. spheres, kernel vs plain on the 960,000 primary rays of sample 0 and
      on the second-bounce rays, in all three modes; times (CUDA events,
      median of 7 warm runs);
@@ -37,13 +40,31 @@ non-zero:
      ties, occlusion and per-ray counters equal; times as in phase 3; the
      distinct node rows and leaves the plain walk read (its bytes bound);
  10. heap BVH (K5, K6) vs plain on the dragon-class knot, in the same way;
+     then on the same lanes the heap tier's variants: the MXU-leaf kernels
+     (K10 nearest, K10b any-hit; the kernel's t, winners, occlusion and
+     counters bit-equal), with where K10 departs from the exact K5 at 3
+     and 6 passes (winners a neighbour of K5's, pass-throughs, extra hits,
+     each counted and bounded; K10b's occlusion flips counted); the
+     regrouped kernel (K11: t, winners and counters bit-equal; its leaf
+     visits within [1, 1.5]x K5's) and K5/K6's fast_math mode against the
+     exact plain walk (t within 2^-20 relative where the winners agree;
+     winners, hits and occlusion equal except on lanes with a triangle
+     whose exact u, v, u+v, t or |a| lies within 2^-20 of an accept
+     bound, counted);
  11. small: staircase-hires 96x64, 4 spp, depth 8, kernels vs plain, and
      with bvh4=False (through K5/K6) against the BVH4 render;
  12. config 4: staircase-hires 1200x800, 2 spp gated against
      assets/bench_staircase_hires_2spp.ref, then 100 spp depth 64 timed:
      seconds, Mpaths/s, regen iterations, launches of each kernel, mean;
  13. dragon: the 872k knot 512x512, 4 spp, depth 50, untextured, timed
-     and gated against assets/bench_dragon_4spp.ref;
+     and gated against assets/bench_dragon_4spp.ref; then the same frame
+     under mx_leaf, regroup, fast_math and packet_packs=2 with
+     packet_split, each timed, its launches read (the variant's kernels
+     ran, the default heap kernel it replaces did not), gated against the
+     golden and held against the default frame: packet_packs bit for bit,
+     regroup rmse < 1e-4, fast_math SSIM >= 0.999, mx_leaf SSIM >= 0.999
+     and rmse < 2e-3 (MX_FRAME_RMSE), also on two more sample windows,
+     and at mx_passes=6 closer to the default than at 3;
  14. profile: one sample per pixel of config 4's frame, over its middle
      rows, two lane pools' worth of pixels (the profiler's cost grows with
      the kernels it records), under torch.profiler: host dispatches and
@@ -64,12 +85,14 @@ nothing of JAX.
 
 import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import typing
 from unittest import mock
 
 import numpy as np
@@ -87,6 +110,8 @@ from tpu_pathtracer_torch.models.spheres import random_spheres_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
+from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
+from tpu_pathtracer_torch.ops import cuda_bvh_rg as crg
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
@@ -115,8 +140,42 @@ FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
 # counted): a ray-sphere pair (spheres.cu), a ray-triangle slot
 # (bvh_common.cuh mt_hit, its division counted as one), a slab test
 SPHERE_FLOPS, MT_FLOPS, SLAB_FLOPS = 20, 37, 12
+# bvh_mx.cu: a slot's 19 G splits (3 operations each at 3 passes, 5 at
+# 6), 19 x passes products and sums, 4 combined sums (2 or 5 adds each),
+# f, t, u, v and u + v; a ray's F: 9 operations and 10 three-part splits
+MX_SLOT_FLOPS = {3: 19 * 3 + 19 * 3 * 2 + 4 * 2 + 5,
+                 6: 19 * 5 + 19 * 6 * 2 + 4 * 5 + 5}
+MX_RAY_FLOPS = 9 + 10 * 5
 TRI_ROW_BYTES = 48  # a [T, 12] f32 triangle row: v0, e1, e2, n
+MX_ROW_BYTES = 4 * cmx.G_COLUMNS  # a [T, 20] f32 test-column row
+FAST_DELTA = 2.0 ** -20  # fast_math: the bound on t and on accept flips
+# K10 against the exact K5: the share of the hits whose winner may
+# differ (2048-lane patches of the dragon's tessellation on the CPU read
+# 0.4-1.1% at 3 passes and at most 0.1% at 6, tests/test_torch_bvh_mx.py;
+# the dragon's 131,072 lanes 0.46-0.50% and 0.016-0.027%, PERF.md)
+MX_DEPART = {3: 0.05, 6: 0.005}
 NO_LIBRARY = None  # no single PyTorch call computes these hits
+DRAGON_KNOBS = (  # (setting, bound against the default dragon frame)
+    # K7's knobs only schedule the TPU's packets: the port computes them
+    # with K5/K6, so this frame checks the config's plumbing (the knobs
+    # reach the engine and leave the route and the image as they are),
+    # not a kernel
+    (dict(packet_packs=2, packet_split=True), "bit-identical"),
+    (dict(regroup=True), "rmse < 1e-4 (tests/test_packet_rg.py:150)"),
+    (dict(fast_math=True), "SSIM >= 0.999 (config.py:250-252)"),
+    # the JAX package has no test of this path: the golden's SSIM bound
+    # tightened tenfold, and rmse at MX_FRAME_RMSE
+    (dict(mx_leaf=True), "SSIM >= 0.999 and rmse < 2e-3"),
+)
+# mx_leaf's frame against the default one. Its split-bf16 test departs
+# from the exact walk on ~0.5% of the hits (phase 10), near an edge or at
+# grazing incidence, as the JAX kernel does (tests/test_torch_bvh_mx.py),
+# and a path through a crack changes its pixel a lot: three 4-sample
+# windows of the frame read 7.8e-4 to 9.7e-4 (PERF.md). The bound leaves
+# twice that, so a change that reshuffles which paths meet a crack stays
+# under it; doubling the rmse takes about four times the departures,
+# which phase 10 bounds at 10x the reading.
+MX_FRAME_RMSE = 2e-3
 
 
 def phase(name, msg):
@@ -428,9 +487,10 @@ def build_all():
         out = fn(*a)
         return out, time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(5) as ex:
+    names = ("spheres", "tris", "bvh", "bvh4", "bvh_mx", "bvh_rg")
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
         futs = {name: ex.submit(timed, _build.build, name)
-                for name in ("spheres", "tris", "bvh", "bvh4")}
+                for name in names}
         bvh = ex.submit(timed, native.load)
         for name, fut in futs.items():
             lib, secs = fut.result()
@@ -582,38 +642,78 @@ def profile_frame(tag, scene, cam, cfg):
               for e in top))
 
 
-class BvhKernels:
-    """The wrappers of one BVH tier, its plain versions and its cost
-    model (slab tests a node step, triangle slots a leaf visit, the bytes
-    of a node row and of a leaf's triangle rows)."""
+def _rg_walk(origin, direction, t_max, tabs, eps, any_hit, visits):
+    """regroup's plain walk: K11's rounds for nearest hits, K6's walk for
+    shadow rays, as the engine sends them."""
+    if any_hit:
+        return cb._heap_walk_ref(origin, direction, t_max, tabs, eps, True,
+                                 visits)
+    t, tri, cnt = crg._rg_walk_ref(origin, direction, t_max, tabs, eps,
+                                   visits)
+    return t, tri, None, cnt
 
-    def __init__(self, tier, tabs):
-        self.tier, self.tabs = tier, tabs
-        if tier == "bvh4":
-            self.mod, self.slabs, self.slots = cb4, 4, tabs.width
-            self.walk = cb4._bvh4_walk_ref
-            self.node_bytes = 4 * (6 * 4 + 4)  # four child boxes and refs
-        else:
-            self.mod, self.slabs, self.slots = cb, 2, tabs.prims_per_leaf
-            self.walk = cb._heap_walk_ref
-            self.node_bytes = 6 * 4  # one child box (min, max)
-        name = "bvh4" if tier == "bvh4" else "heap"
-        self.trace = getattr(self.mod, f"{name}_trace")
-        self.occluded = getattr(self.mod, f"{name}_occluded")
-        self.trace_ref = getattr(self.mod, f"_{name}_trace_ref")
-        self.occluded_ref = getattr(self.mod, f"_{name}_occluded_ref")
+
+class Route(typing.NamedTuple):
+    """A ``wf.mesh_tier`` route: its nearest and any-hit wrappers
+    ((module, name); the plain version is the module's ``_<name>_ref``),
+    its plain walk, and its cost model: the leaf slots of a table, slab
+    tests a node step, bytes of a node row and of a leaf slot, FP32
+    operations of a leaf slot and of a ray's set-up."""
+    nearest: tuple
+    any_hit: tuple
+    walk: typing.Callable
+    slots: typing.Callable
+    slabs: int
+    node_bytes: int
+    row_bytes: int
+    slot_flops: int
+    ray_flops: int
+
+
+HEAP_NODE = 6 * 4  # one child box (min, max)
+ROUTES = {
+    "bvh4": Route((cb4, "bvh4_trace"), (cb4, "bvh4_occluded"),
+                  cb4._bvh4_walk_ref, lambda tabs: tabs.width, 4,
+                  4 * (6 * 4 + 4), TRI_ROW_BYTES, MT_FLOPS, 3),
+    "heap": Route((cb, "heap_trace"), (cb, "heap_occluded"),
+                  cb._heap_walk_ref, lambda tabs: tabs.prims_per_leaf, 2,
+                  HEAP_NODE, TRI_ROW_BYTES, MT_FLOPS, 3),
+    # at mx_passes = 3, the config's default
+    "heap-mx": Route((cmx, "mx_trace"), (cmx, "mx_occluded"),
+                     functools.partial(cmx._mx_walk_ref, passes=3),
+                     lambda tabs: tabs.heap.prims_per_leaf, 2, HEAP_NODE,
+                     MX_ROW_BYTES, MX_SLOT_FLOPS[3], 3 + MX_RAY_FLOPS),
+    # shadow rays under regroup take K6
+    "heap-rg": Route((crg, "rg_trace"), (cb, "heap_occluded"), _rg_walk,
+                     lambda tabs: tabs.prims_per_leaf, 2, HEAP_NODE,
+                     TRI_ROW_BYTES, MT_FLOPS, 3),
+}
+
+
+class BvhKernels:
+    """The wrappers of one BVH route (``ROUTES``) on one set of tables,
+    their plain versions and the route's cost model."""
+
+    def __init__(self, route, tabs):
+        self.tier, self.tabs, self.route = route, tabs, ROUTES[route]
+        (mod, name), (amod, aname) = self.route.nearest, self.route.any_hit
+        self.trace = getattr(mod, name)
+        self.trace_ref = getattr(mod, f"_{name}_ref")
+        self.occluded = getattr(amod, aname)
+        self.occluded_ref = getattr(amod, f"_{aname}_ref")
+        self.slots = self.route.slots(tabs)
 
     def plain(self):
         """Patches that send the engine through the plain versions."""
-        return [(self.mod, self.trace.__name__, self.trace_ref),
-                (self.mod, self.occluded.__name__, self.occluded_ref)]
+        return [(mod, name, getattr(mod, f"_{name}_ref"))
+                for mod, name in (self.route.nearest, self.route.any_hit)]
 
     def walk_plain(self, origin, direction, t_max, eps, any_hit):
         """The plain walk, and the distinct node rows and leaves it read.
         Returns (t, tri, occ, counters, nodes read, leaves read)."""
         visits = {"nodes": [], "leaves": []}
-        out = self.walk(origin, direction, t_max, self.tabs, eps,
-                        any_hit=any_hit, visits=visits)
+        out = self.route.walk(origin, direction, t_max, self.tabs, eps,
+                              any_hit=any_hit, visits=visits)
         distinct = lambda ids: (torch.unique(torch.cat(ids)).numel()
                                 if ids else 0)
         return (*out, distinct(visits["nodes"]), distinct(visits["leaves"]))
@@ -621,26 +721,31 @@ class BvhKernels:
     def table_bytes(self, nodes, leaves):
         """Bytes of the distinct table rows a walk needs, each read
         once."""
-        return nodes * self.node_bytes + leaves * self.slots * TRI_ROW_BYTES
+        return (nodes * self.route.node_bytes
+                + leaves * self.slots * self.route.row_bytes)
 
     def nearest_flops(self, n, cnt):
         c = cnt.sum(dim=1, dtype=torch.int64)
-        return (3 * n + int(c[4]) * self.slabs * SLAB_FLOPS
-                + int(c[2]) * self.slots * MT_FLOPS)
+        r = self.route
+        return (r.ray_flops * n + int(c[4]) * r.slabs * SLAB_FLOPS
+                + int(c[2]) * self.slots * r.slot_flops)
 
     def anyhit_flops(self, n, cnt, occ, best):
         """As nearest, but the last visit of an occluded ray tests only
         the slots up to its first hit."""
         c = cnt.sum(dim=1, dtype=torch.int64)
+        r = self.route
         last = int((best[occ].to(torch.int64) % self.slots + 1).sum())
         slots = (int(c[2]) - int(occ.sum())) * self.slots + last
-        return (3 * n + int(c[4]) * self.slabs * SLAB_FLOPS
-                + slots * MT_FLOPS)
+        return (r.ray_flops * n + int(c[4]) * r.slabs * SLAB_FLOPS
+                + slots * r.slot_flops)
 
 
 def compare_bvh_nearest(tag, kern, origin, direction, t_max, eps):
     """A BVH tier's nearest-hit kernel against its plain version: t
-    bit-equal, winners equal except exact ties, per-ray counters equal.
+    bit-equal, winners equal except exact ties (K10 and K11, which merge
+    in their plain versions' order: no exception), per-ray counters
+    equal.
     Returns (max abs error of t, kernel ms, plain ms, bound)."""
     tabs = kern.tabs
     t_k, i_k, c_k = kern.trace(origin, direction, t_max, tabs, eps)
@@ -655,8 +760,9 @@ def compare_bvh_nearest(tag, kern, origin, direction, t_max, eps):
         raise AssertionError(f"{tag}: t differs on {int(bad.sum())} lanes "
                              f"(max {(t_k - t_p)[bad].abs().max():.3e})")
     mism = i_k != i_p
+    ties = i_k.numel() // 1000 if kern.tier in ("bvh4", "heap") else 0
     if bool((mism & ((i_k < 0) | (i_p < 0))).any()) or \
-            int(mism.sum()) > i_k.numel() // 1000:
+            int(mism.sum()) > ties:
         raise AssertionError(f"{tag}: winners differ on "
                              f"{int(mism.sum())} lanes")
     if not torch.equal(c_k, c_p):
@@ -715,7 +821,8 @@ def bvh_kernel_phase(tag, scene, cam, cfg, kern):
     """Phases 9 and 10: the tier's kernels against their plain versions
     on BVH_RAYS primary rays taken from across the frame, the same lanes'
     second-bounce rays and their NEE shadow rays. Returns (err, ms,
-    plain_ms, bound) of nearest and of any-hit."""
+    plain_ms, bound) of nearest and of any-hit, and the three ray sets
+    (name: (origin, direction, t_max))."""
     dev = cam.device
     view = wf.make_view(scene, cfg)
     pix = torch.linspace(0, cfg.num_pixels - 1, BVH_RAYS,
@@ -729,7 +836,10 @@ def bvh_kernel_phase(tag, scene, cam, cfg, kern):
                                         kern.plain())
     compare_bvh_nearest(f"{tag} bounce-2", kern, o2, d2, t2, eps)
     anyh = compare_bvh_anyhit(f"{tag} NEE shadows", kern, *shadow, eps)
-    return near, anyh
+    rays = {"primary": (o1, d1, torch.full((BVH_RAYS,), FLT_MAX,
+                                           device=dev)),
+            "bounce-2": (o2, d2, t2), "NEE shadows": shadow}
+    return near, anyh, rays
 
 
 def staircase_hires_path(dev):
@@ -745,7 +855,7 @@ def staircase_hires_path(dev):
           f"{b4.n_clusters} clusters of {b4.width}, stack_cap "
           f"{b4.stack_cap}, quant {b4.quant}")
     kern = BvhKernels("bvh4", cb4.bvh4_tables(b4))
-    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a) = \
+    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a), _ = \
         bvh_kernel_phase("bvh4 staircase-hires", scene, cam, cfg, kern)
 
     scfg = RenderConfig(**SMALL)
@@ -756,7 +866,7 @@ def staircase_hires_path(dev):
     for key in cb.LAUNCHES:
         cb.LAUNCHES[key] = 0
     img_h = render_image_regen(sscene, scam, scfg.replace(bvh4=False))
-    if min(cb.LAUNCHES.values()) <= 0:
+    if min(cb.LAUNCHES["nearest"], cb.LAUNCHES["any_hit"]) <= 0:
         raise AssertionError("bvh4=False did not run the heap kernels")
     r, s = golden.rmse(img_h, img4), golden.ssim(img_h, img4)
     if not (r < RMSE_TOL and s >= SSIM_MIN):
@@ -772,16 +882,14 @@ def staircase_hires_path(dev):
     r2, s2 = gate_crop("staircase-hires 2 spp", img2, HIRES_GOLDEN)
     phase("config4", f"{cfg.nx}x{cfg.ny} 2 spp: crop vs TPU golden rmse "
           f"{r2:.3e} ssim {s2:.6f}, mean {img2.mean():.4f}")
-    for mod in (cb4, cb, ct):
-        for key in mod.LAUNCHES:
-            mod.LAUNCHES[key] = 0
+    reset_launches()
     (fb, iters), secs, wall = render_timed(
         lambda: render_regen(scene, cam, cfg, return_iters=True))
+    ran = read_launches()
+    if set(ran) != {"cuda_bvh4.nearest", "cuda_bvh4.any_hit"}:
+        raise AssertionError(f"config 4 launched {ran}: the BVH4 kernels "
+                             "alone should run")
     launches = dict(cb4.LAUNCHES)
-    other = sum(cb.LAUNCHES.values()) + sum(ct.LAUNCHES.values())
-    if min(launches.values()) <= 0 or other:
-        raise AssertionError(f"config 4 launched BVH4 {launches}, other "
-                             f"triangle kernels {other} times")
     img = fb.cpu().numpy().reshape(cfg.ny, cfg.nx, 3)
     if not np.isfinite(img).all() or img.mean() <= 0:
         raise AssertionError("config 4: non-finite or black image")
@@ -798,8 +906,282 @@ def staircase_hires_path(dev):
                    launches["any_hit"], err_a, ms_a, plain_a, bnd_a)]
 
 
+TRI_MODULES = (cb4, cb, ct, cmx, crg)
+
+
+def reset_launches():
+    for mod in TRI_MODULES:
+        for key in mod.LAUNCHES:
+            mod.LAUNCHES[key] = 0
+
+
+def read_launches():
+    """{"module.mode": launches} of every triangle kernel that ran."""
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{key}": count
+            for mod in TRI_MODULES for key, count in mod.LAUNCHES.items()
+            if count}
+
+
+def near_accept_bound(tab64, o, d, t_min, t_hi):
+    """True if some triangle (rows of ``tab64``, [T, 12] float64: v0, e1,
+    e2, n) is accepted for the ray ``o``, ``d`` ([3] float64) in (t_min,
+    t_hi) to within FAST_DELTA and has its exact u, v, u + v, t or |a|
+    within FAST_DELTA of an accept bound: a lane whose outcome a reciprocal
+    off by an ulp may flip."""
+    v0, e1, e2, n = (tab64[:, 0:3], tab64[:, 3:6], tab64[:, 6:9],
+                     tab64[:, 9:12])
+    a = -(n @ d)
+    s = o - v0
+    q = torch.linalg.cross(s, d.expand_as(s))
+    u = (q * e2).sum(1) / a
+    v = -(q * e1).sum(1) / a
+    t = (s * n).sum(1) / a
+    dl = FAST_DELTA
+    inside = ((a.abs() >= 1e-7 * (1 - dl)) & (u >= -dl) & (v >= -dl)
+              & (u + v <= 1 + dl) & (t > t_min * (1 - dl))
+              & (t < t_hi * (1 + dl)))
+    edge = ((u.abs() <= dl) | (v.abs() <= dl) | ((u + v - 1).abs() <= dl)
+            | ((t - t_min).abs() <= dl * t_min)
+            | ((t - t_hi).abs() <= dl * abs(t_hi))
+            | ((a.abs() - 1e-7).abs() <= dl * 1e-7))
+    return bool((inside & edge).any())
+
+
+def compare_fast_math(tag, kern, origin, direction, t_max, eps, any_hit):
+    """K5 (nearest) or K6 (``any_hit``) in fast_math mode against the
+    plain walk, which keeps the exact division: where the winners agree, t
+    within 2^-20 relative; winners, hits and occlusion equal except on
+    lanes near an accept bound (``near_accept_bound``), which are
+    counted. Returns (max |t|
+    error, or the lanes whose occlusion differs; kernel ms, plain ms,
+    bound)."""
+    tabs = kern.tabs
+    n = origin.x.shape[0]
+    args = (origin, direction, t_max, tabs, eps)
+    fast = lambda: (cb.heap_occluded if any_hit else cb.heap_trace)(
+        *args, approx_recip=True)
+    plain = cb._heap_occluded_ref if any_hit else cb._heap_trace_ref
+    k = fast()
+    t_p, i_p, o_p, c_p, nodes, leaves = kern.walk_plain(
+        origin, direction, t_max, eps, any_hit)
+    torch.cuda.synchronize()
+    if any_hit:
+        differ = (k[0] != o_p).nonzero().flatten()
+        t_hi, err = t_max, float(differ.numel())
+        what = f"occ equal except on {differ.numel()} lanes"
+    else:
+        t_k, i_k, _ = k
+        differ = (i_k != i_p).nonzero().flatten()
+        same = (i_k == i_p) & (i_p >= 0)
+        dt = (t_k - t_p)[same].abs()
+        if bool((dt > FAST_DELTA * t_p[same].abs()).any()):
+            raise AssertionError(f"{tag}: t off by {dt.max().item():.3e}")
+        t_hi, err = t_p, dt.max().item() if dt.numel() else 0.0
+        what = (f"winners equal except on {differ.numel()} lanes, t within "
+                f"2^-20 (max |err| {err:.3e})")
+    if differ.numel() > 256:
+        raise AssertionError(f"{tag}: {differ.numel()} lanes differ")
+    tab64 = tabs.tri.double()
+    for j in differ.tolist():
+        o = torch.stack([c[j] for c in origin]).double()
+        d = torch.stack([c[j] for c in direction]).double()
+        if not near_accept_bound(tab64, o, d, eps, float(t_hi[j])):
+            raise AssertionError(f"{tag}: lane {j} differs with no "
+                                 "triangle near an accept bound")
+    # the exact and fast_math modes in turns on the same lanes
+    exact = lambda: (cb.heap_occluded if any_hit else cb.heap_trace)(*args)
+    turns = [cuda_ms(f) for f in (exact, fast, fast, exact)]
+    ms = (turns[1] + turns[2]) / 2
+    plain_ms = cuda_ms(lambda: plain(*args), reps=2)
+    if any_hit:
+        bnd = bound(kern.anyhit_flops(n, c_p, o_p, i_p),
+                    n * (28 + 1 + 20) + kern.table_bytes(nodes, leaves))
+    else:
+        bnd = bound(kern.nearest_flops(n, c_p),
+                    n * (28 + 8 + 20) + kern.table_bytes(nodes, leaves))
+    phase("kernel", f"{tag}: {n} lanes ({int((t_max > 0).sum())} live): "
+          f"{what}, each such lane with a triangle within 2^-20 of an "
+          f"accept bound; kernel {ms:.3f} ms vs plain (exact) "
+          f"{plain_ms:.3f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}); in "
+          f"turns exact {turns[0]:.3f}, fast_math {turns[1]:.3f}, "
+          f"fast_math {turns[2]:.3f}, exact {turns[3]:.3f} ms")
+    return err, ms, plain_ms, bnd
+
+
+def edge_and_incidence(heap, origin, direction, ids):
+    """Of each ray's hit point on heap slot ``ids`` [L], exactly (float64):
+    its barycentric distance to the triangle's nearest edge,
+    |min(u, v, 1 - u - v)|, and the cosine of the ray's incidence,
+    |a| / |n|. The split-bf16 test errs by about its numerators' rounding
+    over |a|, so it misjudges hits near an edge or at grazing incidence."""
+    rows = heap.tri[ids].double()
+    v0, e1, e2, n = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], rows[:, 9:12]
+    o = torch.stack(list(origin), 1).double()
+    d = torch.stack(list(direction), 1).double()
+    a = -(n * d).sum(1)
+    q = torch.linalg.cross(o - v0, d)
+    u = (q * e2).sum(1) / a
+    v = -(q * e1).sum(1) / a
+    edge = torch.minimum(torch.minimum(u, v), 1.0 - u - v).abs()
+    return edge, a.abs() / n.norm(dim=1)
+
+
+def mx_departures(tag, mesh, mx_tabs, origin, direction, t_max, eps):
+    """Where K10's split-bf16 leaf test departs from the exact K5 on these
+    lanes, at 3 and 6 passes: the lanes whose winner is a neighbour of
+    K5's (shares a vertex), the pass-throughs (K5 hits, K10 misses or hits
+    a triangle that is no neighbour) and the extra hits (K10 hits, K5
+    misses), at most MX_DEPART[passes] of the hits; with the median edge
+    distance and incidence cosine of those lanes' exact winners (K10's
+    where K5 misses) against all hits'. Returns {passes: (neighbour,
+    through, extra)}."""
+    heap = mx_tabs.heap
+    _, i5, _ = cb.heap_trace(origin, direction, t_max, heap, eps)
+    hits = int((i5 >= 0).sum())
+    verts = torch.stack([mesh.v0, mesh.v1, mesh.v2], 1)  # [T, 3, 3]
+
+    def medians(lanes, ids):
+        if lanes.numel() == 0:
+            return "-"
+        edge, cos = edge_and_incidence(
+            heap, V3(*(c[lanes] for c in origin)),
+            V3(*(c[lanes] for c in direction)), ids.long())
+        return f"{edge.median().item():.4f}, {cos.median().item():.3f}"
+
+    lanes = (i5 >= 0).nonzero().flatten()
+    out, parts = {}, [f"all hits {medians(lanes, i5[lanes])}"]
+    for passes in cmx.PASSES:
+        _, i10, _ = cmx.mx_trace(origin, direction, t_max, mx_tabs, eps,
+                                 passes)
+        lanes = (i10 != i5).nonzero().flatten()
+        a, b = i5[lanes].long(), i10[lanes].long()
+        va, vb = verts[a.clamp_min(0)], verts[b.clamp_min(0)]
+        near = ((a >= 0) & (b >= 0)
+                & (va[:, :, None] == vb[:, None]).all(-1).any(-1).any(-1))
+        counts = (int(near.sum()), int(((a >= 0) & ~near).sum()),
+                  int((a < 0).sum()))
+        if lanes.numel() > MX_DEPART[passes] * hits:
+            raise AssertionError(
+                f"{tag} at {passes} passes: {lanes.numel()} lanes of {hits} "
+                f"hits depart from K5 (bound {MX_DEPART[passes]:.2%})")
+        out[passes] = counts
+        parts.append(f"{passes} passes: {counts[0]} neighbour winners, "
+                     f"{counts[1]} pass-throughs, {counts[2]} extra hits "
+                     f"({lanes.numel() / max(hits, 1):.3%} of the hits; "
+                     f"{medians(lanes, torch.where(a >= 0, a, b))})")
+    phase("kernel", f"{tag}: K10 against K5 on {hits} hits of "
+          f"{i5.numel()} lanes (median edge distance, incidence cosine): "
+          + "; ".join(parts))
+    return out
+
+
+def heap_variants_phase(mesh, tabs, rays, eps):
+    """Phase 10's second half: the heap tier's other kernels on the same
+    lanes. Returns {record name: (err, ms, plain_ms, bound)}, the nearest
+    modes' from the primary rays."""
+    out = {}
+    o1, d1, t1 = rays["primary"]
+    o2, d2, t2 = rays["bounce-2"]
+    shadow = rays["NEE shadows"]
+    mx_tabs = cmx.mx_tables(mesh)
+    mx = BvhKernels("heap-mx", mx_tabs)
+    out["mx_trace"] = compare_bvh_nearest("heap-mx dragon primary", mx, o1,
+                                          d1, t1, eps)
+    compare_bvh_nearest("heap-mx dragon bounce-2", mx, o2, d2, t2, eps)
+    out["mx_occluded"] = compare_bvh_anyhit("heap-mx dragon NEE shadows",
+                                            mx, *shadow, eps)
+    for name in ("primary", "bounce-2"):
+        mx_departures(f"heap-mx dragon {name}", mesh, mx_tabs, *rays[name],
+                      eps)
+    occ6 = cb.heap_occluded(*shadow, tabs, eps)[0]
+    flips = {p: int((cmx.mx_occluded(*shadow, mx_tabs, eps, p)[0]
+                     != occ6).sum()) for p in cmx.PASSES}
+    phase("kernel", f"heap-mx dragon NEE shadows: K10b's occlusion differs "
+          f"from K6's on {flips[3]} lanes at 3 passes, {flips[6]} at 6, of "
+          f"{int((shadow[2] > 0).sum())} shadow rays")
+    rg = BvhKernels("heap-rg", tabs)
+    out["rg_trace"] = compare_bvh_nearest("heap-rg dragon primary", rg, o1,
+                                          d1, t1, eps)
+    compare_bvh_nearest("heap-rg dragon bounce-2", rg, o2, d2, t2, eps)
+    for name, (o, d, t) in (("primary", rays["primary"]),
+                            ("bounce-2", rays["bounce-2"])):
+        v5 = int(cb.heap_trace(o, d, t, tabs, eps)[2][2].sum())
+        ratio = int(crg.rg_trace(o, d, t, tabs, eps)[2][2].sum()) / max(v5,
+                                                                        1)
+        if not 1.0 <= ratio <= 1.5:
+            raise AssertionError(f"heap-rg dragon {name}: K11's leaf visits "
+                                 f"are {ratio:.3f}x K5's, outside [1, 1.5]")
+        # K5 and K11 in turns on the same lanes
+        k5 = lambda: cb.heap_trace(o, d, t, tabs, eps)
+        k11 = lambda: crg.rg_trace(o, d, t, tabs, eps)
+        turns = [cuda_ms(f) for f in (k5, k11, k11, k5)]
+        phase("kernel", f"heap-rg dragon {name}: K11's leaf visits "
+              f"{ratio:.3f}x K5's {v5} (window {crg.WINDOW}; bound 1.5x); in "
+              f"turns K5 {turns[0]:.3f} ms, K11 {turns[1]:.3f} ms, K11 "
+              f"{turns[2]:.3f} ms, K5 {turns[3]:.3f} ms")
+    heap = BvhKernels("heap", tabs)
+    out["heap_trace_fast_math"] = compare_fast_math(
+        "fast_math dragon primary", heap, o1, d1, t1, eps, False)
+    compare_fast_math("fast_math dragon bounce-2", heap, o2, d2, t2, eps,
+                      False)
+    out["heap_occluded_fast_math"] = compare_fast_math(
+        "fast_math dragon NEE shadows", heap, *shadow, eps, True)
+    return out
+
+
+def dragon_frame(tag, scene, cam, cfg, expect):
+    """Phase 13's frame under ``cfg``: a 1 spp warm-up, then the frame
+    timed, with the launch counts set to 0 just before it and read just
+    after; the kernels that ran must be ``expect``. Returns (image,
+    launches)."""
+    render_regen(scene, cam, cfg, ns=1)  # warm-up
+    reset_launches()
+    (fb, iters), secs, wall = render_timed(
+        lambda: render_regen(scene, cam, cfg, return_iters=True))
+    launches = read_launches()
+    if set(launches) != set(expect):
+        raise AssertionError(f"{tag}: launched {launches}, expected "
+                             f"{sorted(expect)}")
+    img = fb.cpu().numpy().reshape(cfg.ny, cfg.nx, 3)
+    r, s = gate_crop(tag, img, DRAGON_GOLDEN)
+    paths = cfg.num_pixels * cfg.ns
+    phase("dragon", f"{tag} {cfg.nx}x{cfg.ny} {cfg.ns} spp depth "
+          f"{cfg.max_depth}: {secs:.3f} s (CUDA events; host wall "
+          f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, {iters} "
+          f"regen iterations, kernel launches {launches}, mean "
+          f"{img.mean():.4f}; crop vs TPU golden rmse {r:.3e} "
+          f"ssim {s:.6f}")
+    return img, launches
+
+
+def mx_frame_checks(scene, cam, cfg, base, mx_img):
+    """mx_leaf against the default frame beyond phase 13's first frame:
+    the same comparison on two more 4-sample windows of the frame (sample
+    indices from 4 and from 8), each under MX_FRAME_RMSE; and the mx_leaf
+    frame at mx_passes=6, which must come closer to ``base``, the default
+    frame, than ``mx_img``, the one at 3 passes."""
+    frame = lambda c, s0: render_regen(scene, cam, c, s0=s0).cpu().numpy(
+        ).reshape(cfg.ny, cfg.nx, 3)
+    mcfg = cfg.replace(mx_leaf=True)
+    three = golden.rmse(mx_img, base)
+    windows = {s0: golden.rmse(frame(mcfg, s0), frame(cfg, s0))
+               for s0 in (4, 8)}
+    six = frame(mcfg.replace(mx_passes=6), 0)
+    r6 = golden.rmse(six, base)
+    text = (", ".join(f"samples {s0}-{s0 + cfg.ns - 1}: rmse {r:.3e}"
+                      for s0, r in windows.items())
+            + f"; mx_passes=6: rmse {r6:.3e} ssim "
+            f"{golden.ssim(six, base):.6f} (3 passes: {three:.3e})")
+    if max(windows.values()) >= MX_FRAME_RMSE or not r6 < three:
+        raise AssertionError(f"dragon mx_leaf=True vs the default frame: "
+                             f"{text} (bound {MX_FRAME_RMSE}, and 6 passes "
+                             "closer than 3)")
+    phase("dragon", f"mx_leaf=True vs the default frame on {text}")
+
+
 def dragon_path(dev):
-    """Phases 10 and 13. Returns the JSON records of K5 and K6."""
+    """Phases 10 and 13. Returns the JSON records of K5, K6 and the heap
+    tier's variants (K10, K10b, K11, K5/K6 fast_math)."""
     cfg = RenderConfig(**DRAGON)
     t0 = time.perf_counter()
     scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, device=dev, **DRAGON_MESH)
@@ -809,34 +1191,61 @@ def dragon_path(dev):
           f"{time.perf_counter() - t0:.1f} s: {scene.mesh.num_tris} heap "
           f"slots, first_leaf {scene.mesh.first_leaf}, "
           f"{scene.mesh.prims_per_leaf} a leaf, tier heap")
-    kern = BvhKernels("heap", cb.heap_tables(scene.mesh))
-    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a) = \
+    tabs = cb.heap_tables(scene.mesh)
+    kern = BvhKernels("heap", tabs)
+    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a), rays = \
         bvh_kernel_phase("heap dragon", scene, cam, cfg, kern)
+    variants = heap_variants_phase(scene.mesh, tabs, rays, cfg.epsilon)
 
-    render_regen(scene, cam, cfg, ns=1)  # warm-up
-    for mod in (cb4, cb, ct):
-        for key in mod.LAUNCHES:
-            mod.LAUNCHES[key] = 0
-    (fb, iters), secs, wall = render_timed(
-        lambda: render_regen(scene, cam, cfg, return_iters=True))
-    launches = dict(cb.LAUNCHES)
-    other = sum(cb4.LAUNCHES.values()) + sum(ct.LAUNCHES.values())
-    if min(launches.values()) <= 0 or other:
-        raise AssertionError(f"the dragon launched heap {launches}, other "
-                             f"triangle kernels {other} times")
-    img = fb.cpu().numpy().reshape(cfg.ny, cfg.nx, 3)
-    r, s = gate_crop("dragon", img, DRAGON_GOLDEN)
-    paths = cfg.num_pixels * cfg.ns
-    phase("dragon", f"{cfg.nx}x{cfg.ny} {cfg.ns} spp depth "
-          f"{cfg.max_depth}: {secs:.3f} s (CUDA events; host wall "
-          f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, {iters} "
-          f"regen iterations, kernel launches {launches}, mean "
-          f"{img.mean():.4f}; crop vs TPU golden rmse {r:.3e} "
-          f"ssim {s:.6f}")
+    base, launches = dragon_frame("dragon", scene, cam, cfg,
+                                  {"cuda_bvh.nearest", "cuda_bvh.any_hit"})
+    knob_launches, knob_imgs = {}, {}
+    for knobs, bound_text in DRAGON_KNOBS:
+        kcfg = cfg.replace(**knobs)
+        name = ", ".join(f"{k}={v}" for k, v in knobs.items())
+        route = {"heap-mx": {"cuda_bvh_mx.nearest", "cuda_bvh_mx.any_hit"},
+                 "heap-rg": {"cuda_bvh_rg.nearest", "cuda_bvh.any_hit"}}
+        expect = route.get(wf.mesh_tier(scene, kcfg), (
+            {"cuda_bvh.nearest_fast_math", "cuda_bvh.any_hit_fast_math"}
+            if kcfg.fast_math else {"cuda_bvh.nearest", "cuda_bvh.any_hit"}))
+        img, knob_launches[name] = dragon_frame(f"dragon {name}", scene,
+                                                cam, kcfg, expect)
+        knob_imgs[name] = img
+        r, s = golden.rmse(img, base), golden.ssim(img, base)
+        ok = {"packet_packs=2, packet_split=True":
+              bool(np.array_equal(img, base)),
+              "regroup=True": r < 1e-4,
+              "fast_math=True": s >= 0.999,
+              "mx_leaf=True": s >= 0.999 and r < MX_FRAME_RMSE}[name]
+        if not ok:
+            raise AssertionError(f"dragon {name} vs default frame: rmse "
+                                 f"{r:.3e} ssim {s:.6f} (bound: "
+                                 f"{bound_text})")
+        phase("dragon", f"{name} vs the default frame: rmse {r:.3e} ssim "
+              f"{s:.6f} max |diff| {np.abs(img - base).max():.3e} (bound: "
+              f"{bound_text})")
+    mx_frame_checks(scene, cam, cfg, base, knob_imgs["mx_leaf=True"])
+    mx_l = knob_launches["mx_leaf=True"]
+    rg_l = knob_launches["regroup=True"]
+    fm_l = knob_launches["fast_math=True"]
+    rec = lambda name, src, rep, n, key: record(name, src, rep, n,
+                                                *variants[key])
     return [record("heap_trace", "bvh.cu", "pallas_bvh.py:937",
-                   launches["nearest"], err, ms, plain_ms, bnd),
+                   launches["cuda_bvh.nearest"], err, ms, plain_ms, bnd),
             record("heap_occluded", "bvh.cu", "pallas_bvh.py:1393",
-                   launches["any_hit"], err_a, ms_a, plain_a, bnd_a)]
+                   launches["cuda_bvh.any_hit"], err_a, ms_a, plain_a,
+                   bnd_a),
+            rec("heap_trace_fast_math", "bvh.cu", "pallas_bvh.py:937",
+                fm_l["cuda_bvh.nearest_fast_math"], "heap_trace_fast_math"),
+            rec("heap_occluded_fast_math", "bvh.cu", "pallas_bvh.py:1393",
+                fm_l["cuda_bvh.any_hit_fast_math"],
+                "heap_occluded_fast_math"),
+            rec("mx_trace", "bvh_mx.cu", "pallas_bvh_mx.py:190",
+                mx_l["cuda_bvh_mx.nearest"], "mx_trace"),
+            rec("mx_occluded", "bvh_mx.cu", "pallas_bvh_mx.py:302",
+                mx_l["cuda_bvh_mx.any_hit"], "mx_occluded"),
+            rec("rg_trace", "bvh_rg.cu", "pallas_bvh_rg.py:230",
+                rg_l["cuda_bvh_rg.nearest"], "rg_trace")]
 
 
 def main():

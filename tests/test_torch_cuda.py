@@ -1,5 +1,6 @@
-"""The CUDA sphere, triangle, heap-BVH and BVH4 kernels against their
-plain PyTorch versions, on the card.
+"""The CUDA sphere, triangle, heap-BVH (exact and fast_math, MXU-leaf,
+regrouped) and BVH4 kernels against their plain PyTorch versions, on the
+card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -25,6 +26,8 @@ from tpu_pathtracer_torch.ops import bvh as tbvh
 from tpu_pathtracer_torch.ops import bvh4 as tb4
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
+from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
+from tpu_pathtracer_torch.ops import cuda_bvh_rg as crg
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
@@ -306,3 +309,113 @@ def test_small_packet_render_kernel_equals_plain(dev, bvh4):
                               getattr(mod, f"_{names[1]}_ref")):
         ref = render_image_regen(scene, cam, cfg)
     np.testing.assert_array_equal(img, ref)
+
+
+# fast_math: the kernel's reciprocal is within ~1 ulp of the plain
+# version's division, so t moves by a few ulps
+FAST_T_RTOL = 2.0 ** -20
+
+
+@pytest.mark.gpu
+def test_heap_fast_math_within_bound(dev):
+    """The heap kernels' fast_math mode against the plain (exact) walk: t
+    within 2^-20 relative where the winners agree, winners and occlusion
+    equal on all but a handful of lanes (near an accept bound)."""
+    mesh, o, d, tm = _bvh_inputs(dev, seed=3)
+    tabs = cb.heap_tables(mesh)
+    before = dict(cb.LAUNCHES)
+    for t_max in (FLT_MAX, tm):
+        tk, ik, _ = cb.heap_trace(o, d, t_max, tabs, T_MIN,
+                                  approx_recip=True)
+        tp, ip, _ = cb._heap_trace_ref(o, d, t_max, tabs, T_MIN)
+        same = (ik == ip) & (ip >= 0)
+        assert int((ik != ip).sum()) <= 8
+        assert bool(((tk - tp).abs() <= FAST_T_RTOL * tp.abs())[same].all())
+        ok, _ = cb.heap_occluded(o, d, t_max, tabs, T_MIN, approx_recip=True)
+        op, _ = cb._heap_occluded_ref(o, d, t_max, tabs, T_MIN)
+        assert int((ok != op).sum()) <= 8
+    assert cb.LAUNCHES["nearest_fast_math"] == \
+        before["nearest_fast_math"] + 2
+    assert cb.LAUNCHES["any_hit_fast_math"] == \
+        before["any_hit_fast_math"] + 2
+    assert cb.LAUNCHES["nearest"] == before["nearest"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("passes", [3, 6])
+def test_mx_kernel_bit_equal(dev, passes):
+    mesh, o, d, tm = _bvh_inputs(dev, seed=4)
+    tabs = cmx.mx_tables(mesh)
+    before = dict(cmx.LAUNCHES)
+    for t_max in (FLT_MAX, tm):
+        k = cmx.mx_trace(o, d, t_max, tabs, T_MIN, passes)
+        p = cmx._mx_trace_ref(o, d, t_max, tabs, T_MIN, passes)
+        for a, b in zip(k, p):  # the kernel's t, tri, per-ray counters
+            assert torch.equal(a, b)
+        assert (k[1] >= 0).float().mean() > 0.1
+        ok, ck = cmx.mx_occluded(o, d, t_max, tabs, T_MIN, passes)
+        op, cp = cmx._mx_occluded_ref(o, d, t_max, tabs, T_MIN, passes)
+        assert torch.equal(ok, op) and torch.equal(ck, cp)
+    assert not ok[::7].any() and not ck[:, ::7].any()
+    assert cmx.LAUNCHES["nearest"] == before["nearest"] + 2
+    assert cmx.LAUNCHES["any_hit"] == before["any_hit"] + 2
+
+
+@pytest.mark.gpu
+def test_rg_kernel_bit_equal(dev):
+    """The regrouped kernel against its plain rounds: t, winners and
+    per-ray counters bit-equal; t also equal to the heap walk's."""
+    mesh, o, d, tm = _bvh_inputs(dev, seed=5)
+    tabs = cb.heap_tables(mesh)
+    before = crg.LAUNCHES["nearest"]
+    for t_max in (FLT_MAX, tm):
+        k = crg.rg_trace(o, d, t_max, tabs, T_MIN)
+        p = crg._rg_trace_ref(o, d, t_max, tabs, T_MIN)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+        h = cb._heap_trace_ref(o, d, t_max, tabs, T_MIN)
+        assert torch.equal(k[0], h[0])
+        assert int(k[2][2].sum()) >= int(h[2][2].sum())
+    assert not k[2][:, ::7].any() and (k[1][::7] == -1).all()
+    assert crg.LAUNCHES["nearest"] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knob", ["mx_leaf", "regroup", "fast_math"])
+def test_small_knob_render_kernel_vs_plain(dev, knob):
+    """A small knot through each heap variant's kernels: bit-equal to its
+    plain versions (mx_leaf, regroup), or within the fast_math bound of
+    the exact render."""
+    cfg = RenderConfig(nx=48, ny=32, ns=2, max_depth=8, textures=False,
+                       packet_threshold=1, bvh4=False)
+    scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, nu=96, nv=24,
+                                prims_per_leaf=32, device=dev)
+    kcfg = cfg.replace(**{knob: True})
+    mods = (cb, cmx, crg)
+    for mod in mods:
+        for key in mod.LAUNCHES:
+            mod.LAUNCHES[key] = 0
+    img = render_image_regen(scene, cam, kcfg)
+    if knob == "mx_leaf":
+        assert min(cmx.LAUNCHES.values()) > 0
+        assert sum(cb.LAUNCHES.values()) == 0
+        plain = [(cmx, "mx_trace", cmx._mx_trace_ref),
+                 (cmx, "mx_occluded", cmx._mx_occluded_ref)]
+    elif knob == "regroup":
+        assert crg.LAUNCHES["nearest"] > 0 and cb.LAUNCHES["any_hit"] > 0
+        assert cb.LAUNCHES["nearest"] == 0
+        plain = [(crg, "rg_trace", crg._rg_trace_ref),
+                 (cb, "heap_occluded", cb._heap_occluded_ref)]
+    else:
+        assert cb.LAUNCHES["nearest_fast_math"] > 0
+        assert cb.LAUNCHES["any_hit_fast_math"] > 0
+        assert cb.LAUNCHES["nearest"] == cb.LAUNCHES["any_hit"] == 0
+        plain = [(cb, "heap_trace", cb._heap_trace_ref),
+                 (cb, "heap_occluded", cb._heap_occluded_ref)]
+    with mock.patch.object(*plain[0]), mock.patch.object(*plain[1]):
+        ref = render_image_regen(scene, cam, kcfg)
+    if knob == "fast_math":
+        # the plain versions keep the exact division
+        assert np.sqrt(np.mean((img - ref) ** 2)) < 1e-3
+    else:
+        np.testing.assert_array_equal(img, ref)

@@ -1,8 +1,10 @@
 """The large-mesh path of the port: the plain heap BVH walk
 (ops/cuda_bvh.py, also ``ops.bvh.traverse``) against the JAX package's
-heap kernels (``packet_trace`` / ``packet_occluded``, interpret mode) and
-its jnp ``traverse``; and forced-packet renders of both engines against
-the JAX package's CPU render.
+heap kernels (``packet_trace`` / ``packet_occluded``, interpret mode, also
+the multi-packet kernels of ``packet_packs`` and ``packet_split``) and its
+jnp ``traverse``; and forced-packet renders of both engines against the
+JAX package's CPU render, by default and under the knobs that pick other
+heap kernels (``mx_leaf``, ``regroup``, ``fast_math``).
 
 Tolerances. Hit masks, occlusion and the per-ray node counters against
 ``traverse`` are exact; winner ids agree except on exact ties (ROADMAP
@@ -11,7 +13,12 @@ C-3). t: rtol 2e-6, u and v: atol 1e-5, normals: rtol 2e-6 and atol
 XLA contracts multiply-adds into FMAs on the CPU, PyTorch does not).
 Renders: rmse < 1e-5 against the JAX render, the bound of
 ``tests/test_bvh4.py:329``; BVH4 on or off and ``sort_rays`` on or off
-(accepted, no effect in the port) give the same image bit for bit.
+(accepted, no effect in the port) give the same image bit for bit. Under
+``fast_math`` the port's CPU render is the exact render bit for bit (its
+plain versions keep the division); the JAX package's interpret-mode
+``pl.reciprocal(approx=True)`` rounds its operand to bf16 (about 2^-9,
+coarser than the TPU's 2^-14; ROADMAP C-14), so its render is held to the
+golden-gate SSIM >= 0.99 and rmse < 1e-2 (measured 0.9989 and 7.5e-3).
 """
 
 import dataclasses
@@ -23,6 +30,7 @@ import jax.numpy as jnp
 
 from test_torch_bvh4 import (T_MIN, assert_ids_or_ties, both_meshes, jv,
                              rays, tv)
+from test_torch_bvh_mx import assert_hits_match_jax
 from test_torch_render import converted
 from tpu_pathtracer.config import RenderConfig as JConfig
 from tpu_pathtracer.engine.regen import _pool_size as j_pool_size
@@ -39,8 +47,9 @@ from tpu_pathtracer_torch.engine.regen import _pool_size, render_image_regen
 from tpu_pathtracer_torch.engine.render import render_image
 from tpu_pathtracer_torch.ops import bvh as tbvh
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
+from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
-from tpu_pathtracer_torch.utils.golden import rmse
+from tpu_pathtracer_torch.utils.golden import rmse, ssim
 
 
 def test_heap_walk_matches_jax_kernels():
@@ -204,12 +213,25 @@ def test_tiers_knobs_and_pool_size():
     cfg = RenderConfig(ns=1, max_depth=3, packet_threshold=1, **kw)
     assert wf.mesh_tier(ts, cfg.replace(use_bvh=False)) == "oracle"
     assert wf.mesh_tier(ts, cfg.replace(packet_threshold=8192)) == "brute"
-    # the knobs that change results raise on the heap tier only
-    for knob in ("fast_math", "mx_leaf", "regroup"):
-        bad = cfg.replace(bvh4=False, **{knob: True})
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            wf.check_supported(ts, bad)
-        wf.check_supported(ts, cfg.replace(**{knob: True}))
+    # the knobs that pick heap kernels, in the JAX package's precedence:
+    # BVH4 tables first, then mx_leaf, then regroup
+    heap = cfg.replace(bvh4=False)
+    for knobs, route in (({"mx_leaf": True}, "heap-mx"),
+                         ({"regroup": True}, "heap-rg"),
+                         ({"mx_leaf": True, "regroup": True}, "heap-mx"),
+                         ({"fast_math": True}, "heap")):
+        assert wf.mesh_tier(ts, heap.replace(**knobs)) == route
+        assert wf.mesh_tier(ts, cfg.replace(**knobs)) == "bvh4"
+    views = {k: wf.make_view(ts, heap.replace(**{k: True}))
+             for k in ("mx_leaf", "regroup", "fast_math")}
+    assert isinstance(views["mx_leaf"].packet, cmx.MxTables)
+    assert isinstance(views["regroup"].packet, cb.HeapTables)
+    assert views["fast_math"].fast_math
+    assert not views["mx_leaf"].fast_math and not views["regroup"].fast_math
+    # fast_math applies to the packet path only: off it the heap walk is
+    # the JAX package's exact traverse
+    off = heap.replace(fast_math=True, packet_threshold=1 << 20)
+    assert not wf.make_view(ts, off).fast_math
     # the JAX package's regen pool on its packet path: 128k lanes
     # textured, 192k not
     n = 1 << 20
@@ -219,3 +241,63 @@ def test_tiers_knobs_and_pool_size():
         assert _pool_size(cfg.replace(textures=tex), n, ts) == \
             j_pool_size(jcfg, n, js) == (1 << 17 if tex else 3 << 16)
     assert _pool_size(cfg.replace(packet_threshold=8192), n, ts) == 1 << 15
+
+
+@pytest.mark.parametrize("packs,split", [(2, False), (4, False), (2, True),
+                                         (4, True)])
+def test_multipacket_kernels_match_heap_walk(packs, split):
+    """K7: the JAX package's multi-packet heap kernels (``packet_packs``,
+    ``packet_split``) against the port's heap walk, which computes them:
+    hit masks and occlusion equal, winners except exact ties, the rest
+    within the XLA-contraction bounds of
+    ``test_torch_bvh_mx.assert_hits_match_jax`` (on grazing lanes of this
+    soup t moves by up to 4.1e-6 relative, past the rtol 2e-6 of
+    ``test_heap_walk_matches_jax_kernels``)."""
+    jm, tm = both_meshes(4000, seed=21, ppl=16)
+    pm = build_packet_mesh(jm)
+    assert pm.smem_nodes and pm.cpb == 1  # the multi-packet kernels run
+    o, d = rays(1500, seed=22)
+    kw = dict(interpret=True, stride=pm.stride, cpb=pm.cpb,
+              smem_nodes=pm.smem_nodes, packs=packs, split=split)
+    jouts, _ = packet_trace(jv(o), jv(d), FLT_MAX, pm.nodes, pm.blocks,
+                            pm.tri_feat, pm.cl_first, pm.width, T_MIN, **kw)
+    tabs = cb.heap_tables(tm)
+    t, tri, _ = cb.heap_trace(tv(o), tv(d), FLT_MAX, tabs, T_MIN)
+    outs = cb.winner_features(tv(o), tv(d), t, tri, tabs.tri_feat)
+    jtri, tri = np.asarray(jouts[1]), tri.numpy()
+    hit = jtri >= 0
+    np.testing.assert_array_equal(tri >= 0, hit)
+    assert hit.sum() > 100
+    assert_ids_or_ties(jm, o, d, tri, jtri, hit)
+    assert_hits_match_jax(jm, o, d, jouts, outs)
+    jocc, _ = packet_occluded(jv(o), jv(d), 15.0, pm.nodes, pm.blocks,
+                              pm.cl_first, pm.width, T_MIN, **kw)
+    occ, _ = cb.heap_occluded(tv(o), tv(d), 15.0, tabs, T_MIN)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+
+
+@pytest.mark.parametrize("knobs", [dict(mx_leaf=True),
+                                   dict(mx_leaf=True, mx_passes=6),
+                                   dict(regroup=True),
+                                   dict(fast_math=True)],
+                         ids=["mx_leaf", "mx_leaf-6", "regroup", "fast_math"])
+def test_knob_renders_match_jax(knobs):
+    """A small knot forced onto the heap kernels, under each knob that
+    picks another heap kernel, in both engines, against the JAX package's
+    CPU render with the same config (its interpret-mode kernels)."""
+    js, jc, kw = _jax_scene("knot")
+    base = dict(ns=1, max_depth=3, rays_per_chunk=64, packet_threshold=1,
+                bvh4=False, **kw)
+    ref = np.asarray(j_render(js, jc, JConfig(force_feat_kernels=True,
+                                              **base, **knobs)))
+    ts, tc = converted(js, jc)
+    cfg = RenderConfig(**base)
+    img = render_image(ts, tc, cfg.replace(**knobs))
+    np.testing.assert_array_equal(
+        render_image_regen(ts, tc, cfg.replace(**knobs)), img)
+    assert np.isfinite(img).all() and img.mean() > 0
+    if "fast_math" in knobs:
+        np.testing.assert_array_equal(img, render_image(ts, tc, cfg))
+        assert ssim(img, ref) >= 0.99 and rmse(img, ref) < 1e-2
+    else:
+        assert rmse(img, ref) < 1e-5

@@ -31,6 +31,8 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.ops.cuda_tris",
             "tpu_pathtracer_torch.ops.cuda_bvh",
             "tpu_pathtracer_torch.ops.cuda_bvh4",
+            "tpu_pathtracer_torch.ops.cuda_bvh_mx",
+            "tpu_pathtracer_torch.ops.cuda_bvh_rg",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -57,7 +59,9 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.models.mesh, "
             "tpu_pathtracer_torch.models.obj, "
             "tpu_pathtracer_torch.models.shapes, "
-            "tpu_pathtracer_torch.ops.cuda_bvh4\n"
+            "tpu_pathtracer_torch.ops.cuda_bvh4, "
+            "tpu_pathtracer_torch.ops.cuda_bvh_mx, "
+            "tpu_pathtracer_torch.ops.cuda_bvh_rg\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"

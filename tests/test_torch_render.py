@@ -20,6 +20,7 @@ from tpu_pathtracer.models import spheres as jspheres
 from tpu_pathtracer.oracle import render_oracle
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.convert import camera_from_numpy, scene_from_numpy
+from tpu_pathtracer_torch.engine import wavefront
 from tpu_pathtracer_torch.engine.regen import (render_image_regen,
                                                render_sample_range)
 from tpu_pathtracer_torch.engine.render import Renderer, render_image
@@ -231,8 +232,12 @@ def test_unported_features_raise():
     """A mesh the JAX package sends to its packet-BVH kernels (use_bvh,
     more than packet_threshold triangles) renders through the heap walk
     (slice 3) in both engines, the same image as the brute-force kernel
-    and the oracle; the heap kernel variants that are not ported
-    (fast_math, mx_leaf, regroup) raise naming slice 5b."""
+    and the oracle; the heap kernel variants once unported (slice 5:
+    fast_math, mx_leaf, regroup) now render through their routes in both
+    engines, within their bounds against the heap render: fast_math bit
+    for bit on the CPU (the plain versions keep the exact division),
+    regroup rmse < 1e-4 (tests/test_packet_rg.py:150), mx_leaf rmse < 1e-3
+    and SSIM >= 0.999."""
     ts, tc = tmesh.procedural_staircase_scene(8, 8, device="cpu")
     cfg = RenderConfig(nx=8, ny=8, ns=1, max_depth=2, packet_threshold=600)
     assert ts.mesh.num_tris == 640
@@ -241,11 +246,19 @@ def test_unported_features_raise():
     np.testing.assert_array_equal(
         render_image(ts, tc, cfg.replace(packet_threshold=640)), heap)
     assert render_image(ts, tc, cfg.replace(use_bvh=False)).mean() > 0
-    for knob in ("fast_math", "mx_leaf", "regroup"):
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            render_image(ts, tc, cfg.replace(**{knob: True}))
-        with pytest.raises(NotImplementedError, match="slice 5b"):
-            render_image_regen(ts, tc, cfg.replace(**{knob: True}))
+    for knob, route in (("fast_math", "heap"), ("mx_leaf", "heap-mx"),
+                        ("regroup", "heap-rg")):
+        kcfg = cfg.replace(**{knob: True})
+        assert wavefront.mesh_tier(ts, kcfg) == route
+        img = render_image(ts, tc, kcfg)
+        np.testing.assert_array_equal(render_image_regen(ts, tc, kcfg), img)
+        if knob == "fast_math":
+            np.testing.assert_array_equal(img, heap)
+        elif knob == "regroup":
+            assert golden.rmse(img, heap) < 1e-4
+        else:
+            assert golden.rmse(img, heap) < 1e-3
+            assert golden.ssim(img, heap) >= 0.999
 
 
 def _cli(*args, cwd):

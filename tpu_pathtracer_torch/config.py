@@ -3,12 +3,13 @@
 packages.
 
 The port reads the renderer knobs (resolution, samples, depth, epsilon,
-roulette, shadow, use_bvh, textures, stats, chunking) and
-``packet_threshold``. The remaining fields name
-TPU kernel variants and schedules of the JAX package (packet-BVH
-prefetch schemes, MXU leaf tests, sort keys, interpret mode). They are
-accepted so a config carries across unchanged, and have no effect in
-the port until the slice that ports their kernel (ROADMAP queue B).
+roulette, shadow, use_bvh, textures, stats, chunking), and the knobs that
+pick a large mesh's kernels: ``packet_threshold``, ``bvh4``, ``mx_leaf``,
+``mx_passes``, ``regroup`` and ``fast_math``. The remaining fields name
+TPU schedules of the JAX package (packet-BVH prefetch schemes and packet
+interleaving, sort keys, interpret mode). They are accepted so a config
+carries across unchanged, and have no effect on the port's per-ray
+kernels.
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ class RenderConfig:
         same meshes and traces larger ones through a BVH.
       bvh4: a mesh above ``packet_threshold`` with SAH BVH4 tables takes
         the BVH4 kernels; without it, the heap BVH kernels.
+      mx_leaf, mx_passes: the heap kernels' leaf test as a split-bf16
+        product (3 or 6 passes), the winner recomputed exactly.
+      regroup: the heap nearest-hit kernel with a regrouped leaf phase.
+      fast_math: the heap kernels' Möller–Trumbore reciprocal from the
+        hardware's approximate reciprocal.
     """
 
     nx: int = 640
@@ -64,10 +70,15 @@ class RenderConfig:
     rays_per_chunk: int = 0
     flush_window: int = 0
     check_nans: bool = False
-    # TPU kernel knobs of the JAX package: accepted, no effect yet
-    # (packet_threshold, bvh4 and the unported knobs that raise excepted:
-    # see engine/wavefront.py). sort_rays and shadow_sort keep no effect:
-    # a per-ray CUDA walk gained nothing from the sort (ROADMAP A-12).
+    # TPU kernel knobs of the JAX package. packet_threshold, bvh4,
+    # mx_leaf (with mx_passes), regroup and fast_math pick the mesh's
+    # kernels as the JAX package's make_view does (engine/wavefront.py);
+    # the others schedule TPU packets and have no effect on a per-ray
+    # walk. packet_packs > 1 and packet_split select the JAX package's
+    # multi-packet kernels, which compute the heap kernels' function bit
+    # for bit: here the heap kernels compute it. sort_rays and shadow_sort
+    # keep no effect: a per-ray CUDA walk gained nothing from the sort
+    # (ROADMAP A-12).
     interpret: bool = False
     force_feat_kernels: bool = False
     sort_rays: bool = True

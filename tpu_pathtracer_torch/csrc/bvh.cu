@@ -3,7 +3,16 @@
 //
 // Replaces the TPU kernels tpu_pathtracer/ops/pallas_bvh.py
 //   ::_kernel_nearest (:937, through packet_trace :2695)   -> kNearest,
-//   ::_kernel_shadow  (:1393, through packet_occluded :2839) -> kAnyHit.
+//   ::_kernel_shadow  (:1393, through packet_occluded :2839) -> kAnyHit,
+// each in two arithmetic modes: exact, and fast_math (approx_recip,
+// :820-828: the reciprocal in Moller-Trumbore from rcp.approx, see
+// bvh_common.cuh). The multi-packet kernels _kernel_nearest_mp (:1766),
+// _kernel_shadow_mp (:2056), _kernel_nearest_mps (:2415) and
+// _kernel_shadow_mps (:2539), which packet_packs > 1 and packet_split
+// select, compute the same function as the two above, outputs and
+// counters bit-identical to packs = 1 (tests/test_packet_bvh.py:513-610),
+// and differ only in how 1024-ray packets are interleaved on a TPU; this
+// kernel is their counterpart too.
 //
 // Contract (the results of the TPU kernels, and the semantics of the
 // reference's hitBvh, kernels.cu:148-224, as ops/bvh.traverse has them):
@@ -48,7 +57,10 @@
 // into warps.
 //
 // Numerics: -fmad=false, IEEE division, and the plain version's
-// operation order (ops/cuda_bvh.py), so the two agree bit for bit.
+// operation order (ops/cuda_bvh.py), so the two agree bit for bit. The
+// fast_math mode's reciprocal is within about 1 ulp of the division; its
+// plain version keeps the division, so there the two agree to that bound
+// and on every winner whose accept test is not within it of a bound.
 
 #include <cfloat>
 #include <cstdint>
@@ -63,13 +75,7 @@ constexpr int kThreads = 128;
 
 enum Mode : int { kNearest = 0, kAnyHit = 1 };
 
-__device__ __forceinline__ void pop_bitstack(unsigned& bs, unsigned& idx) {
-  const int m = __ffs(bs) - 1;  // trailing zeros (bs != 0)
-  bs = (bs >> m) ^ 1u;
-  idx = (idx >> m) ^ 1u;
-}
-
-template <int MODE>
+template <int MODE, bool APPROX>
 __global__ void __launch_bounds__(kThreads)
 heap_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
             const float* __restrict__ oz, const float* __restrict__ dx,
@@ -98,8 +104,9 @@ heap_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
         for (int k = 0; k < P; ++k) {
           const float4* row = tri + 3 * static_cast<size_t>(base + k);
           float t, u, v;
-          if (pt::mt_hit(__ldg(row), __ldg(row + 1), __ldg(row + 2), o1, o2,
-                         o3, d1, d2, d3, t_min, closest, t, u, v)) {
+          if (pt::mt_hit<APPROX>(__ldg(row), __ldg(row + 1), __ldg(row + 2),
+                                 o1, o2, o3, d1, d2, d3, t_min, closest, t,
+                                 u, v)) {
             best = base + k;
             if (MODE == kAnyHit) {
               occ = true;
@@ -109,34 +116,11 @@ heap_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
           }
         }
         if (MODE == kAnyHit && occ) break;
-        pop_bitstack(bs, idx);
+        pt::pop_bitstack(bs, idx);
       } else {
         ++steps;
-        const unsigned l = idx << 1;
-        const float4 la = __ldg(nodes + 2 * static_cast<size_t>(l));
-        const float4 lb = __ldg(nodes + 2 * static_cast<size_t>(l) + 1);
-        const float4 ra = __ldg(nodes + 2 * static_cast<size_t>(l) + 2);
-        const float4 rb = __ldg(nodes + 2 * static_cast<size_t>(l) + 3);
-        const float lhit = pt::slab_entry(la.x, la.y, la.z, la.w, lb.x, lb.y,
-                                          o1, o2, o3, i1, i2, i3, n1, n2, n3,
-                                          closest);
-        const float rhit = pt::slab_entry(ra.x, ra.y, ra.z, ra.w, rb.x, rb.y,
-                                          o1, o2, o3, i1, i2, i3, n1, n2, n3,
-                                          closest);
-        const bool tl = lhit < closest;
-        const bool tr = rhit < closest;
-        const unsigned child = l + (rhit < lhit ? 1u : 0u);
-        if (tl && tr) {
-          ++nb;
-          idx = child;
-          bs = (bs << 1) | 1u;
-        } else if (tl || tr) {
-          ++nsg;
-          idx = child;
-          bs <<= 1;
-        } else {
-          pop_bitstack(bs, idx);
-        }
+        pt::heap_node_step(nodes, idx, bs, closest, o1, o2, o3, i1, i2, i3,
+                           n1, n2, n3, nb, nsg);
       }
     }
   }
@@ -155,39 +139,51 @@ heap_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
 
 }  // namespace
 
+template <bool APPROX>
+static void launch_mode(int mode, dim3 grid, cudaStream_t st, const float* ox,
+                        const float* oy, const float* oz, const float* dx,
+                        const float* dy, const float* dz, const float* tmax,
+                        const float4* nd, const float4* tb, unsigned fl, int P,
+                        float t_min, int n, float* t_out, int* tri_out,
+                        bool* occ_out, int* cnt) {
+  if (mode == kNearest) {
+    heap_kernel<kNearest, APPROX><<<grid, kThreads, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, tmax, nd, tb, fl, P, t_min, n, t_out, tri_out,
+        occ_out, cnt);
+  } else {
+    heap_kernel<kAnyHit, APPROX><<<grid, kThreads, 0, st>>>(
+        ox, oy, oz, dx, dy, dz, tmax, nd, tb, fl, P, t_min, n, t_out, tri_out,
+        occ_out, cnt);
+  }
+}
+
 // Launches one mode on `stream`; returns cudaGetLastError() (0 = launched).
-// nodes is [2*first_leaf, 8] f32 rows (minx, miny, minz, maxx, maxy,
-// maxz, 0, 0), tri is [T, 12] f32 rows (v0, e1, e2, n), both 16-byte
-// aligned; cnt is [5, n] int32. Pointers the mode does not use may be
-// null.
-extern "C" int bvh_heap_launch(int mode, const float* ox, const float* oy,
-                               const float* oz, const float* dx,
-                               const float* dy, const float* dz,
-                               const float* tmax, const float* nodes,
-                               const float* tri, int first_leaf, int P,
-                               float t_min, int n, float* t_out,
-                               int* tri_out, bool* occ_out, int* cnt,
-                               void* stream) {
+// approx != 0 selects the fast_math reciprocal. nodes is [2*first_leaf, 8]
+// f32 rows (minx, miny, minz, maxx, maxy, maxz, 0, 0), tri is [T, 12] f32
+// rows (v0, e1, e2, n), both 16-byte aligned; cnt is [5, n] int32.
+// Pointers the mode does not use may be null.
+extern "C" int bvh_heap_launch(int mode, int approx, const float* ox,
+                               const float* oy, const float* oz,
+                               const float* dx, const float* dy,
+                               const float* dz, const float* tmax,
+                               const float* nodes, const float* tri,
+                               int first_leaf, int P, float t_min, int n,
+                               float* t_out, int* tri_out, bool* occ_out,
+                               int* cnt, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (first_leaf < 1 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (first_leaf < 1 || P < 1 || (mode != kNearest && mode != kAnyHit))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kThreads - 1) / kThreads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* nd = reinterpret_cast<const float4*>(nodes);
   const float4* tb = reinterpret_cast<const float4*>(tri);
   const unsigned fl = static_cast<unsigned>(first_leaf);
-  switch (mode) {
-    case kNearest:
-      heap_kernel<kNearest><<<grid, kThreads, 0, st>>>(
-          ox, oy, oz, dx, dy, dz, tmax, nd, tb, fl, P, t_min, n, t_out,
-          tri_out, occ_out, cnt);
-      break;
-    case kAnyHit:
-      heap_kernel<kAnyHit><<<grid, kThreads, 0, st>>>(
-          ox, oy, oz, dx, dy, dz, tmax, nd, tb, fl, P, t_min, n, t_out,
-          tri_out, occ_out, cnt);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (approx) {
+    launch_mode<true>(mode, grid, st, ox, oy, oz, dx, dy, dz, tmax, nd, tb,
+                      fl, P, t_min, n, t_out, tri_out, occ_out, cnt);
+  } else {
+    launch_mode<false>(mode, grid, st, ox, oy, oz, dx, dy, dz, tmax, nd, tb,
+                       fl, P, t_min, n, t_out, tri_out, occ_out, cnt);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,14 @@
-// Shared device code of the triangle kernels (tris.cu, bvh.cu, bvh4.cu):
-// the restructured Moller-Trumbore test and the entry-distance slab test.
+// Shared device code of the triangle kernels (tris.cu, bvh.cu, bvh4.cu,
+// bvh_mx.cu, bvh_rg.cu): the restructured Moller-Trumbore test, the
+// entry-distance slab test and the heap BVH's interior step.
 //
 // Both are written in the operation order of the JAX package's Pallas
 // kernels (tpu_pathtracer/ops/pallas_bvh.py: _mt_scalar_tri :775-844 and
 // _slab :292-317) and of the plain PyTorch versions beside each kernel,
 // and the kernels are built with -fmad=false and IEEE division, so a
-// kernel and its plain version round alike, bit for bit.
+// kernel and its plain version round alike, bit for bit. The one
+// exception is mt_hit's fast_math mode (kApproxRecip), which the heap
+// kernels of bvh.cu instantiate beside the exact one.
 
 #pragma once
 
@@ -30,6 +33,19 @@ constexpr float kBboxTMin = 0.001f;
 // give it), so a NaN never counts as < 0: such triangles fail through t.
 // A zero row (padding, or a sentinel slot zeroed by the wrapper) gives
 // a = 0 and fails as parallel.
+//
+// kApproxRecip (config.fast_math; the JAX package's approx_recip,
+// pallas_bvh.py:820-828) takes f from the hardware's approximate
+// reciprocal, rcp.approx.ftz.f32, accurate to about 1 ulp (the TPU's
+// approximate reciprocal is good to about 2^-14, the bound config.py
+// states for fast_math). Every other operation is the exact mode's.
+__device__ __forceinline__ float rcp_approx(float a) {
+  float f;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(f) : "f"(a));
+  return f;
+}
+
+template <bool kApproxRecip = false>
 __device__ __forceinline__ bool mt_hit(const float4 p, const float4 q4,
                                        const float4 r, float o1, float o2,
                                        float o3, float d1, float d2,
@@ -41,7 +57,7 @@ __device__ __forceinline__ bool mt_hit(const float4 p, const float4 q4,
   const float n1 = r.y, n2 = r.z, n3 = r.w;
   const float a = -(d1 * n1 + d2 * n2 + d3 * n3);
   const bool parallel = fabsf(a) < 1e-7f;
-  const float f = 1.0f / a;
+  const float f = kApproxRecip ? rcp_approx(a) : 1.0f / a;
   const float sx = o1 - v0x;
   const float sy = o2 - v0y;
   const float sz = o3 - v0z;
@@ -86,6 +102,51 @@ __device__ __forceinline__ float slab_entry(
   tmin = loz > tmin ? loz : tmin;
   tmax = hiz < tmax ? hiz : tmax;
   return tmax < tmin ? FLT_MAX : tmin;
+}
+
+// Pops the heap walk's uint32 bitstack (pop_bitstack, kernels.cu:148):
+// drops the trailing zeros of bs (levels with no pending sibling) and
+// moves idx up as many levels, to the remembered sibling (bs != 0).
+__device__ __forceinline__ void pop_bitstack(unsigned& bs, unsigned& idx) {
+  const int m = __ffs(bs) - 1;  // trailing zeros
+  bs = (bs >> m) ^ 1u;
+  idx = (idx >> m) ^ 1u;
+}
+
+// One interior step of the heap walk (the reference's dual-node descent,
+// kernels.cu:154-224) at node idx < first_leaf: both children's boxes
+// (rows 2*idx and 2*idx + 1 of the [nodes, 8] f32 table, two float4 a
+// row) are slab-tested against closest; a child is entered if its entry
+// distance is < closest; with both entered, the nearer (right only if
+// strictly nearer) comes first and the other is remembered in bs; with
+// none, the walk pops. nb / nsg count steps entering two / one child.
+__device__ __forceinline__ void heap_node_step(
+    const float4* __restrict__ nodes, unsigned& idx, unsigned& bs,
+    float closest, float o1, float o2, float o3, float i1, float i2,
+    float i3, bool n1, bool n2, bool n3, int& nb, int& nsg) {
+  const unsigned l = idx << 1;
+  const float4 la = __ldg(nodes + 2 * static_cast<size_t>(l));
+  const float4 lb = __ldg(nodes + 2 * static_cast<size_t>(l) + 1);
+  const float4 ra = __ldg(nodes + 2 * static_cast<size_t>(l) + 2);
+  const float4 rb = __ldg(nodes + 2 * static_cast<size_t>(l) + 3);
+  const float lhit = slab_entry(la.x, la.y, la.z, la.w, lb.x, lb.y, o1, o2,
+                                o3, i1, i2, i3, n1, n2, n3, closest);
+  const float rhit = slab_entry(ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, o1, o2,
+                                o3, i1, i2, i3, n1, n2, n3, closest);
+  const bool tl = lhit < closest;
+  const bool tr = rhit < closest;
+  const unsigned child = l + (rhit < lhit ? 1u : 0u);
+  if (tl && tr) {
+    ++nb;
+    idx = child;
+    bs = (bs << 1) | 1u;
+  } else if (tl || tr) {
+    ++nsg;
+    idx = child;
+    bs <<= 1;
+  } else {
+    pop_bitstack(bs, idx);
+  }
 }
 
 }  // namespace pt

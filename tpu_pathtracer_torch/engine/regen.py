@@ -24,8 +24,8 @@ import torch
 from tpu_pathtracer_torch.camera import Camera
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine.wavefront import (
-    BounceState, Stats, _use_packet, bounce_step, check_supported,
-    check_traversal, initial_state, make_view)
+    BounceState, Stats, _use_packet, bounce_step, check_traversal,
+    initial_state, make_view)
 from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.ops.v3 import V3, where as vwhere
 
@@ -60,7 +60,6 @@ def render_regen(scene: Scene, camera: Camera, config: RenderConfig,
     Returns the framebuffer tensor, followed by the iteration count if
     ``return_iters`` and by the Stats if ``config.stats``.
     """
-    check_supported(scene, config)
     dev = camera.device
     n = num_pixels if num_pixels is not None else config.num_pixels
     ns = int(config.ns if ns is None else ns)

@@ -5,19 +5,33 @@ A batch of N paths advances one bounce per call of :func:`bounce_step`;
 each stage (intersect, scatter, roulette) is a masked elementwise pass
 over dense ``[N]`` component tensors. Sphere intersection goes through
 :func:`tpu_pathtracer_torch.ops.cuda_spheres.spheres_hit_feat`; the
-shadow rays through the any-hit modes. A triangle mesh takes one of four
-tiers (:func:`mesh_tier`), as the JAX package dispatches on a TPU:
+shadow rays through the any-hit modes. A triangle mesh takes one of these
+routes (:func:`mesh_tier`), as the JAX package dispatches on a TPU
+(``make_view``, ``tpu_pathtracer/engine/wavefront.py:209-227``). A mesh
+above ``packet_threshold`` triangle slots takes its packet path:
 
-  * ``bvh4``: a mesh above ``packet_threshold`` triangle slots with SAH
-    BVH4 tables and ``config.bvh4`` — ``ops/cuda_bvh4.py``;
-  * ``heap``: any other mesh above ``packet_threshold``, or above
-    ``TRI_BRUTE_MAX`` — the heap BVH walk ``ops/cuda_bvh.py``;
+  * ``bvh4``: with SAH BVH4 tables and ``config.bvh4`` —
+    ``ops/cuda_bvh4.py``; the heap knobs below have no effect there;
+  * ``heap-mx``: else with ``mx_leaf`` — the heap walk with the split-bf16
+    leaf test, ``ops/cuda_bvh_mx.py``, for nearest hits and shadow rays
+    (``mx_passes`` 3 or 6);
+  * ``heap-rg``: else with ``regroup`` — the heap walk with the regrouped
+    leaf phase, ``ops/cuda_bvh_rg.py``, for nearest hits; shadow rays
+    take the heap any-hit kernel;
+  * ``heap``: else the heap BVH walk ``ops/cuda_bvh.py``.
+
+``fast_math`` runs the heap kernels on that path (``heap``, and the
+shadow rays of ``heap-rg``) in their approximate-reciprocal mode. Off the
+packet path:
+
+  * ``heap``: a mesh above ``TRI_BRUTE_MAX`` — the exact heap walk (the
+    JAX package's jnp ``traverse``, which no knob changes);
   * ``brute``: a smaller mesh — ``ops/cuda_tris.py``;
   * ``oracle``: ``use_bvh=False`` — the all-triangles scan
     :func:`tpu_pathtracer_torch.ops.bvh.brute_force`.
 
 Each runs its CUDA kernel for tensors on the GPU and its plain version
-on the CPU. The two BVH tiers trace one ray per thread, in lane order.
+on the CPU. The BVH routes trace one ray per thread, in lane order.
 
 Radiance accumulation reproduces the reference:
   * miss → ``color += attenuation * sky`` and the path ends;
@@ -31,13 +45,15 @@ Radiance accumulation reproduces the reference:
 The TPU schedule knobs of the JAX package's packet kernels
 (``packet_packs``, ``packet_split``, ``oct``, ``prefetch``, ``pair_pf``,
 ``leaf_cull``, ``tree_min``, ``packet_scratch``, ``bvh4_pf``,
-``bvh4_spec``, ``bvh4_pair``, ``bvh4_scratch``, ``packet_width``, and the
-coherence sort ``sort_rays``/``shadow_sort``) change how a packet of rays
-is scheduled, not what it hits; a per-ray walk has no packets, so they
-have no effect here. (Sorting the rays by the JAX package's key before
-the CUDA walk was measured on an H100 and gained nothing: ROADMAP A-12.)
-The knobs that change results (``fast_math``, ``mx_leaf``, ``regroup``)
-are not ported and raise.
+``bvh4_spec``, ``bvh4_pair``, ``bvh4_scratch``, ``packet_width``,
+``regroup_dense``, and the coherence sort ``sort_rays``/``shadow_sort``)
+change how a packet of rays is scheduled, not what it hits; a per-ray
+walk has no packets, so they have no effect here. With ``packet_packs >
+1`` (and ``packet_split``) the JAX package runs its multi-packet kernels,
+which compute the heap kernels' function bit for bit
+(``tests/test_packet_bvh.py:513-610``); here the heap kernels compute it.
+(Sorting the rays by the JAX package's key before the CUDA walk was
+measured on an H100 and gained nothing: ROADMAP A-12.)
 """
 
 from __future__ import annotations
@@ -54,6 +70,8 @@ from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.ops import bvh as _bvh
 from tpu_pathtracer_torch.ops import cuda_bvh as _cb
 from tpu_pathtracer_torch.ops import cuda_bvh4 as _cb4
+from tpu_pathtracer_torch.ops import cuda_bvh_mx as _cmx
+from tpu_pathtracer_torch.ops import cuda_bvh_rg as _crg
 from tpu_pathtracer_torch.ops import cuda_spheres as _cs
 from tpu_pathtracer_torch.ops import cuda_tris as _ct
 from tpu_pathtracer_torch.ops import materials as _m
@@ -63,9 +81,6 @@ from tpu_pathtracer_torch.ops.intersect import BBOX_T_MIN
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 
 TRI_BRUTE_MAX = 16384  # the JAX package's largest brute-force mesh
-# knobs of the JAX package's heap packet kernels that change results;
-# not ported (ROADMAP queue B, slice 5b)
-_UNPORTED_KNOBS = ("fast_math", "mx_leaf", "regroup")
 
 
 def _use_packet(scene: Scene, config: RenderConfig) -> bool:
@@ -80,29 +95,21 @@ def _use_packet(scene: Scene, config: RenderConfig) -> bool:
 
 
 def mesh_tier(scene: Scene, config: RenderConfig) -> str:
-    """Which intersection the mesh takes: "bvh4", "heap", "brute" or
-    "oracle" ("" without a mesh). Large meshes off the packet path take
-    the heap walk, which is the JAX package's ``traverse``."""
+    """Which intersection the mesh takes: "bvh4", "heap-mx", "heap-rg",
+    "heap", "brute" or "oracle" ("" without a mesh); see the module
+    docstring. Large meshes off the packet path take the heap walk, which
+    is the JAX package's ``traverse``."""
     if not scene.has_mesh:
         return ""
     if not config.use_bvh:
         return "oracle"
     if _use_packet(scene, config):
-        return "bvh4" if (config.bvh4 and scene.mesh.bvh4 is not None) \
-            else "heap"
+        if config.bvh4 and scene.mesh.bvh4 is not None:
+            return "bvh4"
+        if config.mx_leaf:
+            return "heap-mx"
+        return "heap-rg" if config.regroup else "heap"
     return "heap" if scene.mesh.num_tris > TRI_BRUTE_MAX else "brute"
-
-
-def check_supported(scene: Scene, config: RenderConfig) -> None:
-    """Raise for a knob that would change the image and is not ported:
-    ``fast_math``, ``mx_leaf`` and ``regroup`` select other kernels for a
-    heap-tier mesh on the JAX package's packet path (slice 5b)."""
-    if _use_packet(scene, config) and mesh_tier(scene, config) == "heap":
-        for knob in _UNPORTED_KNOBS:
-            if getattr(config, knob):
-                raise NotImplementedError(
-                    f"slice 5b: {knob}=True selects a JAX packet kernel "
-                    "variant that is not ported yet")
 
 
 class MatCols(NamedTuple):
@@ -180,10 +187,13 @@ class SceneView(NamedTuple):
     tri_n: Optional[V3] = None         # face normals e1×e2
     tri_feat: Optional[torch.Tensor] = None  # [T, 26] e1, e2, tc, 14 mat cols
     atlas: Optional[torch.Tensor] = None     # [K*H*W, 3] texel rows
-    # BVH tiers: the kernel's tables (cuda_bvh.HeapTables or
-    # cuda_bvh4.Bvh4Tables) and the [n_mats, 14] material rows
+    # BVH routes: the kernel's tables (cuda_bvh.HeapTables,
+    # cuda_bvh_mx.MxTables or cuda_bvh4.Bvh4Tables) and the [n_mats, 14]
+    # material rows
     packet: Optional[tuple] = None
     mat_rows: Optional[torch.Tensor] = None
+    route: str = ""           # mesh_tier's route
+    fast_math: bool = False   # the heap kernels' approximate reciprocal
 
 
 def make_view(scene: Scene, config: Optional[RenderConfig] = None
@@ -199,9 +209,15 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
     tri_v0 = tri_e1 = tri_e2 = tri_n = tri_feat = None
     packet = mat_rows = None
     tier = mesh_tier(scene, config) if config is not None else "oracle"
-    if tier in ("bvh4", "heap"):
-        packet = (_cb4.bvh4_tables(scene.mesh.bvh4) if tier == "bvh4"
-                  else _cb.heap_tables(scene.mesh))
+    fast_math = False
+    if tier in ("bvh4", "heap-mx", "heap-rg", "heap"):
+        if tier == "bvh4":
+            packet = _cb4.bvh4_tables(scene.mesh.bvh4)
+        elif tier == "heap-mx":
+            packet = _cmx.mx_tables(scene.mesh)
+        else:
+            packet = _cb.heap_tables(scene.mesh)
+            fast_math = config.fast_math and _use_packet(scene, config)
         mats = scene.materials
         mat_rows = _material_table(
             mats, torch.arange(mats.count, device=mats.mtype.device))
@@ -232,7 +248,7 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
         # [K,H,W,3] -> [K*H*W, 3]: one row gather fetches a texel
         atlas = scene.tex_atlas.reshape(-1, 3)
     return SceneView(sph_c, sph_r, sph_feat, tri_v0, tri_e1, tri_e2, tri_n,
-                     tri_feat, atlas, packet, mat_rows)
+                     tri_feat, atlas, packet, mat_rows, tier, fast_math)
 
 
 def check_traversal(view: SceneView) -> None:
@@ -365,30 +381,43 @@ def _mesh_bbox_hit(scene: Scene, origin: V3, direction: V3,
     return tmax_acc >= tmin_acc
 
 
-def _packet_nearest(view: SceneView, origin: V3, direction: V3,
-                    t_min: float, t_max: torch.Tensor):
-    """Large-mesh nearest hit through the BVH kernels, then the winner's
-    features. Returns ((t, tri, u, v, normal V3, tu, tv, mid), per-ray
-    counters [5, N])."""
-    if isinstance(view.packet, _cb4.Bvh4Tables):
-        t, tri, cnt = _cb4.bvh4_trace(origin, direction, t_max, view.packet,
-                                      t_min)
+def _packet_nearest(view: SceneView, config: RenderConfig, origin: V3,
+                    direction: V3, t_min: float, t_max: torch.Tensor):
+    """Large-mesh nearest hit through the route's BVH kernel, then the
+    winner's features. Returns ((t, tri, u, v, normal V3, tu, tv, mid),
+    per-ray counters [5, N])."""
+    pk = view.packet
+    if view.route == "heap-mx":
+        t, tri, cnt = _cmx.mx_trace(origin, direction, t_max, pk, t_min,
+                                    config.mx_passes)
+        outs = _cmx.exact_winner(origin, direction, t, tri,
+                                 pk.heap.tri_feat)
     else:
-        t, tri, cnt = _cb.heap_trace(origin, direction, t_max, view.packet,
-                                     t_min)
-    t, tri, u, v, nx, ny, nz, tu, tv, mid = _cb.winner_features(
-        origin, direction, t, tri, view.packet.tri_feat)
+        if view.route == "bvh4":
+            t, tri, cnt = _cb4.bvh4_trace(origin, direction, t_max, pk,
+                                          t_min)
+        elif view.route == "heap-rg":
+            t, tri, cnt = _crg.rg_trace(origin, direction, t_max, pk, t_min)
+        else:
+            t, tri, cnt = _cb.heap_trace(origin, direction, t_max, pk, t_min,
+                                         approx_recip=view.fast_math)
+        outs = _cb.winner_features(origin, direction, t, tri, pk.tri_feat)
+    t, tri, u, v, nx, ny, nz, tu, tv, mid = outs
     return (t, tri, u, v, V3(nx, ny, nz), tu, tv, mid), cnt
 
 
-def _packet_shadow(view: SceneView, origin: V3, direction: V3,
-                   t_min: float, t_max: torch.Tensor):
-    """Large-mesh any-hit occlusion through the BVH kernels. Returns
-    (occ [N], counters)."""
-    if isinstance(view.packet, _cb4.Bvh4Tables):
+def _packet_shadow(view: SceneView, config: RenderConfig, origin: V3,
+                   direction: V3, t_min: float, t_max: torch.Tensor):
+    """Large-mesh any-hit occlusion through the route's BVH kernel
+    (``heap-rg`` takes the heap one). Returns (occ [N], counters)."""
+    if view.route == "bvh4":
         return _cb4.bvh4_occluded(origin, direction, t_max, view.packet,
                                   t_min)
-    return _cb.heap_occluded(origin, direction, t_max, view.packet, t_min)
+    if view.route == "heap-mx":
+        return _cmx.mx_occluded(origin, direction, t_max, view.packet,
+                                t_min, config.mx_passes)
+    return _cb.heap_occluded(origin, direction, t_max, view.packet, t_min,
+                             approx_recip=view.fast_math)
 
 
 def _cols_from_rows(rows: torch.Tensor) -> MatCols:
@@ -456,8 +485,8 @@ def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
         t_ray_max = t if alive is None else torch.where(alive, t, -1.0)
         if view.packet is not None:
             (tt, tri_id, u, vv, nrm_raw, tu, tv,
-             mid), counters = _packet_nearest(view, origin, direction, eps,
-                                               t_ray_max)
+             mid), counters = _packet_nearest(view, config, origin,
+                                               direction, eps, t_ray_max)
             hit = tri_id >= 0
             mid_c = torch.clamp(mid, 0, scene.materials.count - 1)
             mcols = _cols_from_rows(view.mat_rows[mid_c.to(torch.int64)])
@@ -528,8 +557,9 @@ def occluded(scene: Scene, view: SceneView, config: RenderConfig,
     counters = None
     if scene.has_mesh:
         if view.packet is not None:
-            mesh_occ, counters = _packet_shadow(view, origin, direction,
-                                                config.epsilon, t_max)
+            mesh_occ, counters = _packet_shadow(view, config, origin,
+                                                direction, config.epsilon,
+                                                t_max)
             occ = occ | mesh_occ
         elif config.use_bvh:
             occ = occ | _ct.tris_anyhit_soa(
@@ -809,7 +839,6 @@ def trace(scene: Scene, camera: Camera, config: RenderConfig,
 
     ``valid`` (optional [N] bool) marks real lanes; tail-padding
     duplicate lanes start dead so they never inflate the Stats."""
-    check_supported(scene, config)
     dev = pixel_id.device
     view = make_view(scene, config)
     origin, direction = camera.generate_rays(pixel_id, sample,

@@ -8,6 +8,12 @@ The public functions dispatch on the device of their inputs: tensors on
 the CPU go to the plain version, tensors on a CUDA device to the kernel
 (or the call raises). There is no fallback from one to the other.
 
+``approx_recip`` (``config.fast_math``) selects the kernel's fast_math
+mode: the Möller–Trumbore reciprocal from the hardware's approximate
+reciprocal (about 1 ulp; the JAX package's ``approx_recip``). The plain
+version keeps the exact division in both modes, so on the CPU a fast_math
+render equals the exact one.
+
 Both follow one walk per ray, the reference's dual-node bitstack descent
 (``hitBvh``, kernels.cu:148–224), step for step, so t, the winning slot,
 occlusion and the per-ray counters agree bit for bit between them. The
@@ -37,7 +43,8 @@ from tpu_pathtracer_torch.ops.vec import FLT_MAX
 
 # Kernel launches by the wrappers below, per mode. Callers reset them to
 # 0 and read them back to show that a run went through the kernel.
-LAUNCHES = {"nearest": 0, "any_hit": 0}
+LAUNCHES = {"nearest": 0, "any_hit": 0, "nearest_fast_math": 0,
+            "any_hit_fast_math": 0}
 
 COUNTERS = ("nodes_both", "nodes_single", "leaf_visits", "leaf_pop",
             "node_steps")
@@ -155,84 +162,120 @@ def _ctz32(x: torch.Tensor) -> torch.Tensor:
     return n
 
 
+class HeapWalk:
+    """The kernels' per-ray heap walk (``pt::heap_node_step`` and
+    ``pt::pop_bitstack``, csrc/bvh_common.cuh) for all rays at once, a
+    step per pass: the part that the plain versions of the heap kernels
+    share (this module's, ``cuda_bvh_mx``'s and ``cuda_bvh_rg``'s).
+    ``visits``, if given, gathers the ids of the node boxes
+    (``visits["nodes"]``) and leaves (``visits["leaves"]``) the walk
+    reads, a tensor of each a pass. ``cnt`` is int64 [5, N] in
+    ``COUNTERS`` order."""
+
+    def __init__(self, origin: V3, direction: V3, tmax: torch.Tensor,
+                 tabs: HeapTables, visits: Optional[dict] = None):
+        self.o = origin.stack()
+        self.d = direction.stack()
+        self.inv = 1.0 / self.d
+        self.neg = self.inv < 0.0
+        n = self.o.shape[0]
+        dev = self.o.device
+        self.tabs, self.visits = tabs, visits
+        self.closest = tmax.clone()
+        self.cnt = torch.zeros((5, n), dtype=torch.int64, device=dev)
+        self.idx = torch.where(self.closest > 0.0, 1, 0).to(torch.int64)
+        self.bs = torch.ones((n,), dtype=torch.int64, device=dev)
+
+    def split(self, lanes: torch.Tensor):
+        """``lanes`` split into those at an interior node and at a leaf."""
+        is_leaf = self.idx[lanes] >= self.tabs.first_leaf
+        return lanes[~is_leaf], lanes[is_leaf]
+
+    def pop(self, lanes: torch.Tensor) -> None:
+        b, i = self.bs[lanes], self.idx[lanes]
+        m = _ctz32(b)
+        self.bs[lanes] = (b >> m) ^ 1
+        self.idx[lanes] = (i >> m) ^ 1
+
+    def node_step(self, inner: torch.Tensor) -> None:
+        """One interior step of the lanes ``inner``: both children's
+        boxes against the lane's closest, the nearer entered first."""
+        c = self.closest[inner]
+        l = self.idx[inner] * 2
+        pair = torch.stack([l, l + 1], dim=1)
+        if self.visits is not None:
+            self.visits["nodes"].append(pair.flatten())
+        box = self.tabs.nodes[pair]  # [M, 2, 8]
+        h = slab_entry(box[..., 0:3], box[..., 3:6], self.o[inner][:, None],
+                       self.inv[inner][:, None], self.neg[inner][:, None],
+                       c[:, None].expand(-1, 2))
+        lh, rh = h[:, 0], h[:, 1]
+        tl, tr = lh < c, rh < c
+        both, single = tl & tr, tl ^ tr
+        child = l + (rh < lh).to(torch.int64)
+        self.cnt[0, inner] += both.to(torch.int64)
+        self.cnt[1, inner] += single.to(torch.int64)
+        self.cnt[4, inner] += 1
+        go = both | single
+        b = self.bs[inner]
+        self.bs[inner] = torch.where(both, (b << 1) | 1,
+                                     torch.where(single, b << 1, b))
+        self.idx[inner] = torch.where(go, child, self.idx[inner])
+        self.pop(inner[~go])
+
+    def visit_leaf(self, leaf: torch.Tensor) -> torch.Tensor:
+        """Count a visit of the lanes ``leaf`` to their leaves; returns
+        each leaf's first triangle slot."""
+        fl = self.tabs.first_leaf
+        if self.visits is not None:
+            self.visits["leaves"].append(self.idx[leaf] - fl)
+        self.cnt[2, leaf] += 1
+        return (self.idx[leaf] - fl) * self.tabs.prims_per_leaf
+
+
 def _heap_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
                    tabs: HeapTables, t_min: float, any_hit: bool,
-                   visits: Optional[dict] = None):
+                   visits: Optional[dict] = None, leaf_test=None):
     """(closest [N], tri [N] int32, occ [N] bool, counters [5, N] int32):
     the kernel's walk with every ray advancing one step per pass; with
-    ``any_hit``, tri is the slot whose hit ended the walk. ``visits``, if
-    given, gathers the ids of the node boxes (``visits["nodes"]``) and
-    leaves (``visits["leaves"]``) the walk reads, a tensor of each a
-    pass."""
-    o = origin.stack()
-    d = direction.stack()
-    inv = 1.0 / d
-    neg = inv < 0.0
-    n = o.shape[0]
-    dev = o.device
-    fl, P = tabs.first_leaf, tabs.prims_per_leaf
-    closest = tmax.clone()
+    ``any_hit``, tri is the slot whose hit ended the walk. ``visits`` as
+    for :class:`HeapWalk`. ``leaf_test(walk, lanes, base)`` tests the
+    leaves of ``lanes`` (first slots ``base``) and returns what
+    :func:`leaf_step` returns; by default it is ``leaf_step`` over the
+    triangle rows."""
+    walk = HeapWalk(origin, direction, tmax, tabs, visits)
+    n = walk.o.shape[0]
+    dev = walk.o.device
     best = torch.full((n,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros((n,), dtype=torch.bool, device=dev)
-    cnt = torch.zeros((5, n), dtype=torch.int64, device=dev)
-    idx = torch.where(closest > 0.0, 1, 0).to(torch.int64)
-    bs = torch.ones((n,), dtype=torch.int64, device=dev)
-    slots = torch.arange(P, device=dev)
-
-    def pop(lanes):
-        b, i = bs[lanes], idx[lanes]
-        m = _ctz32(b)
-        bs[lanes] = (b >> m) ^ 1
-        idx[lanes] = (i >> m) ^ 1
+    slots = torch.arange(tabs.prims_per_leaf, device=dev)
+    if leaf_test is None:
+        def leaf_test(w, lanes, base):
+            rows = tabs.tri[base[:, None] + slots]  # [M, P, 12]
+            return leaf_step(rows, w.o[lanes], w.d[lanes], t_min,
+                             w.closest[lanes])
 
     while True:
-        lanes = (idx > 0).nonzero().flatten()
+        lanes = (walk.idx > 0).nonzero().flatten()
         if lanes.numel() == 0:
             break
-        is_leaf = idx[lanes] >= fl
-        inner, leaf = lanes[~is_leaf], lanes[is_leaf]
+        inner, leaf = walk.split(lanes)
         if inner.numel():
-            c = closest[inner]
-            l = idx[inner] * 2
-            pair = torch.stack([l, l + 1], dim=1)
-            if visits is not None:
-                visits["nodes"].append(pair.flatten())
-            box = tabs.nodes[pair]  # [M, 2, 8]
-            h = slab_entry(box[..., 0:3], box[..., 3:6], o[inner][:, None],
-                           inv[inner][:, None], neg[inner][:, None],
-                           c[:, None].expand(-1, 2))
-            lh, rh = h[:, 0], h[:, 1]
-            tl, tr = lh < c, rh < c
-            both, single = tl & tr, tl ^ tr
-            child = l + (rh < lh).to(torch.int64)
-            cnt[0, inner] += both.to(torch.int64)
-            cnt[1, inner] += single.to(torch.int64)
-            cnt[4, inner] += 1
-            go = both | single
-            b = bs[inner]
-            bs[inner] = torch.where(both, (b << 1) | 1,
-                                    torch.where(single, b << 1, b))
-            idx[inner] = torch.where(go, child, idx[inner])
-            pop(inner[~go])
+            walk.node_step(inner)
         if leaf.numel():
-            if visits is not None:
-                visits["leaves"].append(idx[leaf] - fl)
-            base = (idx[leaf] - fl) * P
-            rows = tabs.tri[base[:, None] + slots]  # [M, P, 12]
-            hit, new_c, j, first = leaf_step(rows, o[leaf], d[leaf], t_min,
-                                             closest[leaf])
-            cnt[2, leaf] += 1
+            base = walk.visit_leaf(leaf)
+            hit, new_c, j, first = leaf_test(walk, leaf, base)
             if any_hit:
                 # the walk ends at the first slot hit
                 occ[leaf] = hit
                 best[leaf] = torch.where(hit, base + first, best[leaf])
-                idx[leaf[hit]] = 0
+                walk.idx[leaf[hit]] = 0
                 leaf = leaf[~hit]
             else:
-                closest[leaf] = new_c
+                walk.closest[leaf] = new_c
                 best[leaf] = torch.where(hit, base + j, best[leaf])
-            pop(leaf)
-    return closest, best.to(torch.int32), occ, cnt.to(torch.int32)
+            walk.pop(leaf)
+    return walk.closest, best.to(torch.int32), occ, walk.cnt.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -245,17 +288,19 @@ def _lib() -> ctypes.CDLL:
     fn = lib.bvh_heap_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = ([ctypes.c_int] + [p] * 9
+        fn.argtypes = ([ctypes.c_int] * 2 + [p] * 9
                        + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                           ctypes.c_int] + [p] * 5)
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
-            tabs: HeapTables, t_min: float):
-    """Check the inputs, allocate the outputs and launch one mode of the
-    kernel on the current stream."""
+def check_walk_inputs(origin: V3, direction: V3, tmax: torch.Tensor,
+                      tabs: HeapTables, rows: torch.Tensor, what: str):
+    """Raise for inputs a heap-walk kernel (bvh.cu, bvh_mx.cu, bvh_rg.cu)
+    does not take: rays and t_max [n] f32 on one device, the node table,
+    and the per-slot ``rows`` (``what``) covering every leaf, both 16-byte
+    aligned. Returns (device, n)."""
     dev = origin.x.device
     n = origin.x.shape[0]
     f32 = torch.float32
@@ -263,17 +308,29 @@ def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
                        (*origin, *direction, tmax)):
         _check(name, a, dev, f32, (n,))
     _check("nodes", tabs.nodes, dev, f32, (2 * tabs.first_leaf, 8))
-    t_count = tabs.tri.shape[0]
-    _check("triangles", tabs.tri, dev, f32, (t_count, 12))
+    t_count = rows.shape[0]
+    _check(what, rows, dev, f32, (t_count, rows.shape[1]))
     if t_count < tabs.first_leaf * tabs.prims_per_leaf:
         raise ValueError(f"{t_count} triangle slots do not cover "
                          f"{tabs.first_leaf} leaves of "
                          f"{tabs.prims_per_leaf}")
-    if tabs.nodes.data_ptr() % 16 or tabs.tri.data_ptr() % 16:
-        raise ValueError("node and triangle tables must be 16-byte aligned "
+    if tabs.nodes.data_ptr() % 16 or rows.data_ptr() % 16:
+        raise ValueError(f"node and {what} tables must be 16-byte aligned "
                          "(float4)")
     if max(tabs.first_leaf, 1).bit_length() > 32:
         raise ValueError("BVH deeper than the 32-level uint32 bitstack")
+    return dev, n
+
+
+def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
+            tabs: HeapTables, t_min: float, approx_recip: bool = False):
+    """Check the inputs, allocate the outputs and launch one mode of the
+    kernel on the current stream."""
+    if tabs.tri.shape[1:] != (12,):
+        raise ValueError("triangle rows must be [T, 12]")
+    dev, n = check_walk_inputs(origin, direction, tmax, tabs, tabs.tri,
+                               "triangle")
+    f32 = torch.float32
     cnt = torch.empty((5, n), dtype=torch.int32, device=dev)
     t_out = tri_out = occ_out = None
     if mode == _ANY_HIT:
@@ -286,14 +343,15 @@ def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _lib().bvh_heap_launch(
-                mode, *(a.data_ptr() for a in (*origin, *direction, tmax)),
+                mode, int(approx_recip), *(a.data_ptr() for a in (*origin, *direction, tmax)),
                 tabs.nodes.data_ptr(), tabs.tri.data_ptr(), tabs.first_leaf,
                 tabs.prims_per_leaf, float(t_min), n, ptr(t_out),
                 ptr(tri_out), ptr(occ_out), cnt.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"heap BVH kernel launch failed: CUDA error "
                                f"{rc}")
-        LAUNCHES[_MODE_NAMES[mode]] += 1
+        LAUNCHES[_MODE_NAMES[mode]
+                 + ("_fast_math" if approx_recip else "")] += 1
     return t_out, tri_out, occ_out, cnt
 
 
@@ -303,7 +361,7 @@ def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
 
 
 def _heap_trace_ref(origin: V3, direction: V3, t_max, tabs: HeapTables,
-                    t_min: float):
+                    t_min: float, approx_recip: bool = False):
     tmax = _tmax_vector(t_max, origin.x.shape[0], origin.x)
     t, tri, _, cnt = _heap_walk_ref(origin, direction, tmax, tabs, t_min,
                                     any_hit=False)
@@ -311,7 +369,7 @@ def _heap_trace_ref(origin: V3, direction: V3, t_max, tabs: HeapTables,
 
 
 def _heap_occluded_ref(origin: V3, direction: V3, t_max, tabs: HeapTables,
-                       t_min: float):
+                       t_min: float, approx_recip: bool = False):
     tmax = _tmax_vector(t_max, origin.x.shape[0], origin.x)
     _, _, occ, cnt = _heap_walk_ref(origin, direction, tmax, tabs, t_min,
                                     any_hit=True)
@@ -319,25 +377,27 @@ def _heap_occluded_ref(origin: V3, direction: V3, t_max, tabs: HeapTables,
 
 
 def heap_trace(origin: V3, direction: V3, t_max, tabs: HeapTables,
-               t_min: float) -> Tuple[torch.Tensor, ...]:
+               t_min: float, approx_recip: bool = False
+               ) -> Tuple[torch.Tensor, ...]:
     """Nearest hit: (t [N], the ray's t_max on a miss; tri [N] int32 heap
     slot, -1 on a miss; counters [5, N] int32)."""
     if _on_cuda(origin):
         tmax = _tmax_vector(t_max, origin.x.shape[0], origin.x)
         t, tri, _, cnt = _launch(_NEAREST, origin, direction, tmax, tabs,
-                                 t_min)
+                                 t_min, approx_recip)
         return t, tri, cnt
     return _heap_trace_ref(origin, direction, t_max, tabs, t_min)
 
 
 def heap_occluded(origin: V3, direction: V3, t_max, tabs: HeapTables,
-                  t_min: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                  t_min: float, approx_recip: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Any hit in (t_min, t_max): (occ [N] bool, counters [5, N] int32).
     Lanes with t_max <= 0 test nothing."""
     if _on_cuda(origin):
         tmax = _tmax_vector(t_max, origin.x.shape[0], origin.x)
         _, _, occ, cnt = _launch(_ANY_HIT, origin, direction, tmax, tabs,
-                                 t_min)
+                                 t_min, approx_recip)
         return occ, cnt
     return _heap_occluded_ref(origin, direction, t_max, tabs, t_min)
 
