@@ -10,19 +10,29 @@ depth 64; triangle mesh, textures, NEE shadow rays), the asset-scale
 staircase (BASELINE config 4, staircase-hires: 154k triangles, the SAH
 BVH4 tier) and the dragon-class knot (872k triangles, the heap BVH
 tier), also under the knobs that pick the heap tier's other kernels
-(mx_leaf, regroup, fast_math, packet_packs with packet_split). It builds
-the CUDA kernels from ``tpu_pathtracer_torch/csrc``
+(mx_leaf, regroup, fast_math, packet_packs with packet_split), and the
+entry points of the JAX package's two decision records that no config
+reaches: the sphere kernel's mx layout (K2, K3) on the headline's rays
+and the packet walk with leaf queues (K12a, K12b) on the dragon's. It
+builds the CUDA kernels from ``tpu_pathtracer_torch/csrc``
 first and holds each against its plain PyTorch version at the shapes its
 path gives it. Phases, one line each; any failure raises and exits
 non-zero:
 
   1. device: the nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc builds spheres.cu, tris.cu, bvh.cu, bvh4.cu, bvh_mx.cu
-     and bvh_rg.cu side by side, g++ the native BVH builder (seconds,
-     ptxas lines);
+  2. build: nvcc builds spheres.cu, spheres_mx.cu, tris.cu, bvh.cu,
+     bvh4.cu, bvh_mx.cu, bvh_rg.cu and bvh_mr.cu side by side, g++ the
+     native BVH builder (seconds, ptxas lines);
   3. spheres, kernel vs plain on the 960,000 primary rays of sample 0 and
      on the second-bounce rays, in all three modes; times (CUDA events,
      median of 7 warm runs);
+ 3b. the mx layout on the same two ray sets: K2 (nearest + features) and
+     K3 (any-hit) through ``spheres_hit_feat``/``spheres_anyhit_soa(mx=
+     True)``, counts from 0; each bit-equal to its plain version; against
+     K1 and K1c (winners agree on > 0.995 of the lanes, each departure a
+     lane the split's error can flip; t within 5e-3 relative plus that
+     error and features equal where they agree; occlusion on > 0.999);
+     times in turns with K1 and K1c;
   4. spheres end to end, small: 96x64, 4 spp, max depth 8, kernel vs
      plain: rmse < 5e-3, SSIM >= 0.99;
   5. spheres end to end, full size, through the kernel: seconds, Mpaths/s,
@@ -51,6 +61,13 @@ non-zero:
      winners, hits and occlusion equal except on lanes with a triangle
      whose exact u, v, u+v, t or |a| lies within 2^-20 of an accept
      bound, counted);
+ 10c. the packet walk on the same primary and NEE lanes: K12a
+     (``mr_trace``) and K12b (``mr_occluded``), counts from 0; t, winners,
+     features, occlusion and per-packet counters bit-equal to the plain
+     walk; t and occlusion equal to K5's and K6's, winners but exact
+     ties; times in turns with K5 and K6; steps and leaf visits per
+     packet beside K5's per ray; the bound is K5's and K6's (the same
+     function on the same lanes), the packet walk's own work beside it;
  11. small: staircase-hires 96x64, 4 spp, depth 8, kernels vs plain, and
      with bvh4=False (through K5/K6) against the BVH4 render;
  12. config 4: staircase-hires 1200x800, 2 spp gated against
@@ -60,8 +77,9 @@ non-zero:
      and gated against assets/bench_dragon_4spp.ref; then the same frame
      under mx_leaf, regroup, fast_math and packet_packs=2 with
      packet_split, each timed, its launches read (the variant's kernels
-     ran, the default heap kernel it replaces did not), gated against the
-     golden and held against the default frame: packet_packs bit for bit,
+     ran, the default heap kernel it replaces did not, and no frame
+     launched the packet walk), gated against the golden and held
+     against the default frame: packet_packs bit for bit,
      regroup rmse < 1e-4, fast_math SSIM >= 0.999, mx_leaf SSIM >= 0.999
      and rmse < 2e-3 (MX_FRAME_RMSE), also on two more sample windows,
      and at mx_passes=6 closer to the default than at 3;
@@ -71,16 +89,17 @@ non-zero:
      device kernel time per regen iteration, the device's busy share, the
      kernels that take most.
 
-Each full-size run resets the launch counts just before it and reads
-them just after. Every kernel's record carries its bound: the larger of
-its FP32 operations (counted from the source and this run's inputs, for
-the BVH kernels from the node steps and leaf slots its per-ray counters
-report) over 67 TFLOP/s and its bytes (inputs read once, outputs written
-once; of a BVH's tables only the distinct node rows and leaf triangle
-rows this run's rays read) over 3.35 TB/s. The line before the last is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``. Needs a CUDA
-device: without one it exits non-zero and prints no result. Imports
-nothing of JAX.
+Each full-size run, and each run of phases 3b and 10c's entry points,
+resets the launch counts just before it and reads them just after (the
+headline frame must launch no mx kernel). Every kernel's record carries
+its bound: the larger of its FP32 operations (counted from the source and
+this run's inputs, for the BVH kernels from the node steps and leaf slots
+its counters report) over 67 TFLOP/s and its bytes (inputs read once,
+outputs written once; of a BVH's tables only the distinct node rows and
+leaf triangle rows this run's rays read) over 3.35 TB/s. The line before
+the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Needs a CUDA device: without one it
+exits non-zero and prints no result. Imports nothing of JAX.
 """
 
 import concurrent.futures
@@ -110,6 +129,7 @@ from tpu_pathtracer_torch.models.spheres import random_spheres_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
+from tpu_pathtracer_torch.ops import cuda_bvh_mr as cmr
 from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
 from tpu_pathtracer_torch.ops import cuda_bvh_rg as crg
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
@@ -146,6 +166,20 @@ SPHERE_FLOPS, MT_FLOPS, SLAB_FLOPS = 20, 37, 12
 MX_SLOT_FLOPS = {3: 19 * 3 + 19 * 3 * 2 + 4 * 2 + 5,
                  6: 19 * 5 + 19 * 6 * 2 + 4 * 5 + 5}
 MX_RAY_FLOPS = 9 + 10 * 5
+# spheres_mx.cu: a pair's two split products (3 passes of 3 products and
+# 2 sums, 2 pass sums: 17 each) and b, c, disc, sqrt, the roots (10); a
+# ray's o.d and |o|^2 (5 each) and its 6 values' splits (3 each)
+MX_SPHERE_FLOPS, MX_SPHERE_RAY_FLOPS = 2 * 17 + 10, 2 * 5 + 6 * 3
+# K2 against K1 on the headline's lanes: the share of lanes whose winner
+# agrees. The JAX bound is 0.999 (tests/test_fast_math.py:55), measured
+# there with exact f32 products (C-15). With the split an NVIDIA H100
+# 80GB HBM3 (700 W) reads 0.99794 on all 960,000 primary lanes and
+# 0.99917 on all 811,193 bounce-2 lanes (the same in two runs), so 0.999
+# fails on the split's own departures; 0.995 allows 2.4x the departures
+# of the worse reading. Each departing lane must also be one the split's
+# error can flip (cuda_spheres.mx_error).
+MX_AGREE = 0.995
+MX_T_REL = 5e-3  # tests/test_fast_math.py:59, plus the split's error
 TRI_ROW_BYTES = 48  # a [T, 12] f32 triangle row: v0, e1, e2, n
 MX_ROW_BYTES = 4 * cmx.G_COLUMNS  # a [T, 20] f32 test-column row
 FAST_DELTA = 2.0 ** -20  # fast_math: the bound on t and on accept flips
@@ -155,6 +189,7 @@ FAST_DELTA = 2.0 ** -20  # fast_math: the bound on t and on accept flips
 # the dragon's 131,072 lanes 0.46-0.50% and 0.016-0.027%, PERF.md)
 MX_DEPART = {3: 0.05, 6: 0.005}
 NO_LIBRARY = None  # no single PyTorch call computes these hits
+OPS = "tpu_pathtracer/ops/"  # where the JAX package's TPU kernels live
 DRAGON_KNOBS = (  # (setting, bound against the default dragon frame)
     # K7's knobs only schedule the TPU's packets: the port computes them
     # with K5/K6, so this frame checks the config's plumbing (the knobs
@@ -208,9 +243,11 @@ def bound(flops, nbytes):
 
 
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd):
+    """A kernel's JSON record; ``replaces`` is the TPU kernel's path in
+    the repo and its line."""
     return {"name": name, "route": "cuda",
             "source": f"tpu_pathtracer_torch/csrc/{source}",
-            "replaces": f"tpu_pathtracer/ops/{replaces}",
+            "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": NO_LIBRARY}
@@ -481,13 +518,14 @@ def compare_tri_anyhit(tag, origin, direction, view, eps, t_max):
 
 
 def build_all():
-    """Build the four kernels and the BVH builder side by side."""
+    """Build the kernels and the BVH builder side by side."""
     def timed(fn, *a):
         t0 = time.perf_counter()
         out = fn(*a)
         return out, time.perf_counter() - t0
 
-    names = ("spheres", "tris", "bvh", "bvh4", "bvh_mx", "bvh_rg")
+    names = ("spheres", "spheres_mx", "tris", "bvh", "bvh4", "bvh_mx",
+             "bvh_rg", "bvh_mr")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
         futs = {name: ex.submit(timed, _build.build, name)
                 for name in names}
@@ -505,8 +543,178 @@ def build_all():
         else "NumPy median (the native builder did not build)"))
 
 
+def sub(v, lanes):
+    return V3(*(c[lanes] for c in v))
+
+
+def mx_pairs_tested(origin, direction, view, eps, t_max):
+    """Ray-sphere pairs K3 tests on these rays: up to and including the
+    first valid slot, all of them without one."""
+    tab = cs.mx_sphere_table(view.sph_c, view.sph_r)
+    n, s = origin.x.shape[0], tab.shape[0]
+    tested = torch.full((n,), s, dtype=torch.int64, device=tab.device)
+    found = torch.zeros((n,), dtype=torch.bool, device=tab.device)
+    for base in range(0, s, cs.S_CHUNK):
+        ok = cs._mx_sphere_ts(origin, direction, tab[base:base + cs.S_CHUNK],
+                              eps, t_max) < FLT_MAX
+        has = ok.any(dim=1)
+        first = ok.to(torch.uint8).argmax(dim=1)
+        tested = torch.where(has & ~found, base + first + 1, tested)
+        found = found | has
+    return int(tested.sum())
+
+
+def mx_against_exact(tag, origin, direction, view, eps, mx_out, occ_mx,
+                     t_any):
+    """K2 against K1 and K3 against K1c on one ray set: winners agree on
+    more than MX_AGREE of the lanes, and each departing lane is one the
+    split's error can flip (its winner under either form near a root's
+    bound, or the two winners' t within their errors); where the winners
+    agree, the features are equal and t is within MX_T_REL relative plus
+    the split's error, or the sphere has a root within that error of t_min
+    (the other root may win). Any-hit agrees on more than 0.999 of the lanes
+    (the JAX bound, tests/test_fast_math.py:71). Returns a text."""
+    sph = (view.sph_c, view.sph_r)
+    tk, ik, fk = mx_out
+    te, ie, fe = cs.spheres_hit_feat(origin, direction, *sph, view.sph_feat,
+                                     eps, FLT_MAX)
+    n = ik.numel()
+    dep = (ik != ie).nonzero().flatten()
+    if dep.numel() >= (1.0 - MX_AGREE) * n:
+        raise AssertionError(f"{tag}: K2's winner departs from K1's on "
+                             f"{dep.numel()} of {n} lanes")
+    o, d = sub(origin, dep), sub(direction, dep)
+    dt_k, flip_k = cs.mx_error(o, d, *sph, ik[dep], eps)
+    dt_e, flip_e = cs.mx_error(o, d, *sph, ie[dep], eps)
+    tie = ((ik[dep] >= 0) & (ie[dep] >= 0)
+           & ((tk[dep] - te[dep]).double().abs() <= 2.0 * (dt_k + dt_e)))
+    if not bool((flip_k | flip_e | tie).all()):
+        raise AssertionError(f"{tag}: K2 departs from K1 on a lane the "
+                             "split's error cannot explain")
+    same = (ik == ie) & (ie >= 0)
+    dt, flip = cs.mx_error(origin, direction, *sph, ik, eps)
+    gap = (tk - te).double().abs()
+    if bool((same & ~flip & (gap > MX_T_REL * te.double() + dt)).any()):
+        raise AssertionError(f"{tag}: K2's t leaves K1's beyond 5e-3 "
+                             "relative plus the split's error")
+    past_rel = int((same & (gap > MX_T_REL * te.double())).sum())
+    root_flips = int((same & flip & (gap > MX_T_REL * te.double() + dt))
+                     .sum())
+    if not torch.equal(torch.stack(fk)[:, same], torch.stack(fe)[:, same]):
+        raise AssertionError(f"{tag}: features differ where K2 and K1 "
+                             "agree")
+    occ_e = cs.spheres_anyhit_soa(origin, direction, *sph, eps, t_any)
+    occ_dep = int((occ_mx != occ_e).sum())
+    if occ_dep >= 1e-3 * n:
+        raise AssertionError(f"{tag}: K3's occlusion departs from K1c's on "
+                             f"{occ_dep} of {n} lanes")
+    near = flip_k | flip_e
+    return (f"K2 vs K1: winners agree on {n - dep.numel()}/{n} lanes "
+            f"({dep.numel()} depart: {int(near.sum())} with a winner near "
+            f"a root's bound or grazing, {int((tie & ~near).sum())} near "
+            f"ties), t beyond 5e-3 "
+            f"relative on {past_rel} agreeing lanes (within the split's "
+            f"error, or the other root of a sphere with a root near t_min: "
+            f"{root_flips}); K3 vs K1c: "
+            f"occlusion agrees on {n - occ_dep}/{n} lanes "
+            f"({int(occ_e.sum())} occluded)")
+
+
+def mx_path(sets, view, eps):
+    """Phase 3b: the mx entry points (K2, K3) on the headline's ray sets
+    (name: (origin, direction)), the launch counts set to 0 just before
+    and read just after; each against its plain version (bit-equal, also
+    on any-hit t_max just past the plain hit), against K1 and K1c
+    (``mx_against_exact``), and in turns with them. Returns the JSON
+    records of K2 and K3 (times and bounds from the primary set)."""
+    sph = (view.sph_c, view.sph_r)
+    t_any = {}
+    for name, (o, d) in sets.items():
+        # any-hit t_max: half the exact hit on odd lanes, FLT_MAX else
+        t1, i1 = cs.spheres_hit_soa(o, d, *sph, eps, FLT_MAX)
+        odd = torch.arange(t1.numel(), device=t1.device) % 2 == 1
+        t_any[name] = torch.where((i1 >= 0) & odd, 0.5 * t1,
+                                  FLT_MAX).contiguous()
+    torch.cuda.synchronize()
+    for key in cs.MX_LAUNCHES:
+        cs.MX_LAUNCHES[key] = 0
+    outs = {name: (cs.spheres_hit_feat(o, d, *sph, view.sph_feat, eps,
+                                       FLT_MAX, mx=True),
+                   cs.spheres_anyhit_soa(o, d, *sph, eps, t_any[name],
+                                         mx=True))
+            for name, (o, d) in sets.items()}
+    torch.cuda.synchronize()
+    launches = dict(cs.MX_LAUNCHES)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the mx path launched {launches}")
+    recs = {}
+    for name, (o, d) in sets.items():
+        tag = f"spheres mx {name}"
+        (tk, ik, fk), occ = outs[name]
+        tp, ip, fp = cs._spheres_hit_feat_ref(o, d, *sph, view.sph_feat, eps,
+                                              FLT_MAX, mx=True)
+        if not (torch.equal(ik, ip) and torch.equal(tk, tp)
+                and torch.equal(torch.stack(fk), torch.stack(fp))):
+            raise AssertionError(f"{tag}: K2 differs from its plain version "
+                                 f"on {int((ik != ip).sum())} winners, "
+                                 f"{int((tk != tp).sum())} t")
+        odd = torch.arange(tp.numel(), device=tp.device) % 2 == 1
+        edge = torch.where(ip >= 0, tp * torch.where(odd, 0.5, 1.001),
+                           FLT_MAX)
+        for tm, o_k in ((t_any[name], occ),
+                        (edge, cs.spheres_anyhit_soa(o, d, *sph, eps, edge,
+                                                     mx=True))):
+            o_p = cs._spheres_anyhit_ref(o, d, *sph, eps, tm, mx=True)
+            if not torch.equal(o_k, o_p):
+                raise AssertionError(f"{tag}: K3 differs from its plain "
+                                     f"version on "
+                                     f"{int((o_k != o_p).sum())} lanes")
+        text = mx_against_exact(tag, o, d, view, eps, (tk, ik, fk), occ,
+                                t_any[name])
+        k1 = lambda: cs.spheres_hit_feat(o, d, *sph, view.sph_feat, eps,
+                                         FLT_MAX)
+        k2 = lambda: cs.spheres_hit_feat(o, d, *sph, view.sph_feat, eps,
+                                         FLT_MAX, mx=True)
+        k1c = lambda: cs.spheres_anyhit_soa(o, d, *sph, eps, t_any[name])
+        k3 = lambda: cs.spheres_anyhit_soa(o, d, *sph, eps, t_any[name],
+                                           mx=True)
+        turns = [cuda_ms(f) for f in (k1, k2, k2, k1)]
+        turns_any = [cuda_ms(f) for f in (k1c, k3, k3, k1c)]
+        plain = cuda_ms(lambda: cs._spheres_hit_feat_ref(
+            o, d, *sph, view.sph_feat, eps, FLT_MAX, mx=True), reps=2)
+        plain_any = cuda_ms(lambda: cs._spheres_anyhit_ref(
+            o, d, *sph, eps, t_any[name], mx=True), reps=2)
+        n, s = o.x.shape[0], view.sph_r.shape[0]
+        bnd = bound(n * (s * MX_SPHERE_FLOPS + MX_SPHERE_RAY_FLOPS),
+                    n * (28 + 8 + 72) + s * (32 + 72))
+        pairs = mx_pairs_tested(o, d, view, eps,
+                                cs._tmax_vector(t_any[name], n, o.x))
+        bnd_any = bound(pairs * MX_SPHERE_FLOPS + n * MX_SPHERE_RAY_FLOPS,
+                        n * 29 + s * 32)
+        phase("kernel", f"{tag}: {n} rays x {s} spheres: K2 and K3 "
+              f"bit-equal to their plain versions; {text}; in turns K1 "
+              f"{turns[0]:.3f}, K2 {turns[1]:.3f}, K2 {turns[2]:.3f}, K1 "
+              f"{turns[3]:.3f} ms (plain K2 {plain:.3f} ms, bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]}); K1c {turns_any[0]:.3f}, K3 "
+              f"{turns_any[1]:.3f}, K3 {turns_any[2]:.3f}, K1c "
+              f"{turns_any[3]:.3f} ms (plain K3 {plain_any:.3f} ms, "
+              f"{pairs} pairs tested, bound {bnd_any[0]:.4f} ms by "
+              f"{bnd_any[1]})")
+        err = (tk - tp).abs().max().item()
+        recs.setdefault("spheres_mx_feat", record(
+            "spheres_mx_feat", "spheres_mx.cu",
+            OPS + "pallas_spheres.py:271", launches["features"], err,
+            (turns[1] + turns[2]) / 2, plain, bnd))
+        recs.setdefault("spheres_mx_anyhit", record(
+            "spheres_mx_anyhit", "spheres_mx.cu",
+            OPS + "pallas_spheres.py:499", launches["any_hit"], 0.0,
+            (turns_any[1] + turns_any[2]) / 2, plain_any, bnd_any))
+    phase("kernel", f"spheres mx path: launches {launches}")
+    return list(recs.values())
+
+
 def spheres_path(dev):
-    """Phases 3-5. Returns the kernel's JSON record."""
+    """Phases 3-5 and 3b. Returns the JSON records of K1, K2 and K3."""
     cfg = RenderConfig(**HEADLINE)
     scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device=dev)
     view = wf.make_view(scene, cfg)
@@ -523,6 +731,8 @@ def spheres_path(dev):
     d2 = V3(*(c[live].contiguous() for c in st.direction))
     err2, _, _, _ = compare_modes("spheres bounce-2", o2, d2, view,
                                   cfg.epsilon, FLT_MAX)
+    mx_recs = mx_path({"primary": (o1, d1), "bounce-2": (o2, d2)}, view,
+                      cfg.epsilon)
 
     scfg = RenderConfig(**SMALL)
     sscene, scam = random_spheres_scene(scfg.nx, scfg.ny, device=dev)
@@ -531,11 +741,16 @@ def spheres_path(dev):
 
     render_image_regen(scene, cam, cfg, ns=1)  # warm-up
     cs.LAUNCHES = 0
+    for key in cs.MX_LAUNCHES:
+        cs.MX_LAUNCHES[key] = 0
     img, secs, wall = render_timed(lambda: render_image_regen(scene, cam,
                                                               cfg))
     launches = cs.LAUNCHES
     if launches <= 0:
         raise AssertionError("the headline render launched no sphere kernel")
+    if sum(cs.MX_LAUNCHES.values()):
+        raise AssertionError(f"the headline render launched the mx kernel "
+                             f"{cs.MX_LAUNCHES}")
     if img.shape != (cfg.ny, cfg.nx, 3):
         raise AssertionError(f"bad image: shape {img.shape}")
     r5, s5 = gate_crop("headline", img, GOLDEN)
@@ -546,8 +761,9 @@ def spheres_path(dev):
           f"{launches} kernel launches = regen iterations, mean "
           f"{img.mean():.4f}; crop vs TPU golden rmse {r5:.3e} "
           f"ssim {s5:.6f}")
-    return record("spheres_hit_feat", "spheres.cu", "pallas_spheres.py:73",
-                  launches, max(err1, err2), ms, plain_ms, bnd)
+    return [record("spheres_hit_feat", "spheres.cu",
+                   OPS + "pallas_spheres.py:73", launches, max(err1, err2),
+                   ms, plain_ms, bnd), *mx_recs]
 
 
 def staircase_path(dev):
@@ -591,10 +807,10 @@ def staircase_path(dev):
           f"regen iterations, kernel launches {launches}, mean "
           f"{img.mean():.4f}; crop vs TPU golden rmse {r8:.3e} "
           f"ssim {s8:.6f}")
-    return [record("tris_hit_feat", "tris.cu", "pallas_tris.py:77",
+    return [record("tris_hit_feat", "tris.cu", OPS + "pallas_tris.py:77",
                    launches["features"], max(err1, err2), ms, plain_ms,
                    bnd),
-            record("tris_anyhit_soa", "tris.cu", "pallas_tris.py:77",
+            record("tris_anyhit_soa", "tris.cu", OPS + "pallas_tris.py:77",
                    launches["any_hit"], err_any, ms_any, plain_any,
                    bnd_any)]
 
@@ -900,13 +1116,13 @@ def staircase_hires_path(dev):
           f"regen iterations ({secs / iters * 1e3:.2f} ms each), kernel "
           f"launches {launches}, mean {img.mean():.4f}")
     profile_frame("config 4", scene, cam, cfg)
-    return [record("bvh4_trace", "bvh4.cu", "pallas_bvh4.py:295",
+    return [record("bvh4_trace", "bvh4.cu", OPS + "pallas_bvh4.py:295",
                    launches["nearest"], err, ms, plain_ms, bnd),
-            record("bvh4_occluded", "bvh4.cu", "pallas_bvh4.py:598",
+            record("bvh4_occluded", "bvh4.cu", OPS + "pallas_bvh4.py:598",
                    launches["any_hit"], err_a, ms_a, plain_a, bnd_a)]
 
 
-TRI_MODULES = (cb4, cb, ct, cmx, crg)
+TRI_MODULES = (cb4, cb, ct, cmx, crg, cmr)
 
 
 def reset_launches():
@@ -1129,6 +1345,115 @@ def heap_variants_phase(mesh, tabs, rays, eps):
     return out
 
 
+def mr_phase(tabs, rays, eps, bounds):
+    """Phase 10c: the packet walk, K12a (nearest) on the primary rays and
+    K12b (any-hit) on their NEE shadow rays, the launch counts set to 0
+    just before and read just after; each against its plain version (t,
+    winners, features, occlusion and the per-packet counters bit-equal),
+    against K5 / K6 (t and occlusion equal, winners equal but on exact
+    ties) and in turns with them. The function is K5's / K6's on the same
+    lanes, so the bound is theirs (``bounds``: phase 10's (K5, K6)
+    bounds, from the per-ray work and distinct rows their walks need).
+    The packet walk's own work is printed beside it: 32 lanes x the
+    packets' node rounds (two slab tests) and leaf slots, and the
+    distinct rows it reads. Returns the JSON records of K12a and K12b."""
+    o1, d1, t1 = rays["primary"]
+    shadow = rays["NEE shadows"]
+    torch.cuda.synchronize()
+    for key in cmr.LAUNCHES:
+        cmr.LAUNCHES[key] = 0
+    near_k, cnt_k = cmr.mr_trace(o1, d1, t1, tabs, eps)
+    occ_k, ocnt_k = cmr.mr_occluded(*shadow, tabs, eps)
+    torch.cuda.synchronize()
+    launches = dict(cmr.LAUNCHES)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the packet-walk path launched {launches}")
+    distinct = lambda ids: torch.unique(torch.cat(ids)).numel() if ids else 0
+    recs = []
+    for any_hit, (o, d, tm) in ((False, (o1, d1, t1)), (True, shadow)):
+        tag = f"mr dragon {'NEE shadows' if any_hit else 'primary'}"
+        n = o.x.shape[0]
+        visits = {"nodes": [], "leaves": []}
+        t_p, i_p, occ_p, c_p = cmr._mr_walk_ref(o, d, tm, tabs, eps, any_hit,
+                                                visits)
+        if any_hit:
+            cnt = ocnt_k
+            occ6, cnt6 = cb.heap_occluded(o, d, tm, tabs, eps)
+            if not (torch.equal(occ_k, occ_p) and torch.equal(cnt, c_p)):
+                raise AssertionError(f"{tag}: K12b differs from its plain "
+                                     f"version on "
+                                     f"{int((occ_k != occ_p).sum())} lanes")
+            if not torch.equal(occ_k, occ6):
+                raise AssertionError(f"{tag}: K12b's occlusion differs from "
+                                     f"K6's on {int((occ_k != occ6).sum())} "
+                                     "lanes")
+            what = (f"occlusion equal to the plain walk's and K6's "
+                    f"({int(occ_k.sum())} occluded of "
+                    f"{int((tm > 0).sum())} shadow rays)")
+            err = 0.0
+            k12 = lambda: cmr.mr_occluded(o, d, tm, tabs, eps)
+            k5 = lambda: cb.heap_occluded(o, d, tm, tabs, eps)
+            plain = lambda: cmr._mr_occluded_ref(o, d, tm, tabs, eps)
+        else:
+            cnt, (t_k, i_k) = cnt_k, near_k[:2]
+            p_out = cb.winner_features(o, d, t_p, i_p, tabs.tri_feat)
+            if not (all(torch.equal(a, b) for a, b in zip(near_k, p_out))
+                    and torch.equal(cnt, c_p)):
+                raise AssertionError(f"{tag}: K12a differs from its plain "
+                                     f"version on "
+                                     f"{int((i_k != i_p).sum())} winners, "
+                                     f"{int((t_k != t_p).sum())} t")
+            t5, i5, cnt6 = cb.heap_trace(o, d, tm, tabs, eps)
+            if not torch.equal(t_k, t5):
+                raise AssertionError(f"{tag}: K12a's t differs from K5's on "
+                                     f"{int((t_k != t5).sum())} lanes")
+            # t is equal on every lane, so a winner that differs is a tie
+            ties = int((i_k != i5).sum())
+            what = (f"t, winners, features and counters equal to the plain "
+                    f"walk's; t equal to K5's, winners but {ties} exact "
+                    f"ties; hits {int((i_k >= 0).sum())}")
+            err = (t_k - t_p).abs().max().item()
+            k12 = lambda: cmr.mr_trace(o, d, tm, tabs, eps)
+            k5 = lambda: cb.heap_trace(o, d, tm, tabs, eps)
+            plain = lambda: cmr._mr_trace_ref(o, d, tm, tabs, eps)
+        turns = [cuda_ms(f) for f in (k5, k12, k12, k5)]
+        plain_ms = cuda_ms(plain, reps=2)
+        rounds = sum(v.numel() for v in visits["nodes"]) // 2
+        leaves = int(cnt[2].sum(dtype=torch.int64))
+        slots = tabs.prims_per_leaf
+        flops = 3 * n + cmr.LANES * (rounds * 2 * SLAB_FLOPS
+                                     + leaves * slots * MT_FLOPS)
+        nodes, leaves_read = distinct(visits["nodes"]), distinct(
+            visits["leaves"])
+        walk = bound(flops, n * (28 + (1 if any_hit else 8))
+                     + cnt.numel() * 4 + nodes * HEAP_NODE
+                     + leaves_read * slots * TRI_ROW_BYTES)
+        bnd = bounds[any_hit]
+        pk = cnt.double()
+        warp = lambda c: c.view(-1, cmr.LANES).max(dim=1).values.double(
+            ).mean().item() if n % cmr.LANES == 0 else float("nan")
+        s6 = (cnt6[0] + cnt6[1]).double()
+        heap, kern = ("K6", "K12b") if any_hit else ("K5", "K12a")
+        phase("kernel", f"{tag}: {n} rays in {cnt.shape[1]} packets: "
+              f"{what}; per packet {(pk[0] + pk[1]).mean().item():.1f} node "
+              f"rounds entering a child ({rounds / cnt.shape[1]:.1f} in "
+              f"all), {pk[2].mean().item():.1f} leaf visits; {heap} per ray "
+              f"{s6.mean().item():.1f} steps entering a child (warp max "
+              f"{warp(cnt6[0] + cnt6[1]):.1f}), "
+              f"{cnt6[2].double().mean().item():.1f} leaf visits (warp max "
+              f"{warp(cnt6[2]):.1f}); read {nodes} distinct node rows, "
+              f"{leaves_read} leaves; in turns {heap} {turns[0]:.3f}, {kern} "
+              f"{turns[1]:.3f}, {turns[2]:.3f}, {heap} {turns[3]:.3f} ms "
+              f"(plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms by "
+              f"{bnd[1]}, {heap}'s; the packet walk's own work "
+              f"{walk[0]:.4f} ms by {walk[1]})")
+        recs.append(record("mr_occluded" if any_hit else "mr_trace",
+                           "bvh_mr.cu", "experiments/pallas_bvh_mr.py:214",
+                           launches["any_hit" if any_hit else "nearest"],
+                           err, (turns[1] + turns[2]) / 2, plain_ms, bnd))
+    return recs
+
+
 def dragon_frame(tag, scene, cam, cfg, expect):
     """Phase 13's frame under ``cfg``: a 1 spp warm-up, then the frame
     timed, with the launch counts set to 0 just before it and read just
@@ -1180,8 +1505,9 @@ def mx_frame_checks(scene, cam, cfg, base, mx_img):
 
 
 def dragon_path(dev):
-    """Phases 10 and 13. Returns the JSON records of K5, K6 and the heap
-    tier's variants (K10, K10b, K11, K5/K6 fast_math)."""
+    """Phases 10, 10c and 13. Returns the JSON records of K5, K6, the heap
+    tier's variants (K10, K10b, K11, K5/K6 fast_math) and the packet walk
+    (K12a, K12b)."""
     cfg = RenderConfig(**DRAGON)
     t0 = time.perf_counter()
     scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, device=dev, **DRAGON_MESH)
@@ -1196,6 +1522,7 @@ def dragon_path(dev):
     (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a), rays = \
         bvh_kernel_phase("heap dragon", scene, cam, cfg, kern)
     variants = heap_variants_phase(scene.mesh, tabs, rays, cfg.epsilon)
+    mr_recs = mr_phase(tabs, rays, cfg.epsilon, (bnd, bnd_a))
 
     base, launches = dragon_frame("dragon", scene, cam, cfg,
                                   {"cuda_bvh.nearest", "cuda_bvh.any_hit"})
@@ -1230,22 +1557,23 @@ def dragon_path(dev):
     fm_l = knob_launches["fast_math=True"]
     rec = lambda name, src, rep, n, key: record(name, src, rep, n,
                                                 *variants[key])
-    return [record("heap_trace", "bvh.cu", "pallas_bvh.py:937",
+    return [record("heap_trace", "bvh.cu", OPS + "pallas_bvh.py:937",
                    launches["cuda_bvh.nearest"], err, ms, plain_ms, bnd),
-            record("heap_occluded", "bvh.cu", "pallas_bvh.py:1393",
+            record("heap_occluded", "bvh.cu", OPS + "pallas_bvh.py:1393",
                    launches["cuda_bvh.any_hit"], err_a, ms_a, plain_a,
                    bnd_a),
-            rec("heap_trace_fast_math", "bvh.cu", "pallas_bvh.py:937",
+            rec("heap_trace_fast_math", "bvh.cu", OPS + "pallas_bvh.py:937",
                 fm_l["cuda_bvh.nearest_fast_math"], "heap_trace_fast_math"),
-            rec("heap_occluded_fast_math", "bvh.cu", "pallas_bvh.py:1393",
+            rec("heap_occluded_fast_math", "bvh.cu",
+                OPS + "pallas_bvh.py:1393",
                 fm_l["cuda_bvh.any_hit_fast_math"],
                 "heap_occluded_fast_math"),
-            rec("mx_trace", "bvh_mx.cu", "pallas_bvh_mx.py:190",
+            rec("mx_trace", "bvh_mx.cu", OPS + "pallas_bvh_mx.py:190",
                 mx_l["cuda_bvh_mx.nearest"], "mx_trace"),
-            rec("mx_occluded", "bvh_mx.cu", "pallas_bvh_mx.py:302",
+            rec("mx_occluded", "bvh_mx.cu", OPS + "pallas_bvh_mx.py:302",
                 mx_l["cuda_bvh_mx.any_hit"], "mx_occluded"),
-            rec("rg_trace", "bvh_rg.cu", "pallas_bvh_rg.py:230",
-                rg_l["cuda_bvh_rg.nearest"], "rg_trace")]
+            rec("rg_trace", "bvh_rg.cu", OPS + "pallas_bvh_rg.py:230",
+                rg_l["cuda_bvh_rg.nearest"], "rg_trace"), *mr_recs]
 
 
 def main():
@@ -1264,7 +1592,7 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     build_all()
-    kernels = [spheres_path(dev), *staircase_path(dev),
+    kernels = [*spheres_path(dev), *staircase_path(dev),
                *staircase_hires_path(dev), *dragon_path(dev)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

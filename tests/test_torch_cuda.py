@@ -1,6 +1,6 @@
-"""The CUDA sphere, triangle, heap-BVH (exact and fast_math, MXU-leaf,
-regrouped) and BVH4 kernels against their plain PyTorch versions, on the
-card.
+"""The CUDA sphere (exact and mx), triangle, heap-BVH (exact and
+fast_math, MXU-leaf, regrouped, packet walk) and BVH4 kernels against
+their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -26,6 +26,7 @@ from tpu_pathtracer_torch.ops import bvh as tbvh
 from tpu_pathtracer_torch.ops import bvh4 as tb4
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
+from tpu_pathtracer_torch.ops import cuda_bvh_mr as cmr
 from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
 from tpu_pathtracer_torch.ops import cuda_bvh_rg as crg
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
@@ -87,6 +88,32 @@ def test_nearest_and_anyhit_modes_bit_equal(dev, per_ray_tmax):
     ok = cs.spheres_anyhit_soa(o, d, c, r, T_MIN, tm)
     op = cs._spheres_anyhit_ref(o, d, c, r, T_MIN, tm)
     assert torch.equal(ok, op) and torch.equal(ok, ip >= 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_ray_tmax", [False, True])
+def test_spheres_mx_bit_equal(dev, per_ray_tmax):
+    """K2 and K3 (``mx=True``) against their plain versions: t, idx,
+    features and occlusion bit-equal (the split products are exact in
+    FP32 and summed in the plain version's order)."""
+    o, d, c, r, feat = _inputs(dev, seed=2)
+    tm = (torch.linspace(0.5, 30.0, o.x.shape[0], device=dev)
+          if per_ray_tmax else FLT_MAX)
+    before = dict(cs.MX_LAUNCHES), cs.LAUNCHES
+    tk, ik, fk = cs.spheres_hit_feat(o, d, c, r, feat, T_MIN, tm, mx=True)
+    tp, ip, fp = cs._spheres_hit_feat_ref(o, d, c, r, feat, T_MIN, tm,
+                                          mx=True)
+    ok = cs.spheres_anyhit_soa(o, d, c, r, T_MIN, tm, mx=True)
+    op = cs._spheres_anyhit_ref(o, d, c, r, T_MIN, tm, mx=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ik, ip) and torch.equal(tk, tp)
+    assert torch.equal(torch.stack(fk), torch.stack(fp))
+    assert torch.equal(ok, op) and torch.equal(ok, ik >= 0)
+    assert (ik >= 0).float().mean() > 0.1
+    assert not torch.isin(ik, torch.arange(0, 700, 50, device=dev)).any()
+    assert cs.MX_LAUNCHES["features"] == before[0]["features"] + 1
+    assert cs.MX_LAUNCHES["any_hit"] == before[0]["any_hit"] + 1
+    assert cs.LAUNCHES == before[1]
 
 
 @pytest.mark.gpu
@@ -187,14 +214,14 @@ def test_small_staircase_kernel_equals_plain(dev):
     np.testing.assert_array_equal(img, ref)
 
 
-def _bvh_inputs(dev, n=40_000, t=20_000, seed=0):
-    """A random triangle soup (heap BVH, 16 triangles a leaf) and rays on
-    ``dev``; every 7th ray is a dead lane (t_max = -1)."""
+def _bvh_inputs(dev, n=40_000, t=20_000, seed=0, ppl=16):
+    """A random triangle soup (heap BVH, ``ppl`` triangles a leaf) and
+    rays on ``dev``; every 7th ray is a dead lane (t_max = -1)."""
     rng = np.random.RandomState(seed)
     base = rng.uniform(-10, 10, (t, 3)).astype(np.float32)
     v1 = base + rng.uniform(-1, 1, (t, 3)).astype(np.float32)
     v2 = base + rng.uniform(-1, 1, (t, 3)).astype(np.float32)
-    mesh = tbvh.build_bvh(base, v1, v2, prims_per_leaf=16, bvh4=False,
+    mesh = tbvh.build_bvh(base, v1, v2, prims_per_leaf=ppl, bvh4=False,
                           device=dev)
     o = rng.uniform(-12, 12, (n, 3)).astype(np.float32)
     d = rng.uniform(-8, 8, (n, 3)).astype(np.float32) - o
@@ -359,6 +386,36 @@ def test_mx_kernel_bit_equal(dev, passes):
     assert not ok[::7].any() and not ck[:, ::7].any()
     assert cmx.LAUNCHES["nearest"] == before["nearest"] + 2
     assert cmx.LAUNCHES["any_hit"] == before["any_hit"] + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ppl", [16, 64])
+def test_mr_kernel_bit_equal(dev, ppl):
+    """K12a and K12b against their plain packet walks: t, winners,
+    occlusion and the per-packet counters bit-equal; t and occlusion also
+    equal to the heap walk's (K5, K6). n is no multiple of 32, so the last
+    packet has padding lanes."""
+    mesh, o, d, tm = _bvh_inputs(dev, n=40_003, seed=6, ppl=ppl)
+    tabs = cb.heap_tables(mesh)
+    before = dict(cmr.LAUNCHES)
+    for t_max in (FLT_MAX, tm):
+        (k, ck) = cmr.mr_trace(o, d, t_max, tabs, T_MIN)
+        (p, cp) = cmr._mr_trace_ref(o, d, t_max, tabs, T_MIN)
+        torch.cuda.synchronize()
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+        assert torch.equal(ck, cp) and ck.shape == (3, (40_003 + 31) // 32)
+        assert torch.equal(k[0], cb._heap_trace_ref(o, d, t_max, tabs,
+                                                    T_MIN)[0])
+        assert (k[1] >= 0).float().mean() > 0.1
+        ok, cko = cmr.mr_occluded(o, d, t_max, tabs, T_MIN)
+        op, cpo = cmr._mr_occluded_ref(o, d, t_max, tabs, T_MIN)
+        assert torch.equal(ok, op) and torch.equal(cko, cpo)
+        assert torch.equal(ok, cb._heap_occluded_ref(o, d, t_max, tabs,
+                                                     T_MIN)[0])
+    assert not ok[::7].any() and (k[1][::7] == -1).all()
+    assert cmr.LAUNCHES["nearest"] == before["nearest"] + 2
+    assert cmr.LAUNCHES["any_hit"] == before["any_hit"] + 2
 
 
 @pytest.mark.gpu

@@ -33,6 +33,8 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.ops.cuda_bvh4",
             "tpu_pathtracer_torch.ops.cuda_bvh_mx",
             "tpu_pathtracer_torch.ops.cuda_bvh_rg",
+            "tpu_pathtracer_torch.ops.cuda_bvh_mr",
+            "tpu_pathtracer_torch.experiments.phase_probe",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -61,7 +63,9 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.models.shapes, "
             "tpu_pathtracer_torch.ops.cuda_bvh4, "
             "tpu_pathtracer_torch.ops.cuda_bvh_mx, "
-            "tpu_pathtracer_torch.ops.cuda_bvh_rg\n"
+            "tpu_pathtracer_torch.ops.cuda_bvh_rg, "
+            "tpu_pathtracer_torch.ops.cuda_bvh_mr, "
+            "tpu_pathtracer_torch.experiments.phase_probe\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"

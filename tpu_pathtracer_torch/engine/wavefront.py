@@ -280,7 +280,9 @@ class Stats(NamedTuple):
     child (heap) or find two or more / one hit child (BVH4);
     ``leaf_visits``, leaf visits; ``leaf_pop``, the BVH4 visits entered by
     popping a leaf ref (0 on the heap). The brute-force and oracle paths
-    visit no nodes and leave them 0."""
+    visit no nodes and leave them 0. The packet walk of
+    ``ops/cuda_bvh_mr.py`` (K12a/K12b, on no render path) counts per
+    32-ray packet instead and is never summed here."""
     primary: torch.Tensor
     primary_hit_mesh: torch.Tensor
     primary_nohit: torch.Tensor

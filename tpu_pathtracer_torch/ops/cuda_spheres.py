@@ -12,6 +12,17 @@ wins if disc > 0 and t_min < t < t_best, with t_best starting at the
 ray's t_max, tested in slot order with a strict <, so the first sphere
 wins a tie. A sphere with radius <= 0 carries r² = −r² in the table and
 never wins. On a miss t = FLT_MAX, idx = −1 and the features are 0.
+
+``mx=True`` (``spheres_hit_feat`` and ``spheres_anyhit_soa``) is the JAX
+package's MXU b/c layout, ``_kernel_feat`` / ``_kernel_any`` with
+``mx=True``: the kernel ``csrc/spheres_mx.cu`` and its plain version
+here. It takes b and c from the expanded form, b = o·d − c·d and
+c = (|o|² − 2·o·c) + (|c|² − r²·sign), with the two ray × centre products
+from a 2-term bf16 split of each operand summed in three passes (see
+``mx_products``); the roots, the validity test and the winner rules are
+the ones above. The expanded |oc|² cancels for origins near a sphere, so
+its winners depart from the exact form's on grazing and self-epsilon
+lanes: it is a measured decision record, on no render path.
 """
 
 from __future__ import annotations
@@ -29,8 +40,13 @@ from tpu_pathtracer_torch.ops.vec import FLT_MAX
 # reset it to 0 and read it back to show that a run went through the
 # kernel.
 LAUNCHES = 0
+# Launches of the mx kernel (csrc/spheres_mx.cu), per mode.
+MX_LAUNCHES = {"features": 0, "any_hit": 0}
 
 _NEAREST, _FEATURES, _ANY_HIT = 0, 1, 2  # csrc/spheres.cu Mode
+# csrc/spheres_mx.cu Mode (it has no t/idx-only mode: the JAX package's
+# spheres_hit_soa takes no mx)
+_MX_MODE_NAMES = {_FEATURES: "features", _ANY_HIT: "any_hit"}
 S_CHUNK = 512  # spheres per pass of the plain version (bounds [N, chunk])
 
 
@@ -39,6 +55,30 @@ def sphere_table(centers: V3, radii: torch.Tensor) -> torch.Tensor:
     <= 0 gets r² <= 0, so disc < 0 by Cauchy–Schwarz and it never wins."""
     r2 = radii * radii * torch.where(radii > 0, 1.0, -1.0)
     return torch.stack([centers.x, centers.y, centers.z, r2], dim=1)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split2(x: torch.Tensor):
+    """The 2-term bf16 split of ``x`` (``pallas_spheres._bc_mxu``): hi =
+    bf16(x), lo = bf16(x − hi), as f32. hi + lo is x to 2⁻¹⁶ relative."""
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def mx_sphere_table(centers: V3, radii: torch.Tensor) -> torch.Tensor:
+    """[S, 8] float32 rows of the mx kernel: the centre's hi parts, then
+    |c|² − r²·sign(r), then its lo parts, then 0 (cxh, cyh, czh, ccq,
+    cxl, cyl, czl, 0: two float4 a sphere)."""
+    tab = sphere_table(centers, radii)
+    hi, lo = split2(tab[:, :3])
+    cx, cy, cz, r2 = tab.unbind(1)
+    ccq = cx * cx + cy * cy + cz * cz - r2
+    return torch.cat([hi, ccq[:, None], lo, torch.zeros_like(ccq)[:, None]],
+                     dim=1)
 
 
 def _tmax_vector(t_max, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -64,6 +104,12 @@ def _sphere_ts(origin: V3, direction: V3, tab: torch.Tensor, t_min: float,
     b = ocx * direction.x[:, None] + ocy * direction.y[:, None] \
         + ocz * direction.z[:, None]
     c = ocx * ocx + ocy * ocy + ocz * ocz - tab[:, 3]
+    return _root_ts(b, c, t_min, tmax)
+
+
+def _root_ts(b, c, t_min, tmax):
+    """The near root if it is > t_min, else the far one, where it is
+    valid (disc > 0, t_min < t < t_max), else FLT_MAX."""
     disc = b * b - c
     sq = torch.sqrt(torch.clamp_min(disc, 0.0))
     t1 = -b - sq
@@ -73,17 +119,93 @@ def _sphere_ts(origin: V3, direction: V3, tab: torch.Tensor, t_min: float,
     return torch.where(valid, ts0, FLT_MAX)
 
 
-def _spheres_hit_ref(origin, direction, centers, radii, t_min, t_max):
+def mx_products(origin: V3, direction: V3, tab: torch.Tensor):
+    """(cd, oc), each [N, C]: d·c and o·c of each ray against the centres
+    of the mx table chunk ``tab`` [C, 8], as ``pallas_spheres._bc_mxu``
+    takes them on the matrix unit: each operand split into bf16 hi and lo
+    (``split2``), and three passes, P(hi, hi) + P(hi, lo), then + P(lo, hi)
+    (ray part first; lo·lo is dropped), each pass
+    P(x, y) = (x0·y0 + x1·y1) + x2·y2. A product of two bf16 values is
+    exact in f32, so this order fixes every rounding."""
+    ch, cl = tab[:, 0:3], tab[:, 4:7]
+
+    def p(a, cc):
+        return (a[0][:, None] * cc[:, 0] + a[1][:, None] * cc[:, 1]) \
+            + a[2][:, None] * cc[:, 2]
+
+    out = []
+    for v in (direction, origin):
+        hi, lo = zip(*(split2(comp) for comp in v))
+        out.append(p(hi, ch) + p(hi, cl) + p(lo, ch))
+    return out
+
+
+def _mx_sphere_ts(origin: V3, direction: V3, tab: torch.Tensor,
+                  t_min: float, tmax: torch.Tensor) -> torch.Tensor:
+    """``_sphere_ts`` for the mx table chunk ``tab`` [C, 8]:
+    b = o·d − c·d, c = (|o|² − 2·o·c) + (|c|² − r²·sign), in
+    ``pallas_spheres._bc_mxu``'s operation order."""
+    o1, o2, o3 = origin
+    d1, d2, d3 = direction
+    od = d1 * o1 + d2 * o2 + d3 * o3
+    oo = o1 * o1 + o2 * o2 + o3 * o3
+    cd, oc = mx_products(origin, direction, tab)
+    b = od[:, None] - cd
+    c = oo[:, None] - 2.0 * oc + tab[:, 3]
+    return _root_ts(b, c, t_min, tmax)
+
+
+def mx_error(origin: V3, direction: V3, centers: V3, radii: torch.Tensor,
+             idx: torch.Tensor, t_min: float):
+    """The mx layout's error against the exact form, per lane for the
+    sphere ``idx`` (>= 0), in float64: (dt, flip). Each split operand is
+    off by at most 2⁻¹⁶ of itself and each dropped term lo·lo by 2⁻¹⁶ of
+    the product, so c·d is within 2⁻¹⁴·|c| and o·c within 2⁻¹⁴·|o|·|c|
+    (|d| = 1), to which the f32 roundings add 2⁻²¹ of the terms' size.
+    ``dt`` bounds the error of either root to first order,
+    δb·(1 + |b|/√disc) + δc/(2√disc); ``flip`` marks a lane whose outcome
+    for the sphere those errors can change: disc within its error of 0,
+    or a root within ``dt`` of t_min. Lanes with idx < 0 get (0, False)."""
+    f64 = torch.float64
+    s = idx.clamp_min(0).long()
+    o = torch.stack(list(origin), 1).to(f64)
+    d = torch.stack(list(direction), 1).to(f64)
+    tab = sphere_table(centers, radii).to(f64)[s]
+    c, r2 = tab[:, :3], tab[:, 3]
+    oc = o - c
+    b = (oc * d).sum(1)
+    disc = b * b - ((oc * oc).sum(1) - r2)
+    on, cn = o.norm(dim=1), c.norm(dim=1)
+    db = 2.0 ** -14 * cn + 2.0 ** -21 * (on + cn)
+    dc = 2.0 ** -13 * on * cn + 2.0 ** -21 * ((on + cn) ** 2 + r2.abs())
+    ddisc = 2.0 * b.abs() * db + db * db + dc
+    sq = torch.sqrt(disc.clamp_min(0.0))
+    sq_ = sq.clamp_min(1e-300)  # disc = 0: dt is infinite
+    dt = db * (1.0 + b.abs() / sq_) + dc / (2.0 * sq_)
+    near = (-b - sq - t_min).abs() <= dt
+    far = (-b + sq - t_min).abs() <= dt
+    hit = idx >= 0
+    flip = hit & ((disc.abs() <= ddisc) | near | far)
+    return torch.where(hit, dt, 0.0), flip
+
+
+def _table_and_ts(centers, radii, mx):
+    if mx:
+        return mx_sphere_table(centers, radii), _mx_sphere_ts
+    return sphere_table(centers, radii), _sphere_ts
+
+
+def _spheres_hit_ref(origin, direction, centers, radii, t_min, t_max,
+                     mx=False):
     """(t, idx) by chunks over the spheres: the first minimum of each
     chunk, merged by strict < — the kernel's first-wins order."""
     n = origin.x.shape[0]
-    tab = sphere_table(centers, radii)
+    tab, ts_fn = _table_and_ts(centers, radii, mx)
     tmax = _tmax_vector(t_max, n, origin.x)
     t_best = torch.full_like(tmax, FLT_MAX)
     i_best = torch.full((n,), -1, dtype=torch.int32, device=tmax.device)
     for base in range(0, tab.shape[0], S_CHUNK):
-        ts = _sphere_ts(origin, direction, tab[base:base + S_CHUNK], t_min,
-                        tmax)
+        ts = ts_fn(origin, direction, tab[base:base + S_CHUNK], t_min, tmax)
         tloc, jloc = torch.min(ts, dim=1)  # first index of the minimum
         better = tloc < t_best
         t_best = torch.where(better, tloc, t_best)
@@ -92,22 +214,23 @@ def _spheres_hit_ref(origin, direction, centers, radii, t_min, t_max):
 
 
 def _spheres_hit_feat_ref(origin, direction, centers, radii, feat, t_min,
-                          t_max):
-    t, idx = _spheres_hit_ref(origin, direction, centers, radii, t_min, t_max)
+                          t_max, mx=False):
+    t, idx = _spheres_hit_ref(origin, direction, centers, radii, t_min, t_max,
+                              mx)
     hit = idx >= 0
     rows = feat[idx.clamp_min(0).to(torch.int64)]
     rows = torch.where(hit[:, None], rows, 0.0)
     return t, idx, tuple(rows.t().contiguous().unbind(0))
 
 
-def _spheres_anyhit_ref(origin, direction, centers, radii, t_min, t_max):
+def _spheres_anyhit_ref(origin, direction, centers, radii, t_min, t_max,
+                        mx=False):
     n = origin.x.shape[0]
-    tab = sphere_table(centers, radii)
+    tab, ts_fn = _table_and_ts(centers, radii, mx)
     tmax = _tmax_vector(t_max, n, origin.x)
     occ = torch.zeros((n,), dtype=torch.bool, device=tmax.device)
     for base in range(0, tab.shape[0], S_CHUNK):
-        ts = _sphere_ts(origin, direction, tab[base:base + S_CHUNK], t_min,
-                        tmax)
+        ts = ts_fn(origin, direction, tab[base:base + S_CHUNK], t_min, tmax)
         occ = occ | (ts < FLT_MAX).any(dim=1)
     return occ
 
@@ -117,16 +240,18 @@ def _spheres_anyhit_ref(origin, direction, centers, radii, t_min, t_max):
 # ---------------------------------------------------------------------------
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("spheres")
-    fn = lib.spheres_hit_launch
+def _launcher(mx: bool = False):
+    """The launch function of csrc/spheres.cu, or of spheres_mx.cu (the
+    same arguments)."""
+    lib = _build.load("spheres_mx" if mx else "spheres")
+    fn = lib.spheres_mx_launch if mx else lib.spheres_hit_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = [ctypes.c_int] + [p] * 8 + [ctypes.c_int, p,
                                                   ctypes.c_int, ctypes.c_int,
                                                   ctypes.c_float] + [p] * 5
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(name: str, a: torch.Tensor, device, dtype, shape) -> None:
@@ -142,9 +267,9 @@ def _check(name: str, a: torch.Tensor, device, dtype, shape) -> None:
 
 
 def _launch(mode: int, origin: V3, direction: V3, centers: V3,
-            radii: torch.Tensor, t_min: float, t_max, feat=None):
+            radii: torch.Tensor, t_min: float, t_max, feat=None, mx=False):
     """Check the inputs, allocate the outputs and launch one mode of the
-    kernel on the current stream."""
+    kernel (``mx``: of csrc/spheres_mx.cu) on the current stream."""
     global LAUNCHES
     dev = origin.x.device
     n = origin.x.shape[0]
@@ -154,9 +279,10 @@ def _launch(mode: int, origin: V3, direction: V3, centers: V3,
         _check(name, a, dev, f32, (n,))
     tmax = _tmax_vector(t_max, n, origin.x)
     _check("t_max", tmax, dev, f32, (n,))
-    tab = sphere_table(centers, radii).contiguous()
+    tab = (mx_sphere_table if mx else sphere_table)(centers,
+                                                     radii).contiguous()
     s = tab.shape[0]
-    _check("spheres", tab, dev, f32, (s, 4))
+    _check("spheres", tab, dev, f32, (s, 8 if mx else 4))
     if tab.data_ptr() % 16:
         raise ValueError("sphere table must be 16-byte aligned (float4)")
     n_c = 0
@@ -176,15 +302,18 @@ def _launch(mode: int, origin: V3, direction: V3, centers: V3,
     if n:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _lib().spheres_hit_launch(
+            rc = _launcher(mx)(
                 mode, *(a.data_ptr() for a in (*origin, *direction)),
                 tmax.data_ptr(), tab.data_ptr(), s, ptr(feat), n_c, n,
                 float(t_min), ptr(t_out), ptr(idx_out), ptr(f_out),
                 ptr(occ_out), stream)
         if rc != 0:
-            raise RuntimeError(f"spheres kernel launch failed: CUDA error "
-                               f"{rc}")
-        LAUNCHES += 1
+            raise RuntimeError(f"spheres{' mx' if mx else ''} kernel launch "
+                               f"failed: CUDA error {rc}")
+        if mx:
+            MX_LAUNCHES[_MX_MODE_NAMES[mode]] += 1
+        else:
+            LAUNCHES += 1
     if mode == _ANY_HIT:
         return occ_out
     if mode == _FEATURES:
@@ -208,18 +337,20 @@ def _on_cuda(origin: V3) -> bool:
 
 def spheres_hit_feat(origin: V3, direction: V3, centers: V3,
                      radii: torch.Tensor, feat: torch.Tensor, t_min: float,
-                     t_max) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
+                     t_max, mx: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
     """Nearest sphere hit + the winner's feature row.
 
     origin/direction: V3 of [N]; centers: V3 of [S]; radii [S]; feat
-    [S, C] per-sphere features; t_max a float or [N]. Returns (t [N],
-    idx [N] int32, feats: tuple of C [N] tensors, zero on a miss).
+    [S, C] per-sphere features; t_max a float or [N]; ``mx`` the MXU b/c
+    layout (module docstring). Returns (t [N], idx [N] int32, feats: tuple
+    of C [N] tensors, zero on a miss).
     """
     if _on_cuda(origin):
         return _launch(_FEATURES, origin, direction, centers, radii, t_min,
-                       t_max, feat)
+                       t_max, feat, mx)
     return _spheres_hit_feat_ref(origin, direction, centers, radii, feat,
-                                 t_min, t_max)
+                                 t_min, t_max, mx)
 
 
 def spheres_hit_soa(origin: V3, direction: V3, centers: V3,
@@ -235,10 +366,11 @@ def spheres_hit_soa(origin: V3, direction: V3, centers: V3,
 
 def spheres_anyhit_soa(origin: V3, direction: V3, centers: V3,
                        radii: torch.Tensor, t_min: float,
-                       t_max) -> torch.Tensor:
-    """[N] bool: any sphere hit in (t_min, t_max) — the shadow test."""
+                       t_max, mx: bool = False) -> torch.Tensor:
+    """[N] bool: any sphere hit in (t_min, t_max) — the shadow test
+    (``mx``: by the MXU b/c layout)."""
     if _on_cuda(origin):
         return _launch(_ANY_HIT, origin, direction, centers, radii, t_min,
-                       t_max)
+                       t_max, mx=mx)
     return _spheres_anyhit_ref(origin, direction, centers, radii, t_min,
-                               t_max)
+                               t_max, mx)
