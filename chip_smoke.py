@@ -13,16 +13,19 @@ tier), also under the knobs that pick the heap tier's other kernels
 (mx_leaf, regroup, fast_math, packet_packs with packet_split), and the
 entry points of the JAX package's two decision records that no config
 reaches: the sphere kernel's mx layout (K2, K3) on the headline's rays
-and the packet walk with leaf queues (K12a, K12b) on the dragon's. It
-builds the CUDA kernels from ``tpu_pathtracer_torch/csrc``
+and the packet walk with leaf queues (K12a, K12b) on the dragon's; and
+the probes that split K5's time (K13-K16, ``tpu_pathtracer_torch/
+experiments``), on the dragon's lanes and on the TPU probes' seeded
+inputs. It builds the CUDA kernels from ``tpu_pathtracer_torch/csrc``
 first and holds each against its plain PyTorch version at the shapes its
 path gives it. Phases, one line each; any failure raises and exits
 non-zero:
 
   1. device: the nvidia-smi name and power limit, torch and CUDA versions;
   2. build: nvcc builds spheres.cu, spheres_mx.cu, tris.cu, bvh.cu,
-     bvh4.cu, bvh_mx.cu, bvh_rg.cu and bvh_mr.cu side by side, g++ the
-     native BVH builder (seconds, ptxas lines);
+     bvh4.cu, bvh_mx.cu, bvh_rg.cu, bvh_mr.cu and the probes'
+     iter_ablate.cu, leafmt_probe.cu, dma_probe.cu and dual_probe.cu side
+     by side, g++ the native BVH builder (seconds, ptxas lines);
   3. spheres, kernel vs plain on the 960,000 primary rays of sample 0 and
      on the second-bounce rays, in all three modes; times (CUDA events,
      median of 7 warm runs);
@@ -68,6 +71,14 @@ non-zero:
      ties; times in turns with K5 and K6; steps and leaf visits per
      packet beside K5's per ray; the bound is K5's and K6's (the same
      function on the same lanes), the packet walk's own work beside it;
+ 10d. the walk probes on the same primary lanes, counts from 0: K13
+     (``iter_ablate.ablate_trace``, modes full, nomt, noleaf; acc and
+     per-ray counters bit-equal to the plain walk, the counters equal
+     across modes) timed in turns with K5, and the split of its time into
+     node walk (noleaf), leaf-row fetch (nomt - noleaf) and leaf
+     arithmetic (full - nomt); K16 (``dual_probe.dual_steps`` at R = 1, 2,
+     4 rays a thread; step counts bit-equal to the plain node phase)
+     timed in turns;
  11. small: staircase-hires 96x64, 4 spp, depth 8, kernels vs plain, and
      with bvh4=False (through K5/K6) against the BVH4 render;
  12. config 4: staircase-hires 1200x800, 2 spp gated against
@@ -87,16 +98,24 @@ non-zero:
      rows, two lane pools' worth of pixels (the profiler's cost grows with
      the kernels it records), under torch.profiler: host dispatches and
      device kernel time per regen iteration, the device's busy share, the
-     kernels that take most.
+     kernels that take most;
+ 15. the leaf-fetch probes on the TPU probes' seeded inputs, counts from
+     0: K14 (``leafmt_probe.leafmt_run``, modes pure, cond, dma, db, db2)
+     and K15 (``dma_probe.dma_chain``, sync and db), each bit-equal to its
+     plain version at a few visits or copies, then timed at the probes'
+     own pair (V = 1024 and 17,408 visits of one 1024-ray tile; k =
+     16,384 and 131,072 copies) in turns: ns a visit and a triangle slot,
+     ns a copy and the latency the prefetch hides.
 
-Each full-size run, and each run of phases 3b and 10c's entry points,
-resets the launch counts just before it and reads them just after (the
-headline frame must launch no mx kernel). Every kernel's record carries
-its bound: the larger of its FP32 operations (counted from the source and
-this run's inputs, for the BVH kernels from the node steps and leaf slots
-its counters report) over 67 TFLOP/s and its bytes (inputs read once,
-outputs written once; of a BVH's tables only the distinct node rows and
-leaf triangle rows this run's rays read) over 3.35 TB/s. The line before
+Each full-size run, and each run of phases 3b, 10c, 10d and 15's entry
+points, resets the launch counts just before it and reads them just after
+(the headline frame must launch no mx kernel, and no frame a probe's).
+Every kernel's record carries its bound: the larger of its FP32
+operations (counted from the source and this run's inputs, for the BVH
+kernels from the node steps and leaf slots its counters report) over 67
+TFLOP/s and its bytes (inputs read once, outputs written once; of a BVH's
+tables only the distinct node rows and leaf triangle rows this run's rays
+read; K15: the bytes it copies) over 3.35 TB/s. The line before
 the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs a CUDA device: without one it
 exits non-zero and prints no result. Imports nothing of JAX.
@@ -123,6 +142,11 @@ from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import (_pool_size,
                                                render_image_regen,
                                                render_regen)
+from tpu_pathtracer_torch.experiments import dma_probe as dm
+from tpu_pathtracer_torch.experiments import dual_probe as dp
+from tpu_pathtracer_torch.experiments import iter_ablate as ia
+from tpu_pathtracer_torch.experiments import leafmt_probe as lm
+from tpu_pathtracer_torch.experiments.common import distinct
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
@@ -525,7 +549,8 @@ def build_all():
         return out, time.perf_counter() - t0
 
     names = ("spheres", "spheres_mx", "tris", "bvh", "bvh4", "bvh_mx",
-             "bvh_rg", "bvh_mr")
+             "bvh_rg", "bvh_mr", "iter_ablate", "leafmt_probe", "dma_probe",
+             "dual_probe")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
         futs = {name: ex.submit(timed, _build.build, name)
                 for name in names}
@@ -743,14 +768,15 @@ def spheres_path(dev):
     cs.LAUNCHES = 0
     for key in cs.MX_LAUNCHES:
         cs.MX_LAUNCHES[key] = 0
+    reset_launches()
     img, secs, wall = render_timed(lambda: render_image_regen(scene, cam,
                                                               cfg))
     launches = cs.LAUNCHES
     if launches <= 0:
         raise AssertionError("the headline render launched no sphere kernel")
-    if sum(cs.MX_LAUNCHES.values()):
+    if sum(cs.MX_LAUNCHES.values()) or read_launches():
         raise AssertionError(f"the headline render launched the mx kernel "
-                             f"{cs.MX_LAUNCHES}")
+                             f"{cs.MX_LAUNCHES} or {read_launches()}")
     if img.shape != (cfg.ny, cfg.nx, 3):
         raise AssertionError(f"bad image: shape {img.shape}")
     r5, s5 = gate_crop("headline", img, GOLDEN)
@@ -790,14 +816,17 @@ def staircase_path(dev):
     small_renders("staircase", sscene, scam, scfg, plain)
 
     render_regen(scene, cam, cfg, ns=1)  # warm-up
-    for key in ct.LAUNCHES:
-        ct.LAUNCHES[key] = 0
+    reset_launches()
     (fb, iters), secs, wall = render_timed(
         lambda: render_regen(scene, cam, cfg, return_iters=True))
     launches = dict(ct.LAUNCHES)
     if launches["features"] <= 0 or launches["any_hit"] <= 0:
         raise AssertionError(f"the staircase render launched the nearest "
                              f"and any-hit kernels {launches} times")
+    others = set(read_launches()) - {"cuda_tris.features",
+                                     "cuda_tris.any_hit"}
+    if others:
+        raise AssertionError(f"the staircase render launched {others}")
     img = fb.cpu().numpy().reshape(cfg.ny, cfg.nx, 3)
     r8, s8 = gate_crop("staircase", img, STAIR_GOLDEN)
     paths = cfg.num_pixels * cfg.ns
@@ -930,8 +959,6 @@ class BvhKernels:
         visits = {"nodes": [], "leaves": []}
         out = self.route.walk(origin, direction, t_max, self.tabs, eps,
                               any_hit=any_hit, visits=visits)
-        distinct = lambda ids: (torch.unique(torch.cat(ids)).numel()
-                                if ids else 0)
         return (*out, distinct(visits["nodes"]), distinct(visits["leaves"]))
 
     def table_bytes(self, nodes, leaves):
@@ -1123,18 +1150,20 @@ def staircase_hires_path(dev):
 
 
 TRI_MODULES = (cb4, cb, ct, cmx, crg, cmr)
+PROBE_MODULES = (ia, lm, dm, dp)  # K13-K16: on no frame's path
 
 
-def reset_launches():
-    for mod in TRI_MODULES:
+def reset_launches(mods=TRI_MODULES + PROBE_MODULES):
+    for mod in mods:
         for key in mod.LAUNCHES:
             mod.LAUNCHES[key] = 0
 
 
-def read_launches():
-    """{"module.mode": launches} of every triangle kernel that ran."""
+def read_launches(mods=TRI_MODULES + PROBE_MODULES):
+    """{"module.mode": launches} of every triangle or probe kernel that
+    ran."""
     return {f"{mod.__name__.rsplit('.', 1)[1]}.{key}": count
-            for mod in TRI_MODULES for key, count in mod.LAUNCHES.items()
+            for mod in mods for key, count in mod.LAUNCHES.items()
             if count}
 
 
@@ -1368,7 +1397,6 @@ def mr_phase(tabs, rays, eps, bounds):
     launches = dict(cmr.LAUNCHES)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the packet-walk path launched {launches}")
-    distinct = lambda ids: torch.unique(torch.cat(ids)).numel() if ids else 0
     recs = []
     for any_hit, (o, d, tm) in ((False, (o1, d1, t1)), (True, shadow)):
         tag = f"mr dragon {'NEE shadows' if any_hit else 'primary'}"
@@ -1454,6 +1482,147 @@ def mr_phase(tabs, rays, eps, bounds):
     return recs
 
 
+def walk_probe_phase(tabs, rays, eps):
+    """Phase 10d: the walk probes on phase 10's primary lanes, the launch
+    counts set to 0 just before and read just after. ``iter_ablate`` and
+    ``dual_probe``'s ``measure``: K13's modes held bit-equal to their plain
+    walks and timed in turns with K5, once with closest held at t_max (no
+    culling, as the TPU probe) and once at K5's hit t (a subset of K5's
+    visits), the split of each printed; K16 at R = 1, 2, 4 held bit-equal
+    to the plain node phase and timed in turns. Bounds from the node steps
+    and leaf slots the counters report and the distinct rows the plain
+    walks read. Returns the JSON records of K13's three modes (the
+    no-culling reading) and K16's three forms."""
+    t_phase = time.perf_counter()
+    o, d, tm = rays["primary"]
+    n = o.x.shape[0]
+    torch.cuda.synchronize()
+    reset_launches((ia, dp))
+    k13 = ia.measure(o, d, tm, tabs, eps, rounds=2)
+    k16 = dp.measure(o, d, tabs, rounds=2)
+    launches = {**{f"iter_ablate.{k}": v for k, v in k13["launches"].items()},
+                **{f"dual_probe.{k}": v for k, v in k16["launches"].items()}}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the walk-probe path launched {launches}")
+    P = tabs.prims_per_leaf
+    recs = []
+    for tag, r in (("closest at t_max, no culling", k13),
+                   ("closest at K5's hit t",
+                    ia.measure(o, d, tm, tabs, eps, at_k5_hits=True,
+                               rounds=2))):
+        c = r["counters"]["modes"].sum(dim=1, dtype=torch.int64)
+        c5 = r["counters"]["K5"].sum(dim=1, dtype=torch.int64)
+        phase("kernel", f"K13 on the dragon's {n} primary rays, {tag}: every "
+              f"mode's acc and counters bit-equal to its plain walk; "
+              f"{int(c[4])} node steps and {int(c[2])} leaf visits (K5 "
+              f"{int(c5[4])} and {int(c5[2])}), {r['nodes']} distinct node "
+              f"rows, {r['leaves']} leaves; in turns, 2 rounds: " + ", ".join(
+                  f"{m} {r['ms'][m]:.3f} ms (readings "
+                  f"{min(r['readings'][m]):.3f}-{max(r['readings'][m]):.3f}, "
+                  f"plain {r['plain_ms'][m]:.1f})" for m in ia.MODES)
+              + f"; split of full: {ia.split_text(r)}")
+    c = k13["counters"]["modes"].sum(dim=1, dtype=torch.int64)
+    for m in ia.MODES:
+        flops = 3 * n + int(c[4]) * 2 * SLAB_FLOPS
+        nbytes = n * (28 + 4 + 20) + k13["nodes"] * HEAP_NODE
+        if m != "noleaf":
+            nbytes += k13["leaves"] * P * TRI_ROW_BYTES
+        if m == "full":
+            flops += int(c[2]) * P * MT_FLOPS
+        recs.append(record(f"iter_ablate_{m}", "iter_ablate.cu",
+                           "experiments/iter_ablate.py:60",
+                           launches[f"iter_ablate.{m}"], 0.0, k13["ms"][m],
+                           k13["plain_ms"][m], bound(flops, nbytes)))
+
+    total = k16["total"]
+    bnd = bound(3 * n + total * 2 * SLAB_FLOPS,
+                n * (24 + 4) + k16["nodes"] * HEAP_NODE)
+    text = []
+    for r in dp.RAYS_PER_THREAD:
+        t, readings = k16["ms"][r], k16["readings"][r]
+        text.append(f"R={r} {t:.3f} ms ({t * 1e6 / total:.3f} ns a step; "
+                    f"readings {min(readings):.3f}-{max(readings):.3f})")
+        recs.append(record(f"dual_probe_r{r}", "dual_probe.cu",
+                           "experiments/dual_probe.py:37",
+                           launches[f"dual_probe.r{r}"], 0.0, t,
+                           k16["plain_ms"], bnd))
+    phase("kernel", f"K16 dragon primary: {n} rays, {total} interior steps, "
+          f"bit-equal to the plain node phase at every R; in turns "
+          + ", ".join(text) + f"; plain {k16['plain_ms']:.3f} ms (bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]}); launches {launches}; phase 10d "
+          f"in {time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
+def leaf_probe_phase(dev):
+    """Phase 15: the leaf-fetch probes on the TPU probes' seeded inputs,
+    the launch counts set to 0 just before and read just after.
+    ``leafmt_probe`` and ``dma_probe``'s ``measure``: K14's modes on one
+    tile, each held bit-equal to its plain version and timed in turns at
+    V = 1024 and 17,408 visits, past the 611 clusters' wrap (db2 is
+    checked and takes db's times: db's kernel); K15's two
+    kernels held bit-equal to the plain in-order sum at k = 16,384 and
+    131,072 copies and timed in turns there: the per-visit and per-copy
+    slopes. The records' times, plain times and bounds are at the pair's
+    lower point. Returns the JSON records of K14's modes and K15's two
+    kernels."""
+    t_phase = time.perf_counter()
+    one = lm.probe_inputs(1, dev)
+    blocks = dm.probe_blocks(device=dev)
+    torch.cuda.synchronize()
+    reset_launches((lm, dm))
+    k14 = lm.measure(one, rounds=1)
+    k15 = dm.measure(blocks, rounds=1)
+    launches = {**{f"leafmt_probe.{k}": v for k, v in k14["launches"].items()},
+                **{f"dma_probe.{k}": v for k, v in k15["launches"].items()}}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the leaf-probe path launched {launches}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    recs = []
+    lo, hi = lm.VISITS
+    text = []
+    for m in lm.MODES:
+        (t_lo, t_hi), per = k14["t"][m], k14["per_visit"][m]
+        plain_ms = k14["plain_ms"][m]
+        bnd = bound(MT_FLOPS * lm.WIDTH * lm.TILE * lo,
+                    lm.TILE * (28 + 8) + lm.WIDTH * TRI_ROW_BYTES * (
+                        1 if m in ("pure", "cond") else min(lo, lm.CLUSTERS)))
+        served = lm.SERVED_BY.get(m)
+        if not served:
+            text.append(f"{m} {per:.1f} ns a visit ({per / lm.WIDTH:.2f} a "
+                        f"slot; t({lo}) {t_lo:.3f} ms, t({hi}) {t_hi:.3f} "
+                        f"ms, plain t({lo}) {plain_ms:.3f} ms)")
+        rec = record(f"leafmt_{m}", "leafmt_probe.cu",
+                     "experiments/leafmt_probe.py:36",
+                     launches[f"leafmt_probe.{m}"], 0.0, t_lo, plain_ms, bnd)
+        if served:
+            rec["served_by"] = served
+        recs.append(rec)
+    phase("kernel", f"K14: {len(lm.MODES)} modes bit-equal to their plain "
+          f"versions at {lo} and {hi} visits (db2 is served by db's kernel "
+          f"and takes its times); one {lm.TILE}-ray tile on 1 of {sms} SMs, in turns: "
+          + "; ".join(text) + f"; bound at V={lo}: {recs[0]['bound_ms']:.4f} "
+          f"ms card-wide, by operations")
+    lo, hi = dm.COPIES
+    per = k15["per_copy"]
+    for m, line in zip(dm.MODES, ("experiments/dma_probe.py:36",
+                                  "experiments/dma_probe.py:50")):
+        recs.append(record(f"dma_{m}", "dma_probe.cu", line,
+                           launches[f"dma_probe.{m}"], 0.0, k15["t"][m][0],
+                           k15["plain_ms"],
+                           bound(lo, lo * 4 * dm.CLUSTER_FLOATS + 4)))
+    phase("kernel", f"K15: sync and db equal to the plain in-order sum at "
+          f"{lo} and {hi} copies; in turns, " + ", ".join(
+              f"{m} {per[m]:.1f} ns a copy (t({lo}) "
+              f"{recs[-2 + i]['ms']:.3f} ms, bound "
+              f"{recs[-2 + i]['bound_ms']:.4f} ms by bytes)"
+              for i, m in enumerate(dm.MODES))
+          + f"; sync - db {per['sync'] - per['db']:.1f} ns a copy hidden by "
+          f"the prefetch; launches {launches}; phase 15 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 def dragon_frame(tag, scene, cam, cfg, expect):
     """Phase 13's frame under ``cfg``: a 1 spp warm-up, then the frame
     timed, with the launch counts set to 0 just before it and read just
@@ -1505,9 +1674,9 @@ def mx_frame_checks(scene, cam, cfg, base, mx_img):
 
 
 def dragon_path(dev):
-    """Phases 10, 10c and 13. Returns the JSON records of K5, K6, the heap
-    tier's variants (K10, K10b, K11, K5/K6 fast_math) and the packet walk
-    (K12a, K12b)."""
+    """Phases 10, 10c, 10d and 13. Returns the JSON records of K5, K6, the
+    heap tier's variants (K10, K10b, K11, K5/K6 fast_math), the packet
+    walk (K12a, K12b) and the walk probes (K13, K16)."""
     cfg = RenderConfig(**DRAGON)
     t0 = time.perf_counter()
     scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, device=dev, **DRAGON_MESH)
@@ -1523,6 +1692,7 @@ def dragon_path(dev):
         bvh_kernel_phase("heap dragon", scene, cam, cfg, kern)
     variants = heap_variants_phase(scene.mesh, tabs, rays, cfg.epsilon)
     mr_recs = mr_phase(tabs, rays, cfg.epsilon, (bnd, bnd_a))
+    probe_recs = walk_probe_phase(tabs, rays, cfg.epsilon)
 
     base, launches = dragon_frame("dragon", scene, cam, cfg,
                                   {"cuda_bvh.nearest", "cuda_bvh.any_hit"})
@@ -1573,7 +1743,8 @@ def dragon_path(dev):
             rec("mx_occluded", "bvh_mx.cu", OPS + "pallas_bvh_mx.py:302",
                 mx_l["cuda_bvh_mx.any_hit"], "mx_occluded"),
             rec("rg_trace", "bvh_rg.cu", OPS + "pallas_bvh_rg.py:230",
-                rg_l["cuda_bvh_rg.nearest"], "rg_trace"), *mr_recs]
+                rg_l["cuda_bvh_rg.nearest"], "rg_trace"), *mr_recs,
+            *probe_recs]
 
 
 def main():
@@ -1593,7 +1764,8 @@ def main():
           f"{torch.cuda.device_count()} device(s)")
     build_all()
     kernels = [*spheres_path(dev), *staircase_path(dev),
-               *staircase_hires_path(dev), *dragon_path(dev)]
+               *staircase_hires_path(dev), *dragon_path(dev),
+               *leaf_probe_phase(dev)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The CUDA sphere (exact and mx), triangle, heap-BVH (exact and
-fast_math, MXU-leaf, regrouped, packet walk) and BVH4 kernels against
-their plain PyTorch versions, on the card.
+fast_math, MXU-leaf, regrouped, packet walk) and BVH4 kernels, and the
+probes' kernels (K13-K16), against their plain PyTorch versions, on the
+card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -19,6 +20,10 @@ import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine.regen import render_image_regen
+from tpu_pathtracer_torch.experiments import dma_probe as dm
+from tpu_pathtracer_torch.experiments import dual_probe as dp
+from tpu_pathtracer_torch.experiments import iter_ablate as ia
+from tpu_pathtracer_torch.experiments import leafmt_probe as lm
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
@@ -476,3 +481,71 @@ def test_small_knob_render_kernel_vs_plain(dev, knob):
         assert np.sqrt(np.mean((img - ref) ** 2)) < 1e-3
     else:
         np.testing.assert_array_equal(img, ref)
+
+
+@pytest.mark.gpu
+def test_iter_ablate_kernel_bit_equal(dev):
+    """K13's three modes against their plain walks: acc and per-ray
+    counters bit-equal; every mode visits the same nodes and leaves."""
+    mesh, o, d, tm = _bvh_inputs(dev, seed=7, ppl=64)
+    tabs = cb.heap_tables(mesh)
+    before = dict(ia.LAUNCHES)
+    for t_max in (torch.full_like(tm, FLT_MAX), tm):
+        cnts = []
+        for mode in ia.MODES:
+            acc, cnt = ia.ablate_trace(o, d, t_max, tabs, T_MIN, mode)
+            p_acc, p_cnt = ia._ablate_ref(o, d, t_max, tabs, T_MIN, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, p_acc) and torch.equal(cnt, p_cnt)
+            assert (acc != 0).any() == (mode != "noleaf")
+            cnts.append(cnt)
+        assert all(torch.equal(c, cnts[0]) for c in cnts)
+    assert not cnt[:, ::7].any()
+    assert all(ia.LAUNCHES[m] == before[m] + 2 for m in ia.MODES)
+
+
+@pytest.mark.gpu
+def test_dual_probe_kernel_bit_equal(dev):
+    """K16 at R = 1, 2 and 4 against the plain node phase, bit for bit;
+    n is no multiple of 128 R, so the last threads hold fewer rays."""
+    mesh, o, d, _ = _bvh_inputs(dev, n=40_003, seed=8, ppl=64)
+    tabs = cb.heap_tables(mesh)
+    want = dp._dual_steps_ref(o, d, tabs)
+    before = dict(dp.LAUNCHES)
+    for r in dp.RAYS_PER_THREAD:
+        assert torch.equal(dp.dual_steps(o, d, tabs, r), want)
+    assert int(want.min()) >= 1 and int(want.max()) > 10
+    assert all(dp.LAUNCHES[k] == before[k] + 1 for k in dp.LAUNCHES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", lm.MODES)
+def test_leafmt_kernel_bit_equal(dev, mode):
+    """K14 in each mode against its plain version on the probe's inputs,
+    two tiles: closest and besti bit-equal, at 700 visits past the 611
+    clusters' wrap too; cond with its branch never taken runs no visit."""
+    args = lm.probe_inputs(2, dev)
+    before = lm.LAUNCHES[mode]
+    for visits in (1, 7, 64, 700):
+        k = lm.leafmt_run(*args, visits, mode)
+        p = lm._leafmt_ref(*args, visits, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert (k[1] >= 0).any() and torch.equal(k[0][:lm.TILE], k[0][lm.TILE:])
+    assert lm.LAUNCHES[mode] == before + 4
+    if mode == "cond":
+        closest, best = lm.leafmt_run(*args, 7, mode, skip=1)
+        assert (best == -1).all() and torch.equal(closest, args[2])
+
+
+@pytest.mark.gpu
+def test_dma_probe_kernel_bit_equal(dev):
+    """K15a and K15b against the plain in-order sum, bit for bit, up to
+    the probe's lower slope point."""
+    blocks = dm.probe_blocks(device=dev)
+    before = dict(dm.LAUNCHES)
+    for k in (0, 1, 2, 1000, 4097, dm.COPIES[0]):
+        want = dm._dma_chain_ref(blocks, k)
+        for mode in dm.MODES:
+            assert torch.equal(dm.dma_chain(blocks, k, mode), want)
+    assert all(dm.LAUNCHES[m] == before[m] + 6 for m in dm.MODES)

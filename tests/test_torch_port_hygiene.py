@@ -35,6 +35,10 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.ops.cuda_bvh_rg",
             "tpu_pathtracer_torch.ops.cuda_bvh_mr",
             "tpu_pathtracer_torch.experiments.phase_probe",
+            "tpu_pathtracer_torch.experiments.iter_ablate",
+            "tpu_pathtracer_torch.experiments.leafmt_probe",
+            "tpu_pathtracer_torch.experiments.dma_probe",
+            "tpu_pathtracer_torch.experiments.dual_probe",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -65,7 +69,11 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.ops.cuda_bvh_mx, "
             "tpu_pathtracer_torch.ops.cuda_bvh_rg, "
             "tpu_pathtracer_torch.ops.cuda_bvh_mr, "
-            "tpu_pathtracer_torch.experiments.phase_probe\n"
+            "tpu_pathtracer_torch.experiments.phase_probe, "
+            "tpu_pathtracer_torch.experiments.iter_ablate, "
+            "tpu_pathtracer_torch.experiments.leafmt_probe, "
+            "tpu_pathtracer_torch.experiments.dma_probe, "
+            "tpu_pathtracer_torch.experiments.dual_probe\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"
@@ -74,6 +82,23 @@ def test_import_builds_nothing():
                        text=True, timeout=120, cwd=ROOT,
                        env=_ENV)
     assert p.returncode == 0, p.stderr
+
+
+@pytest.mark.parametrize("probe", ["phase_probe", "iter_ablate",
+                                   "leafmt_probe", "dma_probe",
+                                   "dual_probe"])
+def test_probes_exit_without_a_card(probe):
+    """A probe measures the card and has no CPU mode: without a CUDA
+    device it exits non-zero and prints nothing."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the probe would run")
+    p = subprocess.run([sys.executable, "-m",
+                        f"tpu_pathtracer_torch.experiments.{probe}"],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=ROOT, env=_ENV)
+    assert p.returncode != 0 and p.stdout == ""
+    assert "no CUDA device" in p.stderr
 
 
 def test_config_fields_and_defaults_match_jax():

@@ -34,11 +34,11 @@ Needs a CUDA device; prints the card's name and power limit first.
 from __future__ import annotations
 
 import statistics
-import subprocess
 import sys
 
 import torch
 
+from tpu_pathtracer_torch.experiments.common import card, median_ms, per_ray
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh_mr as cmr
@@ -49,27 +49,6 @@ RAYS = 65_536
 REPS = 7
 ROUNDS = 4
 T_MIN = 1e-3  # the TPU probe's
-
-
-def _event_ms(fn) -> float:
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b)
-
-
-def _per_ray(cnt: torch.Tensor) -> str:
-    """Steps and leaves of a per-ray counter block [5, N]: mean per ray,
-    and the mean over 32-ray warps of the most one lane takes."""
-    steps = (cnt[0] + cnt[1]).double()
-    leaves = cnt[2].double()
-    warp = lambda c: c.view(-1, cmr.LANES).max(dim=1).values.mean().item()
-    return (f"steps/ray {steps.mean().item():7.1f} (warp max "
-            f"{warp(steps):7.1f})  leaves/ray {leaves.mean().item():6.1f} "
-            f"(warp max {warp(leaves):6.1f})")
 
 
 def _per_packet(cnt: torch.Tensor) -> str:
@@ -93,7 +72,7 @@ def probe(width: int, mesh_kw: dict, dev) -> None:
             "K10 mx_trace": lambda: cmx.mx_trace(o, d, FLT_MAX, mx_tabs,
                                                  T_MIN, 3)}
     outs = {name: fn() for name, fn in runs.items()}  # warm-up
-    med = lambda fn: statistics.median(_event_ms(fn) for _ in range(REPS))
+    med = lambda fn: median_ms(fn, REPS)
     k5, k12 = runs["K5 heap_trace"], runs["K12a mr_trace"]
     times = {"K5 heap_trace": [], "K12a mr_trace": []}
     ratios = []
@@ -114,7 +93,7 @@ def probe(width: int, mesh_kw: dict, dev) -> None:
     for name in runs:
         ms = statistics.median(times[name])
         cnt = outs[name][1] if name.startswith("K12a") else outs[name][2]
-        text = _per_packet(cnt) if name.startswith("K12a") else _per_ray(cnt)
+        text = _per_packet(cnt) if name.startswith("K12a") else per_ray(cnt)
         print(f"  {name:14s} {ms:7.3f} ms/trav ({RAYS / ms / 1e3:6.1f} "
               f"Mrays/s)  {text}", flush=True)
     print(f"  K12a / K5 in turns, by round: "
@@ -124,18 +103,12 @@ def probe(width: int, mesh_kw: dict, dev) -> None:
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not torch.cuda.is_available():
-        sys.exit("phase_probe: no CUDA device; the kernels have no CPU mode")
     mesh_kw = {}
     if argv and argv[0] == "--dragon":
         mesh_kw = {"nu": 1664, "nv": 262}
         argv = argv[1:]
     widths = [int(w) for w in argv] or [32, 64, 128]
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+    dev = card("phase_probe")
     for w in widths:
         probe(w, mesh_kw, dev)
 
