@@ -16,7 +16,8 @@ reaches: the sphere kernel's mx layout (K2, K3) on the headline's rays
 and the packet walk with leaf queues (K12a, K12b) on the dragon's; and
 the probes that split K5's time (K13-K16, ``tpu_pathtracer_torch/
 experiments``), on the dragon's lanes and on the TPU probes' seeded
-inputs. It builds the CUDA kernels from ``tpu_pathtracer_torch/csrc``
+inputs, and the TPU micro-benchmarks (K17a-K20, ``experiments/
+tpu_micro.py``) on the TPU file's seeded inputs. It builds the CUDA kernels from ``tpu_pathtracer_torch/csrc``
 first and holds each against its plain PyTorch version at the shapes its
 path gives it. Phases, one line each; any failure raises and exits
 non-zero:
@@ -24,8 +25,9 @@ non-zero:
   1. device: the nvidia-smi name and power limit, torch and CUDA versions;
   2. build: nvcc builds spheres.cu, spheres_mx.cu, tris.cu, bvh.cu,
      bvh4.cu, bvh_mx.cu, bvh_rg.cu, bvh_mr.cu and the probes'
-     iter_ablate.cu, leafmt_probe.cu, dma_probe.cu and dual_probe.cu side
-     by side, g++ the native BVH builder (seconds, ptxas lines);
+     iter_ablate.cu, leafmt_probe.cu, dma_probe.cu, dual_probe.cu and
+     tpu_micro.cu side by side, g++ the native BVH builder (seconds,
+     ptxas lines);
   3. spheres, kernel vs plain on the 960,000 primary rays of sample 0 and
      on the second-bounce rays, in all three modes; times (CUDA events,
      median of 7 warm runs);
@@ -105,10 +107,19 @@ non-zero:
      plain version at a few visits or copies, then timed at the probes'
      own pair (V = 1024 and 17,408 visits of one 1024-ray tile; k =
      16,384 and 131,072 copies) in turns: ns a visit and a triangle slot,
-     ns a copy and the latency the prefetch hides.
+     ns a copy and the latency the prefetch hides;
+ 16. the TPU micro-benchmarks on the TPU file's seeded inputs, counts from
+     0 (``tpu_micro.measure``): K17a (the per-lane gather, modes l2 and
+     smem) and K17c (the one-hot fetch as a bf16 gather) at the TPU's
+     lanes and at 131,072, K17b (the row broadcast and block vote), K18
+     (the 8 KB copy chain), K19 and K20 (a 128-triangle leaf from shared
+     memory as broadcasts, and by per-lane loads), each bit-equal to its
+     plain version at 3 steps and at the lower count of its pair, then
+     timed in turns at the TPU file's pairs: ns a step, a lane-step, a copy
+     and a leaf; one torch.gather at the same lanes beside K17a and K17c.
 
-Each full-size run, and each run of phases 3b, 10c, 10d and 15's entry
-points, resets the launch counts just before it and reads them just after
+Each full-size run, and each run of phases 3b, 10c, 10d, 15 and 16's
+entry points, resets the launch counts just before it and reads them just after
 (the headline frame must launch no mx kernel, and no frame a probe's).
 Every kernel's record carries its bound: the larger of its FP32
 operations (counted from the source and this run's inputs, for the BVH
@@ -146,6 +157,7 @@ from tpu_pathtracer_torch.experiments import dma_probe as dm
 from tpu_pathtracer_torch.experiments import dual_probe as dp
 from tpu_pathtracer_torch.experiments import iter_ablate as ia
 from tpu_pathtracer_torch.experiments import leafmt_probe as lm
+from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.experiments.common import distinct
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
@@ -550,7 +562,7 @@ def build_all():
 
     names = ("spheres", "spheres_mx", "tris", "bvh", "bvh4", "bvh_mx",
              "bvh_rg", "bvh_mr", "iter_ablate", "leafmt_probe", "dma_probe",
-             "dual_probe")
+             "dual_probe", "tpu_micro")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
         futs = {name: ex.submit(timed, _build.build, name)
                 for name in names}
@@ -1150,7 +1162,7 @@ def staircase_hires_path(dev):
 
 
 TRI_MODULES = (cb4, cb, ct, cmx, crg, cmr)
-PROBE_MODULES = (ia, lm, dm, dp)  # K13-K16: on no frame's path
+PROBE_MODULES = (ia, lm, dm, dp, um)  # K13-K20: on no frame's path
 
 
 def reset_launches(mods=TRI_MODULES + PROBE_MODULES):
@@ -1623,6 +1635,83 @@ def leaf_probe_phase(dev):
     return recs
 
 
+# experiments/tpu_micro.py: each kernel's TPU body and the FP32 operations
+# a lane-step (compares and integer steps not counted): K17a's add; K17b's
+# 3 subtractions, 3 products, 2 maxima, its acc add and ~1 a lane for the
+# block sum; K17c's 8 adds; K18's add a lane of row 0; K19/K20's 46 of the
+# "MT-ish" test (csrc/tpu_micro.cu mt_ish, the division one) a lane and
+# triangle
+MICRO = {"e3_l2": ("K17a", 123, 1), "e3_smem": ("K17a", 123, 1),
+         "e4": ("K17b", 154, 10), "e7": ("K17c", 254, 8),
+         "e5": ("K18", 187, 1), "e8": ("K19", 299, 46 * um.BLOCK[1]),
+         "e9": ("K20", 367, 46 * um.BLOCK[1])}
+
+
+def micro_bound(key, lanes, steps):
+    """The bound of one micro kernel at ``lanes`` and ``steps``: its FP32
+    operations, and its bytes: each input and output once (K17a-K17c, the
+    whole table), or the bytes its steps copy or read (K18: the 8 KB
+    blocks; K19/K20: the 9 rows of 128 words a leaf, and ox and best)."""
+    flops = MICRO[key][2] * lanes * steps
+    table = 4 * um.ROWS * um.T
+    nbytes = {"e3_l2": table + 8 * lanes, "e3_smem": table + 8 * lanes,
+              "e4": table + 8 * lanes, "e7": table + 4 * lanes * 9,
+              "e5": steps * 4 * um.BLOCK[0] * um.BLOCK[1] + 4 * lanes,
+              "e8": steps * 4 * um.TRI_WORDS * um.BLOCK[1] + 8 * lanes,
+              "e9": steps * 4 * um.TRI_WORDS * um.BLOCK[1] + 8 * lanes}[key]
+    return bound(flops, nbytes)
+
+
+def micro_phase(dev):
+    """Phase 16: the TPU micro-benchmarks on the TPU file's seeded inputs,
+    the launch counts set to 0 just before and read just after.
+    ``tpu_micro.measure``: K17a (E3, modes l2 and smem) and K17c (E7) at
+    the TPU's lanes and at 131,072, K17b (E4), K18 (E5), K19 (E8) and K20
+    (E9), each held bit-equal to its plain version at 3 steps and at the
+    lower step count of its pair, then timed in turns at the TPU file's
+    pairs (K19 with K20: the A/B of a leaf read from shared memory as a
+    broadcast against per-lane loads); beside K17a and K17c one
+    ``torch.gather`` at the same lanes (one step's gather, not the chain).
+    Records at the lower step count. Returns the JSON records."""
+    t_phase = time.perf_counter()
+    inp = um.probe_inputs(dev)
+    torch.cuda.synchronize()
+    reset_launches((um,))
+    r = um.measure(inp, rounds=1)
+    launches = {f"tpu_micro.{k}": v for k, v in r["launches"].items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the micro-benchmark path launched {launches}")
+    recs = []
+    for (key, lanes), v in r["kernels"].items():
+        k_id, line, _ = MICRO[key]
+        lo, hi = um.STEPS[v["exp"]]
+        bnd = micro_bound(key, lanes, lo)
+        rec = record(f"tpu_micro_{key}_{lanes}", "tpu_micro.cu",
+                     f"experiments/tpu_micro.py:{line}",
+                     launches[f"tpu_micro.{key}"], 0.0, v["t"][0],
+                     v["plain_ms"], bnd)
+        rec["library_ms"] = v["library_ms"]
+        recs.append(rec)
+        per = {"E5": "a copy", "E8": "a leaf", "E9": "a leaf"}.get(
+            v["exp"], f"a step, {v['ns'] / lanes:.4f} a lane-step")
+        lib = ("" if v["library_ms"] is None else
+               f", one torch.gather {v['library_ms']:.4f} ms")
+        phase("kernel", f"{k_id} {v['exp']} {key} at {lanes} lanes: "
+              f"bit-equal to plain at {um.CHECK_STEPS} and {lo} steps; "
+              f"{v['ns']:.1f} ns {per} (t({lo}) {v['t'][0]:.4f} ms, "
+              f"t({hi}) {v['t'][1]:.4f} ms, readings "
+              f"{min(v['readings'][0]):.4f}-{max(v['readings'][0]):.4f} / "
+              f"{min(v['readings'][1]):.4f}-{max(v['readings'][1]):.4f}); "
+              f"plain t({lo}) {v['plain_ms']:.3f} ms{lib}; bound "
+              f"{bnd[0]:.5f} ms by {bnd[1]}")
+    phase("kernel", f"micro: E4's vote margin (smallest |sum| / sum|near| "
+          f"over {um.STEPS['E4'][0]} steps) {r['e4_margin']:.3e}; E8/E9 "
+          f"{r['e8_hits']} of {um.TILE} lanes hit within "
+          f"{um.STEPS['E8'][0]} leaves; launches {launches}; phase 16 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 def dragon_frame(tag, scene, cam, cfg, expect):
     """Phase 13's frame under ``cfg``: a 1 spp warm-up, then the frame
     timed, with the launch counts set to 0 just before it and read just
@@ -1765,7 +1854,7 @@ def main():
     build_all()
     kernels = [*spheres_path(dev), *staircase_path(dev),
                *staircase_hires_path(dev), *dragon_path(dev),
-               *leaf_probe_phase(dev)]
+               *leaf_probe_phase(dev), *micro_phase(dev)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The CUDA sphere (exact and mx), triangle, heap-BVH (exact and
 fast_math, MXU-leaf, regrouped, packet walk) and BVH4 kernels, and the
-probes' kernels (K13-K16), against their plain PyTorch versions, on the
-card.
+probes' kernels (K13-K16) and the TPU micro-benchmarks' (K17a-K20),
+against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
 one. The file imports no JAX, so it runs on a machine without it:
@@ -24,6 +24,7 @@ from tpu_pathtracer_torch.experiments import dma_probe as dm
 from tpu_pathtracer_torch.experiments import dual_probe as dp
 from tpu_pathtracer_torch.experiments import iter_ablate as ia
 from tpu_pathtracer_torch.experiments import leafmt_probe as lm
+from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
@@ -549,3 +550,76 @@ def test_dma_probe_kernel_bit_equal(dev):
         for mode in dm.MODES:
             assert torch.equal(dm.dma_chain(blocks, k, mode), want)
     assert all(dm.LAUNCHES[m] == before[m] + 6 for m in dm.MODES)
+
+
+@pytest.fixture(scope="module")
+def micro():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    inp = um.probe_inputs(torch.device("cuda"))
+    return inp, um._runs(inp, um.KERNELS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", [("e3_l2", 1024), ("e3_l2", 131_072),
+                                 ("e3_smem", 1024), ("e3_smem", 131_072),
+                                 ("e7", 256), ("e7", 131_072), ("e4", 1024),
+                                 ("e5", 128), ("e8", 1024), ("e9", 1024)])
+def test_tpu_micro_kernel_bit_equal(micro, key):
+    """K17a-K20, each mode at the TPU shape and (K17a, K17c) at 131,072
+    lanes, bit-equal to its plain version over a few steps."""
+    _, runs = micro
+    exp, kern, ref, _ = runs[key]
+    name = key[0]
+    before = um.LAUNCHES[name]
+    for steps in (0, 1, 3, 17, 64):
+        k, p = kern(steps), ref(steps)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), (key, steps)
+    assert um.LAUNCHES[name] == before + 5
+    if exp in ("E8", "E9"):
+        assert (k < um.FAR).any() and (k == um.FAR).any()
+
+
+@pytest.mark.gpu
+def test_tpu_micro_wrappers_refuse_what_the_kernels_do_not_take(micro):
+    inp, _ = micro
+    table, idx, x = inp["table"], um.lanes_of(inp, "E3", False), inp["x"]
+    blocks = inp["blocks"]
+    with pytest.raises(TypeError):
+        um.gather_chain(table, idx.float(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        um.gather_chain(table, inp["idx3"][:, ::2], 1)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        um.gather_chain(table, idx[:, :100].contiguous(), 1)
+    with pytest.raises(ValueError, match="power of two"):
+        um.gather_chain(table[:, :1000].contiguous(), idx, 1)
+    with pytest.raises(ValueError, match="shape"):
+        um.onehot_chain(table[:4].contiguous(),
+                        um.lanes_of(inp, "E7", False), 1)
+    with pytest.raises(TypeError):
+        um.row_vote_chain(inp["rows"], x.double(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        um.row_vote_chain(inp["rows"], x.t().contiguous().t(), 1)
+    with pytest.raises(ValueError, match="shape"):
+        um.copy_chain(blocks[:, :8].contiguous(), 1)
+    with pytest.raises(ValueError, match="shape"):
+        um.leaf_chain(blocks, x.reshape(-1), 1)
+    with pytest.raises(ValueError, match="devices"):
+        um.leaf_chain(blocks, x.cpu(), 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exp", ["E8", "E9"])
+def test_tpu_micro_leaf_chain_through_a_lane_that_misses(micro, exp):
+    """Lane 0's o1 NaN: it never hits, and the chain runs on int(1e30),
+    which the kernel's cvt.rzi saturates to 2147483647 as the plain
+    version does."""
+    inp, _ = micro
+    blocks, x = inp["blocks"][:um.LEAF_CLUSTERS], inp["x"].clone()
+    x[0, 0] = float("nan")
+    for steps in (2, 17):
+        k = um.leaf_chain(blocks, x, steps, exp)
+        p = um._leaf_ref(blocks, x, steps, um.LEAF_MODES[exp])
+        torch.cuda.synchronize()
+        assert torch.equal(k, p) and k[0, 0] == um.FAR

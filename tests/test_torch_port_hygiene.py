@@ -39,6 +39,7 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.leafmt_probe",
             "tpu_pathtracer_torch.experiments.dma_probe",
             "tpu_pathtracer_torch.experiments.dual_probe",
+            "tpu_pathtracer_torch.experiments.tpu_micro",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -73,7 +74,8 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.iter_ablate, "
             "tpu_pathtracer_torch.experiments.leafmt_probe, "
             "tpu_pathtracer_torch.experiments.dma_probe, "
-            "tpu_pathtracer_torch.experiments.dual_probe\n"
+            "tpu_pathtracer_torch.experiments.dual_probe, "
+            "tpu_pathtracer_torch.experiments.tpu_micro\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"
@@ -86,7 +88,7 @@ def test_import_builds_nothing():
 
 @pytest.mark.parametrize("probe", ["phase_probe", "iter_ablate",
                                    "leafmt_probe", "dma_probe",
-                                   "dual_probe"])
+                                   "dual_probe", "tpu_micro"])
 def test_probes_exit_without_a_card(probe):
     """A probe measures the card and has no CPU mode: without a CUDA
     device it exits non-zero and prints nothing."""
