@@ -17,17 +17,18 @@ and the packet walk with leaf queues (K12a, K12b) on the dragon's; and
 the probes that split K5's time (K13-K16, ``tpu_pathtracer_torch/
 experiments``), on the dragon's lanes and on the TPU probes' seeded
 inputs, and the TPU micro-benchmarks (K17a-K20, ``experiments/
-tpu_micro.py``) on the TPU file's seeded inputs. It builds the CUDA kernels from ``tpu_pathtracer_torch/csrc``
-first and holds each against its plain PyTorch version at the shapes its
-path gives it. Phases, one line each; any failure raises and exits
-non-zero:
+tpu_micro.py``) on the TPU file's seeded inputs, and the regrouped leaf
+phase and the 8-row packet probes (K21-K24) on theirs. It builds the CUDA
+kernels from ``tpu_pathtracer_torch/csrc`` first and holds each against
+its plain PyTorch version at the shapes its path gives it. Phases, one
+line each; any failure raises and exits non-zero:
 
   1. device: the nvidia-smi name and power limit, torch and CUDA versions;
   2. build: nvcc builds spheres.cu, spheres_mx.cu, tris.cu, bvh.cu,
      bvh4.cu, bvh_mx.cu, bvh_rg.cu, bvh_mr.cu and the probes'
-     iter_ablate.cu, leafmt_probe.cu, dma_probe.cu, dual_probe.cu and
-     tpu_micro.cu side by side, g++ the native BVH builder (seconds,
-     ptxas lines);
+     iter_ablate.cu, leafmt_probe.cu, dma_probe.cu, dual_probe.cu,
+     tpu_micro.cu, regroup_probe.cu and multirow_probes.cu side by side,
+     g++ the native BVH builder (seconds, ptxas lines);
   3. spheres, kernel vs plain on the 960,000 primary rays of sample 0 and
      on the second-bounce rays, in all three modes; times (CUDA events,
      median of 7 warm runs);
@@ -116,9 +117,20 @@ non-zero:
      memory as broadcasts, and by per-lane loads), each bit-equal to its
      plain version at 3 steps and at the lower count of its pair, then
      timed in turns at the TPU file's pairs: ns a step, a lane-step, a copy
-     and a leaf; one torch.gather at the same lanes beside K17a and K17c.
+     and a leaf; one torch.gather at the same lanes beside K17a and K17c;
+ 17. the regrouped leaf phase and the 8-row packet probes on the TPU
+     files' seeded inputs, counts from 0: K21 (``regroup_probe``, modes
+     ct, g, ray, tri, mt, full) on one window, at 4 and 1028 windows
+     repeated in one block, and card-wide (132 x 8 blocks of one window);
+     K22 (``leafround_probe``, LEAF_MODE 0, 1, 2 at w = 32, 64; 256 and
+     2048 rounds), K23 (``multirow_probe``, fixed and assemble; 64 and 512
+     steps) and K24 (``gather_probe``, lanes and shfl at S = 8 to 128; 1024
+     and 8192 steps), each bit-equal to its plain version (K23/K24 also on
+     every step's idx and bs) at the pair's lower count and below, then
+     timed in turns at the pair: us a window and ns a pair, ns an 8-row
+     leaf round, ns an 8-row node step.
 
-Each full-size run, and each run of phases 3b, 10c, 10d, 15 and 16's
+Each full-size run, and each run of phases 3b, 10c, 10d, 15, 16 and 17's
 entry points, resets the launch counts just before it and reads them just after
 (the headline frame must launch no mx kernel, and no frame a probe's).
 Every kernel's record carries its bound: the larger of its FP32
@@ -155,8 +167,12 @@ from tpu_pathtracer_torch.engine.regen import (_pool_size,
                                                render_regen)
 from tpu_pathtracer_torch.experiments import dma_probe as dm
 from tpu_pathtracer_torch.experiments import dual_probe as dp
+from tpu_pathtracer_torch.experiments import gather_probe as gp
 from tpu_pathtracer_torch.experiments import iter_ablate as ia
 from tpu_pathtracer_torch.experiments import leafmt_probe as lm
+from tpu_pathtracer_torch.experiments import leafround_probe as lr
+from tpu_pathtracer_torch.experiments import multirow_probe as mr
+from tpu_pathtracer_torch.experiments import regroup_probe as rp
 from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.experiments.common import distinct
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
@@ -562,7 +578,7 @@ def build_all():
 
     names = ("spheres", "spheres_mx", "tris", "bvh", "bvh4", "bvh_mx",
              "bvh_rg", "bvh_mr", "iter_ablate", "leafmt_probe", "dma_probe",
-             "dual_probe", "tpu_micro")
+             "dual_probe", "tpu_micro", "regroup_probe", "multirow_probes")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
         futs = {name: ex.submit(timed, _build.build, name)
                 for name in names}
@@ -1162,7 +1178,8 @@ def staircase_hires_path(dev):
 
 
 TRI_MODULES = (cb4, cb, ct, cmx, crg, cmr)
-PROBE_MODULES = (ia, lm, dm, dp, um)  # K13-K20: on no frame's path
+PROBE_MODULES = (ia, lm, dm, dp, um, rp, lr, mr, gp)  # K13-K24: on no
+# frame's path
 
 
 def reset_launches(mods=TRI_MODULES + PROBE_MODULES):
@@ -1712,6 +1729,116 @@ def micro_phase(dev):
     return recs
 
 
+# K21's FP32 operations a slot (compares and integer steps not counted):
+# ct's add, ray's 3 sums and 2 more, tri's 8 products and 8 sums (a used
+# slot), and mt/full's 37 a slot-triangle (MT_FLOPS) over the pairs
+REGROUP_SLOT_FLOPS = {"ct": 1, "g": 0, "ray": 5, "tri": 16}
+CLUSTER_BYTES = 12 * rp.W * 4  # the 12 used words of a triangle, a cluster
+# K23/K24: two slab tests and two acc adds a lane-step
+WALK_FLOPS = 2 * SLAB_FLOPS + 2
+
+
+def regroup_bound(upto, pairs, windows):
+    """K21's bound at ``windows`` windows: each window's inputs that its
+    outputs depend on (ct none; g the masks; ray the masks and rays; tri
+    its 8 words of each cluster; mt and full the masks, rays and the 12
+    used words of each cluster), read once a window, its 8 KB of outputs
+    written once, and its FP32 operations."""
+    masks, rays = 4 * rp.K * rp.R, 4 * 7 * rp.R
+    nbytes = 8 * rp.R + {"ct": 0, "g": masks, "ray": masks + rays,
+                         "tri": 4 * 8 * rp.K}.get(
+        upto, masks + rays + rp.K * CLUSTER_BYTES)
+    flops = (MT_FLOPS * rp.W * pairs if upto in ("mt", "full") else
+             REGROUP_SLOT_FLOPS[upto] * (pairs if upto == "tri" else rp.S))
+    return bound(flops * windows, nbytes * windows)
+
+
+def packet8_phase(dev):
+    """Phase 17: the regrouped leaf phase (K21) and the 8-row packet probes
+    (K22-K24) on the TPU files' seeded inputs, the launch counts set to 0
+    just before and read just after. Each module's ``measure``: every mode
+    held bit-equal to its plain version (K23/K24 on acc and every step's
+    idx and bs) at the lower count of its pair and below, then timed in
+    turns at the TPU file's pair. Records at the lower count; bounds from
+    the FP32 operations and the bytes of that run. Returns the JSON
+    records."""
+    t_phase = time.perf_counter()
+    rg_in = rp.probe_inputs(dev)
+    lr_rays, lr_blocks = lr.probe_inputs(device=dev)
+    ntab, mr_rays = mr.probe_inputs(device=dev)
+    gp_rays, gp_tabs = gp.probe_inputs(device=dev)
+    torch.cuda.synchronize()
+    mods = (rp, lr, mr, gp)
+    reset_launches(mods)
+    k21 = rp.measure(rg_in, rounds=1)
+    k22 = lr.measure(lr_rays, lr_blocks, rounds=1)
+    k23 = mr.measure(ntab, mr_rays, rounds=1)
+    k24 = gp.measure(gp_rays, gp_tabs, rounds=1)
+    launches = read_launches(mods)
+    want = {f"{m.__name__.rsplit('.', 1)[1]}.{k}" for m in mods
+            for k in m.LAUNCHES}
+    if set(launches) != want:
+        raise AssertionError(f"the packet-probe path launched {launches}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    recs = []
+    lo, hi = rp.WINDOWS
+    for upto, v in k21["modes"].items():
+        bnd = regroup_bound(upto, k21["pairs"], lo)
+        recs.append(record(f"regroup_{upto}", "regroup_probe.cu",
+                           "experiments/regroup_probe.py:94",
+                           launches[f"regroup_probe.{upto}"], 0.0, v["t"][0],
+                           v["plain_ms"], bnd))
+        phase("kernel", f"K21 {upto}: bit-equal to plain on 1, {lo} and "
+              f"{hi} windows and {rp.CARD_BLOCKS} blocks; {v['us_window']:.3f}"
+              f" us a window, {v['ns_pair']:.2f} ns a pair ({k21['pairs']} "
+              f"pairs; t({lo}) {v['t'][0]:.4f} ms, t({hi}) {v['t'][1]:.4f} "
+              f"ms, one block on 1 of {sms} SMs); card-wide "
+              f"{rp.CARD_BLOCKS} windows {v['card_ms']:.4f} ms = "
+              f"{v['card_ms'] / rp.CARD_BLOCKS * 1e3:.3f} us a window; plain "
+              f"t({lo}) {v['plain_ms']:.3f} ms; bound {bnd[0]:.5f} ms by "
+              f"{bnd[1]} card-wide")
+    lo, hi = lr.ROUNDS_PAIR
+    for (m, w), v in k22["modes"].items():
+        fetched = 8 * 16 * w * 4 * lo if m == 2 else 0
+        bnd = bound(MT_FLOPS * mr.TILE * w * lo,
+                    fetched + 4 * (6 + 1) * mr.TILE)
+        recs.append(record(f"leafround_m{m}_w{w}", "multirow_probes.cu",
+                           "experiments/leafround_probe.py:39",
+                           launches[f"leafround_probe.{m}"], 0.0, v["t"][0],
+                           v["plain_ms"], bnd))
+        phase("kernel", f"K22 LEAF_MODE {m} w={w}: bit-equal to plain at "
+              f"{lr.CHECK_STEPS} and {lo} rounds; {v['ns']:.1f} ns an 8-row "
+              f"leaf round (t({lo}) {v['t'][0]:.4f} ms, t({hi}) "
+              f"{v['t'][1]:.4f} ms, 1 SM); plain t({lo}) {v['plain_ms']:.3f} "
+              f"ms; bound {bnd[0]:.5f} ms by {bnd[1]}")
+    for k_id, res, mod, line, pair in (
+            ("K23", k23, mr, "experiments/multirow_probe.py:57", mr.STEPS),
+            ("K24", k24, gp, "experiments/gather_probe.py:49", gp.STEPS)):
+        lo, hi = pair
+        for key, v in res["modes"].items():
+            m = key if k_id == "K23" else key[0]
+            name = (f"multirow_{m}" if k_id == "K23" else
+                    f"gather_{m}_S{key[1]}")
+            rows = 0 if m == "fixed" else 12 * mr.ROWS * 4 * lo
+            bnd = bound(WALK_FLOPS * mr.TILE * lo,
+                        rows + 4 * 7 * mr.TILE + 4 * mr.TILE)
+            mod_name = mod.__name__.rsplit(".", 1)[1]
+            recs.append(record(name, "multirow_probes.cu", line,
+                               launches[f"{mod_name}.{m}"], 0.0, v["t"][0],
+                               v["plain_ms"], bnd))
+            phase("kernel", f"{k_id} {name}: bit-equal to plain (acc, every "
+                  f"step's idx and bs) at {mr.CHECK_STEPS} and {lo} steps; "
+                  f"{v['ns']:.1f} ns an 8-row node step (t({lo}) "
+                  f"{v['t'][0]:.4f} ms, t({hi}) {v['t'][1]:.4f} ms, 1 SM); "
+                  f"plain t({lo}) {v['plain_ms']:.3f} ms; bound "
+                  f"{bnd[0]:.6f} ms by {bnd[1]}")
+    phase("kernel", f"packet probes: {k21['hits']} of {rp.R} rays hit in "
+          f"K21's window; K22 lanes hit after {lr.ROUNDS_PAIR[0]} rounds "
+          f"of mode 2: {k22['hits']}; launches {launches}; phase 17 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 def dragon_frame(tag, scene, cam, cfg, expect):
     """Phase 13's frame under ``cfg``: a 1 spp warm-up, then the frame
     timed, with the launch counts set to 0 just before it and read just
@@ -1854,7 +1981,8 @@ def main():
     build_all()
     kernels = [*spheres_path(dev), *staircase_path(dev),
                *staircase_hires_path(dev), *dragon_path(dev),
-               *leaf_probe_phase(dev), *micro_phase(dev)]
+               *leaf_probe_phase(dev), *micro_phase(dev),
+               *packet8_phase(dev)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The CUDA sphere (exact and mx), triangle, heap-BVH (exact and
 fast_math, MXU-leaf, regrouped, packet walk) and BVH4 kernels, and the
-probes' kernels (K13-K16) and the TPU micro-benchmarks' (K17a-K20),
+probes' kernels (K13-K16), the TPU micro-benchmarks' (K17a-K20) and the
+regroup and 8-row packet probes' (K21-K24),
 against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
@@ -22,8 +23,12 @@ from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine.regen import render_image_regen
 from tpu_pathtracer_torch.experiments import dma_probe as dm
 from tpu_pathtracer_torch.experiments import dual_probe as dp
+from tpu_pathtracer_torch.experiments import gather_probe as gp
 from tpu_pathtracer_torch.experiments import iter_ablate as ia
 from tpu_pathtracer_torch.experiments import leafmt_probe as lm
+from tpu_pathtracer_torch.experiments import leafround_probe as lr
+from tpu_pathtracer_torch.experiments import multirow_probe as mr
+from tpu_pathtracer_torch.experiments import regroup_probe as rp
 from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
@@ -623,3 +628,123 @@ def test_tpu_micro_leaf_chain_through_a_lane_that_misses(micro, exp):
         p = um._leaf_ref(blocks, x, steps, um.LEAF_MODES[exp])
         torch.cuda.synchronize()
         assert torch.equal(k, p) and k[0, 0] == um.FAR
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("upto", rp.UPTOS)
+def test_regroup_kernel_bit_equal(dev, upto):
+    """K21 in each mode on one window, on 3 repeats and on 2 blocks."""
+    inp = rp.probe_inputs(dev)
+    before = rp.LAUNCHES[upto]
+    want = rp._regroup_plain(inp, upto)
+    for windows, blocks in ((1, 1), (3, 1), (1, 2)):
+        got = rp.regroup_window(inp, upto, windows, blocks)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w.repeat(blocks, 1, 1))
+                   for g, w in zip(got, want)), (windows, blocks)
+    assert rp.LAUNCHES[upto] == before + 3
+
+
+@pytest.mark.gpu
+def test_regroup_kernel_bit_equal_with_empty_visits(dev):
+    inp = rp.probe_inputs(dev)
+    inp["masks"][5:7] = 0.0
+    counts = (inp["masks"].reshape(rp.K, -1) > 0.5).sum(1).cpu()
+    inp["vpref"][1:] = torch.cumsum(counts, 0).to(torch.int32)
+    for upto in rp.UPTOS:
+        got, want = rp.regroup_window(inp, upto), rp._regroup_plain(inp, upto)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), upto
+
+
+@pytest.mark.gpu
+def test_regroup_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    inp = rp.probe_inputs(dev)
+    bad = lambda **kw: {**inp, **kw}
+    with pytest.raises(TypeError):
+        rp.regroup_window(bad(rays=inp["rays"].double()))
+    with pytest.raises(ValueError, match="shape"):
+        rp.regroup_window(bad(masks=inp["masks"][:32]))
+    with pytest.raises(ValueError, match="contiguous"):
+        rp.regroup_window(bad(tri=inp["tri"].t().contiguous().t()))
+    vpref = inp["vpref"].clone()
+    vpref[-1] = rp.S + 1
+    with pytest.raises(ValueError, match="exceed"):
+        rp.regroup_window(bad(vpref=vpref))
+    with pytest.raises(ValueError, match="cpu"):
+        rp.regroup_window(bad(cids=inp["cids"].to(dev)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", lr.MODES)
+@pytest.mark.parametrize("w", lr.WIDTHS)
+def test_leafround_kernel_bit_equal(dev, mode, w):
+    rays, blocks = lr.probe_inputs((w,), dev)
+    before = lr.LAUNCHES[mode]
+    for rounds in (0, 1, 3, 17):
+        got = lr.leafround_run(rays, blocks[w], rounds, mode)
+        want = lr._leafround_ref(rays, blocks[w], rounds, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), rounds
+    assert lr.LAUNCHES[mode] == before + 4
+    if mode == 2:
+        assert (got < mr.FAR).any() and (got == mr.FAR).any()
+
+
+@pytest.mark.gpu
+def test_leafround_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    rays, blocks = lr.probe_inputs((32,), dev)
+    b = blocks[32]
+    with pytest.raises(ValueError, match="widths"):
+        lr.leafround_run(rays, b[:, :2].contiguous(), 1)
+    with pytest.raises(ValueError, match="shape"):
+        lr.leafround_run(rays, b[:512], 1)
+    with pytest.raises(TypeError):
+        lr.leafround_run(rays.double(), b, 1)
+    with pytest.raises(ValueError, match="devices"):
+        lr.leafround_run(rays.cpu(), b, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", mr.MODES)
+def test_multirow_kernel_bit_equal(dev, mode):
+    ntab, rays = mr.probe_inputs(device=dev)
+    before = mr.LAUNCHES[mode]
+    for steps in (0, 1, 3, 17, 64):
+        got = mr.multirow_run(rays, ntab, steps, mode, trace=True)
+        want = mr._multirow_ref(rays, ntab, steps, mode)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, p) for g, p in zip(got, want)), steps
+        acc, _, _ = mr.multirow_run(rays, ntab, steps, mode)
+        assert torch.equal(acc, want[0])
+    assert mr.LAUNCHES[mode] == before + 10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", gp.MODES)
+@pytest.mark.parametrize("s", [8, 16, 128])
+def test_gather_kernel_bit_equal(dev, mode, s):
+    rays, tabs = gp.probe_inputs((s,), dev)
+    for steps in (0, 1, 3, 17, 100):
+        got = gp.gather_run(rays, tabs[s], steps, mode, trace=True)
+        want = gp._gather_ref(rays, tabs[s], steps)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, p) for g, p in zip(got, want)), steps
+
+
+@pytest.mark.gpu
+def test_walk_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    ntab, rays = mr.probe_inputs(device=dev)
+    with pytest.raises(ValueError, match="power of two"):
+        mr.multirow_run(rays, ntab[:6 * 1000].contiguous(), 1)
+    with pytest.raises(TypeError):
+        mr.multirow_run(rays, ntab.double(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        mr.multirow_run(rays.transpose(1, 2).contiguous().transpose(1, 2),
+                        ntab, 1)
+    _, tabs = gp.probe_inputs((8,), dev)
+    with pytest.raises(ValueError, match="power of two"):
+        gp.gather_run(rays, torch.zeros((12, 3, 8, 128), device=dev), 1)
+    with pytest.raises(ValueError, match="dimensions"):
+        gp.gather_run(rays, tabs[8].reshape(12, -1), 1)
+    with pytest.raises(ValueError, match="steps"):
+        gp.gather_run(rays, tabs[8], -1)

@@ -40,6 +40,10 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.dma_probe",
             "tpu_pathtracer_torch.experiments.dual_probe",
             "tpu_pathtracer_torch.experiments.tpu_micro",
+            "tpu_pathtracer_torch.experiments.regroup_probe",
+            "tpu_pathtracer_torch.experiments.leafround_probe",
+            "tpu_pathtracer_torch.experiments.multirow_probe",
+            "tpu_pathtracer_torch.experiments.gather_probe",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -75,7 +79,11 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.leafmt_probe, "
             "tpu_pathtracer_torch.experiments.dma_probe, "
             "tpu_pathtracer_torch.experiments.dual_probe, "
-            "tpu_pathtracer_torch.experiments.tpu_micro\n"
+            "tpu_pathtracer_torch.experiments.tpu_micro, "
+            "tpu_pathtracer_torch.experiments.regroup_probe, "
+            "tpu_pathtracer_torch.experiments.leafround_probe, "
+            "tpu_pathtracer_torch.experiments.multirow_probe, "
+            "tpu_pathtracer_torch.experiments.gather_probe\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"
@@ -88,7 +96,9 @@ def test_import_builds_nothing():
 
 @pytest.mark.parametrize("probe", ["phase_probe", "iter_ablate",
                                    "leafmt_probe", "dma_probe",
-                                   "dual_probe", "tpu_micro"])
+                                   "dual_probe", "tpu_micro",
+                                   "regroup_probe", "leafround_probe",
+                                   "multirow_probe", "gather_probe"])
 def test_probes_exit_without_a_card(probe):
     """A probe measures the card and has no CPU mode: without a CUDA
     device it exits non-zero and prints nothing."""
