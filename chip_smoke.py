@@ -17,8 +17,10 @@ and the packet walk with leaf queues (K12a, K12b) on the dragon's; and
 the probes that split K5's time (K13-K16, ``tpu_pathtracer_torch/
 experiments``), on the dragon's lanes and on the TPU probes' seeded
 inputs, and the TPU micro-benchmarks (K17a-K20, ``experiments/
-tpu_micro.py``) on the TPU file's seeded inputs, and the regrouped leaf
-phase and the 8-row packet probes (K21-K24) on theirs. It builds the CUDA
+tpu_micro.py``) on the TPU file's seeded inputs, the regrouped leaf
+phase and the 8-row packet probes (K21-K24) on theirs, and the sphere
+layout probe (K25a, K25b) and the shape-cast probe (K26) on theirs and,
+K25, on the headline's primary rays. It builds the CUDA
 kernels from ``tpu_pathtracer_torch/csrc`` first and holds each against
 its plain PyTorch version at the shapes its path gives it. Phases, one
 line each; any failure raises and exits non-zero:
@@ -27,7 +29,8 @@ line each; any failure raises and exits non-zero:
   2. build: nvcc builds spheres.cu, spheres_mx.cu, tris.cu, bvh.cu,
      bvh4.cu, bvh_mx.cu, bvh_rg.cu, bvh_mr.cu and the probes'
      iter_ablate.cu, leafmt_probe.cu, dma_probe.cu, dual_probe.cu,
-     tpu_micro.cu, regroup_probe.cu and multirow_probes.cu side by side,
+     tpu_micro.cu, regroup_probe.cu, multirow_probes.cu,
+     sphere_layout_probe.cu and shapecast_probe.cu side by side,
      g++ the native BVH builder (seconds, ptxas lines);
   3. spheres, kernel vs plain on the 960,000 primary rays of sample 0 and
      on the second-bounce rays, in all three modes; times (CUDA events,
@@ -128,9 +131,18 @@ line each; any failure raises and exits non-zero:
      and 8192 steps), each bit-equal to its plain version (K23/K24 also on
      every step's idx and bs) at the pair's lower count and below, then
      timed in turns at the pair: us a window and ns a pair, ns an 8-row
-     leaf round, ns an 8-row node step.
+     leaf round, ns an 8-row node step;
+ 18. the sphere layout and shape-cast probes, counts from 0: K25a
+     (``sphere_layout_probe.spheres_sb``, the sphere table in constant
+     memory) and K25b (``spheres_sbf``, + the feature fetch) on the TPU
+     file's 16,384 rays and on the headline's 960,000 primary rays of
+     sample 0, each bit-equal to its plain version and to K1 (t, idx; K25b's
+     features to K1's, 0 on a miss), timed in turns with K1; K26
+     (``shapecast_probe.shapecast``), all 15 cases bit-equal to their plain
+     versions alone and in one launch, each case's launch and the launch
+     of all 15 timed.
 
-Each full-size run, and each run of phases 3b, 10c, 10d, 15, 16 and 17's
+Each full-size run, and each run of phases 3b, 10c, 10d, 15, 16, 17 and 18's
 entry points, resets the launch counts just before it and reads them just after
 (the headline frame must launch no mx kernel, and no frame a probe's).
 Every kernel's record carries its bound: the larger of its FP32
@@ -173,6 +185,8 @@ from tpu_pathtracer_torch.experiments import leafmt_probe as lm
 from tpu_pathtracer_torch.experiments import leafround_probe as lr
 from tpu_pathtracer_torch.experiments import multirow_probe as mr
 from tpu_pathtracer_torch.experiments import regroup_probe as rp
+from tpu_pathtracer_torch.experiments import shapecast_probe as scp
+from tpu_pathtracer_torch.experiments import sphere_layout_probe as slp
 from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.experiments.common import distinct
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
@@ -578,7 +592,8 @@ def build_all():
 
     names = ("spheres", "spheres_mx", "tris", "bvh", "bvh4", "bvh_mx",
              "bvh_rg", "bvh_mr", "iter_ablate", "leafmt_probe", "dma_probe",
-             "dual_probe", "tpu_micro", "regroup_probe", "multirow_probes")
+             "dual_probe", "tpu_micro", "regroup_probe", "multirow_probes",
+             "sphere_layout_probe", "shapecast_probe")
     with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
         futs = {name: ex.submit(timed, _build.build, name)
                 for name in names}
@@ -1178,8 +1193,8 @@ def staircase_hires_path(dev):
 
 
 TRI_MODULES = (cb4, cb, ct, cmx, crg, cmr)
-PROBE_MODULES = (ia, lm, dm, dp, um, rp, lr, mr, gp)  # K13-K24: on no
-# frame's path
+PROBE_MODULES = (ia, lm, dm, dp, um, rp, lr, mr, gp, slp, scp)  # K13-K26:
+# on no frame's path
 
 
 def reset_launches(mods=TRI_MODULES + PROBE_MODULES):
@@ -1839,6 +1854,83 @@ def packet8_phase(dev):
     return recs
 
 
+# K25b: a fetched feature's 3 bf16 roundings, 2 subtractions and 2 sums
+SBF_FEATURE_FLOPS = 7
+
+
+def layout_phase(dev):
+    """Phase 18: the sphere layout probe (K25a, K25b) on the TPU file's
+    16,384 rays and on the headline's 960,000 primary rays of sample 0,
+    and the shape-cast probe (K26), the launch counts set to 0 just before
+    and read just after. Each module's ``measure``: every kernel held
+    bit-equal to its plain version (K25 also to K1), then timed (K25 in
+    turns with K1). Bounds: K25a 20 operations a ray-slot pair over all
+    512 slots, K25b that plus 7 a fetched feature of a hit; bytes the
+    rays, the table (and K25b's feature table) once, the outputs once.
+    Returns the JSON records."""
+    t_phase = time.perf_counter()
+    sets = {"tpu": slp.probe_inputs(dev),
+            "headline": slp.headline_inputs(dev)}
+    x = scp.probe_x(dev)
+    torch.cuda.synchronize()
+    mods = (slp, scp)
+    reset_launches(mods)
+    k25 = slp.measure(sets, rounds=2)
+    k26 = scp.measure(x)
+    launches = read_launches(mods)
+    want = {f"{m.__name__.rsplit('.', 1)[1]}.{k}" for m in mods
+            for k in m.LAUNCHES}
+    if set(launches) != want:
+        raise AssertionError(f"the layout-probe path launched {launches}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    recs = []
+    table, ftab = 4 * 4 * slp.S, 4 * slp.N_C * slp.S
+    for name, v in k25["sets"].items():
+        n, hits = v["n"], v["hits"]
+        pair_flops = SPHERE_FLOPS * n * slp.S
+        bnd = {"sb": bound(pair_flops, 4 * 7 * n + table + 8 * n),
+               "sbf": bound(pair_flops + SBF_FEATURE_FLOPS * slp.N_C * hits,
+                            4 * 7 * n + table + ftab + (8 + 4 * slp.N_C) * n)}
+        for mode, line in (("sb", 117), ("sbf", 38)):
+            recs.append(record(f"sphere_layout_{mode}_{n}",
+                               "sphere_layout_probe.cu",
+                               f"experiments/sphere_layout_probe.py:{line}",
+                               launches[f"sphere_layout_probe.{mode}"], 0.0,
+                               v["ms"][mode], v["plain_ms"][mode], bnd[mode]))
+        blocks = -(-n // 256)
+        phase("kernel", f"K25 {name}: {n} rays ({blocks} blocks of 256 "
+              f"threads on {sms} SMs{', under one wave' if blocks < sms else ''}"
+              f"), {hits} hits: sb and sbf bit-equal to plain and to K1 (t, "
+              f"idx; features, 0 on a miss); in turns K1 {v['ms']['k1']:.4f} "
+              f"ms ({sets[name]['centers'].shape[0]} spheres), sb {v['ms']['sb']:.4f} ms, sbf "
+              f"{v['ms']['sbf']:.4f} ms ({slp.S} slots): prod/sb "
+              f"{v['prod_sb']:.3f}x, prod/sbf {v['prod_sbf']:.3f}x; device "
+              f"(profiler, a launch) " + ", ".join(
+                  f"{k} {ms:.4f} ms" if ms else f"{k} not measured"
+                  for k, ms in v["device"].items()) + f"; plain sb "
+              f"{v['plain_ms']['sb']:.2f} ms, sbf {v['plain_ms']['sbf']:.2f} "
+              f"ms; bound sb {bnd['sb'][0]:.4f} ms, sbf {bnd['sbf'][0]:.4f} "
+              f"ms by {bnd['sb'][1]}")
+    bnd = bound(sum(scp.CASE_FLOPS), 4 * scp.N * (1 + len(scp.NAMES)))
+    recs.append(record("shapecast", "shapecast_probe.cu",
+                       "experiments/shapecast_probe.py:135",
+                       launches["shapecast_probe.cases"], 0.0, k26["ms"],
+                       k26["plain_ms"], bnd))
+    slow = max(k26["case_ms"], key=k26["case_ms"].get)
+    phase("kernel", f"K26: all {len(scp.NAMES)} cases bit-equal to plain "
+          f"alone and in one launch (A @ B^T sum "
+          f"{k26['sums'][scp.NAMES[8]][0]!r}); one launch of all "
+          f"{k26['ms'] * 1e3:.2f} us, a case {min(k26['case_ms'].values()) * 1e3:.2f}"
+          f"-{k26['case_ms'][slow] * 1e3:.2f} us (slowest {slow!r}); on the "
+          f"device (profiler; 0: not measured) all {k26['device_ms'] * 1e3:.2f}"
+          f" us, a case {min(k26['case_device_ms'].values()) * 1e3:.2f}-"
+          f"{max(k26['case_device_ms'].values()) * 1e3:.2f} us; plain "
+          f"{k26['plain_ms']:.2f} ms; bound {bnd[0] * 1e3:.4f} us by {bnd[1]}")
+    phase("kernel", f"layout probes: launches {launches}; phase 18 in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return recs
+
+
 def dragon_frame(tag, scene, cam, cfg, expect):
     """Phase 13's frame under ``cfg``: a 1 spp warm-up, then the frame
     timed, with the launch counts set to 0 just before it and read just
@@ -1982,7 +2074,7 @@ def main():
     kernels = [*spheres_path(dev), *staircase_path(dev),
                *staircase_hires_path(dev), *dragon_path(dev),
                *leaf_probe_phase(dev), *micro_phase(dev),
-               *packet8_phase(dev)]
+               *packet8_phase(dev), *layout_phase(dev)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

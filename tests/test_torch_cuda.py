@@ -1,7 +1,8 @@
 """The CUDA sphere (exact and mx), triangle, heap-BVH (exact and
 fast_math, MXU-leaf, regrouped, packet walk) and BVH4 kernels, and the
-probes' kernels (K13-K16), the TPU micro-benchmarks' (K17a-K20) and the
-regroup and 8-row packet probes' (K21-K24),
+probes' kernels (K13-K16), the TPU micro-benchmarks' (K17a-K20), the
+regroup and 8-row packet probes' (K21-K24), the sphere layout probe's
+(K25a, K25b) and the shape-cast probe's (K26),
 against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without
@@ -29,6 +30,8 @@ from tpu_pathtracer_torch.experiments import leafmt_probe as lm
 from tpu_pathtracer_torch.experiments import leafround_probe as lr
 from tpu_pathtracer_torch.experiments import multirow_probe as mr
 from tpu_pathtracer_torch.experiments import regroup_probe as rp
+from tpu_pathtracer_torch.experiments import shapecast_probe as sc
+from tpu_pathtracer_torch.experiments import sphere_layout_probe as sl
 from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
@@ -748,3 +751,85 @@ def test_walk_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gp.gather_run(rays, tabs[8].reshape(12, -1), 1)
     with pytest.raises(ValueError, match="steps"):
         gp.gather_run(rays, tabs[8], -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [sl.M, 1000])
+def test_sphere_layout_kernels_bit_equal(dev, m):
+    """K25a (all slots and the first 100) and K25b against their plain
+    versions and K1; 1000 rays leave a ragged block."""
+    inp = sl.probe_inputs(dev, m)
+    rays, sph, feat_t = inp["rays"], inp["sph"], inp["feat_t"]
+    before = dict(sl.LAUNCHES)
+    for n_s in (sl.S, 100):
+        got, want = sl.spheres_sb(rays, sph, n_s=n_s), sl.sb_plain(
+            rays, sph, n_s=n_s)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, p) for g, p in zip(got, want)), n_s
+    got = sl.spheres_sbf(rays, sph, feat_t)
+    want = sl.sbf_plain(rays, sph, feat_t)
+    assert all(torch.equal(g, p) for g, p in zip(got, want))
+    t, idx, f = sl._k1(inp)
+    assert all(torch.equal(g, p) for g, p in zip(got, (t, idx,
+                                                       torch.stack(f))))
+    assert 0 < int((got[1] >= 0).sum()) < m
+    assert sl.LAUNCHES == {"sb": before["sb"] + 2, "sbf": before["sbf"] + 1}
+
+
+@pytest.mark.gpu
+def test_sphere_layout_kernels_match_k1_on_the_headline(dev):
+    """The headline's 960,000 primary rays: both kernels bit-equal to K1
+    (t, idx; the features, 0 on a miss) and K25a to its plain version."""
+    inp = sl.headline_inputs(dev)
+    rays, sph = inp["rays"], inp["sph"]
+    t, idx, f = sl._k1(inp)
+    sb = sl.spheres_sb(rays, sph)
+    assert torch.equal(sb[0], t) and torch.equal(sb[1], idx)
+    sbf = sl.spheres_sbf(rays, sph, inp["feat_t"])
+    assert all(torch.equal(g, p) for g, p in zip(sbf, (t, idx,
+                                                       torch.stack(f))))
+    assert all(torch.equal(g, p) for g, p in zip(sb, sl.sb_plain(rays, sph)))
+
+
+@pytest.mark.gpu
+def test_sphere_layout_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    inp = sl.probe_inputs(dev, 1024)
+    rays, sph, feat_t = inp["rays"], inp["sph"], inp["feat_t"]
+    with pytest.raises(ValueError, match="shape"):
+        sl.spheres_sb(rays, sph[:, :256].contiguous())
+    with pytest.raises(ValueError, match="outside"):
+        sl.spheres_sb(rays, sph, n_s=sl.S + 1)
+    with pytest.raises(TypeError):
+        sl.spheres_sb(rays.double(), sph)
+    with pytest.raises(ValueError, match="devices|expected"):
+        sl.spheres_sb(rays, sph.cpu())
+    bad = feat_t.clone()
+    bad[3, 10] = float("nan")
+    with pytest.raises(ValueError, match="C-20"):
+        sl.spheres_sbf(rays, sph, bad)
+
+
+@pytest.mark.gpu
+def test_shapecast_kernel_bit_equal(dev):
+    """Every case alone and all 15 in one launch, bit-equal to the plain
+    version (the A @ B^T case too: the plain version sums in the kernel's
+    order)."""
+    x = sc.probe_x(dev)
+    want = sc.shapecast_plain(x)
+    before = sc.LAUNCHES["cases"]
+    assert torch.equal(sc.shapecast(x), want)
+    for c in range(len(sc.NAMES)):
+        assert torch.equal(sc.shapecast(x, c, 1)[0], want[c]), sc.NAMES[c]
+    assert torch.equal(sc.shapecast(x, 7, 3), want[7:10])
+    assert sc.LAUNCHES["cases"] == before + 2 + len(sc.NAMES)
+
+
+@pytest.mark.gpu
+def test_shapecast_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = sc.probe_x(dev)
+    with pytest.raises(ValueError, match="outside"):
+        sc.shapecast(x, 10, 6)
+    with pytest.raises(ValueError, match="shape"):
+        sc.shapecast(x.reshape(1024, 1))
+    with pytest.raises(TypeError):
+        sc.shapecast(x.double())

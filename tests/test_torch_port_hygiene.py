@@ -44,6 +44,8 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.leafround_probe",
             "tpu_pathtracer_torch.experiments.multirow_probe",
             "tpu_pathtracer_torch.experiments.gather_probe",
+            "tpu_pathtracer_torch.experiments.sphere_layout_probe",
+            "tpu_pathtracer_torch.experiments.shapecast_probe",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -83,7 +85,9 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.regroup_probe, "
             "tpu_pathtracer_torch.experiments.leafround_probe, "
             "tpu_pathtracer_torch.experiments.multirow_probe, "
-            "tpu_pathtracer_torch.experiments.gather_probe\n"
+            "tpu_pathtracer_torch.experiments.gather_probe, "
+            "tpu_pathtracer_torch.experiments.sphere_layout_probe, "
+            "tpu_pathtracer_torch.experiments.shapecast_probe\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"
@@ -98,7 +102,9 @@ def test_import_builds_nothing():
                                    "leafmt_probe", "dma_probe",
                                    "dual_probe", "tpu_micro",
                                    "regroup_probe", "leafround_probe",
-                                   "multirow_probe", "gather_probe"])
+                                   "multirow_probe", "gather_probe",
+                                   "sphere_layout_probe",
+                                   "shapecast_probe"])
 def test_probes_exit_without_a_card(probe):
     """A probe measures the card and has no CPU mode: without a CUDA
     device it exits non-zero and prints nothing."""

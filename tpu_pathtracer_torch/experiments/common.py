@@ -1,5 +1,6 @@
 """What the probes share on the card: the card's line, CUDA-event times,
-kernels timed in turns, and the walk telemetry they print.
+kernels timed in turns, device times from the profiler, and the walk
+telemetry they print.
 
 A probe needs a CUDA device: :func:`card` exits non-zero without one
 (the kernels have no CPU mode), and prints the ``nvidia-smi`` name and
@@ -62,6 +63,27 @@ def in_turns(fns: Dict[str, Callable], rounds: int = 4,
         for name in order:
             out[name].append(median_ms(fns[name], reps))
     return out
+
+
+def device_ms(fn: Callable, reps: int = 7) -> Dict[str, float]:
+    """Device milliseconds a launch of each kernel or copy that ``fn``
+    runs, by name, from ``torch.profiler`` over ``reps`` calls after one
+    warm-up call: the device's own time, without the host's dispatch,
+    which CUDA events around a call of a short kernel measure instead.
+    The mean is over the launches the profiler recorded, which in a
+    process that has profiled before can be fewer than were made. Empty
+    if the profiler reported no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def distinct(ids: List[torch.Tensor]) -> int:
