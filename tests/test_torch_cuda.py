@@ -47,6 +47,7 @@ from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
+import tri_cases
 
 T_MIN = 0.01
 
@@ -222,10 +223,91 @@ def test_small_staircase_kernel_equals_plain(dev):
         ct.LAUNCHES[key] = 0
     img = render_image_regen(scene, cam, cfg)
     assert ct.LAUNCHES["features"] > 0 and ct.LAUNCHES["any_hit"] > 0
-    with mock.patch.object(ct, "tris_hit_feat", ct._tris_hit_feat_ref), \
-            mock.patch.object(ct, "tris_anyhit_soa", ct._tris_anyhit_ref):
+    # the plain versions build their own table: the engine's is dropped
+    with mock.patch.object(ct, "tris_hit_feat",
+                           lambda *a, tab=None: ct._tris_hit_feat_ref(*a)), \
+            mock.patch.object(ct, "tris_anyhit_soa",
+                              lambda *a, tab=None: ct._tris_anyhit_ref(*a)):
         ref = render_image_regen(scene, cam, cfg)
     np.testing.assert_array_equal(img, ref)
+
+
+def _tri_modes_bit_equal(o, d, tri, feat, tm, tab=None):
+    """All three modes of the kernel against the plain version, bit-equal
+    in every output; returns the kernel's (t, idx, u, v, features)."""
+    args = (o, d, *tri, T_MIN, tm)
+    k = ct.tris_hit_feat(*args[:6], feat, *args[6:], tab=tab)
+    p = ct._tris_hit_feat_ref(*args[:6], feat, *args[6:])
+    torch.cuda.synchronize()
+    for a, b in zip(k[:4], p[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(torch.stack(k[4]), torch.stack(p[4]))
+    for a, b in zip(ct.tris_hit_soa(*args, tab=tab), k[:4]):
+        assert torch.equal(a, b)
+    occ = ct.tris_anyhit_soa(*args, tab=tab)
+    assert torch.equal(occ, ct._tris_anyhit_ref(*args))
+    return k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", tri_cases.CASES)
+def test_tris_contract_cases_bit_equal(dev, name):
+    """The contract's edge cases (tests/tri_cases.py, held against the
+    JAX kernel on the CPU), the kernel against the plain version."""
+    o, d, tri, tm, check = tri_cases.case(name)
+    tri = tri_cases.prep(tri[:, 0], tri[:, 1], tri[:, 2])
+    n = o.shape[0]
+    tm = np.full(n, FLT_MAX, np.float32) if tm is None else tm
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    feat = torch.from_numpy(np.random.RandomState(14).uniform(
+        -3, 3, (tri[0].shape[0], 26)).astype(np.float32)).to(dev)
+    k = _tri_modes_bit_equal(v(o), v(d), [v(a) for a in tri], feat,
+                             torch.from_numpy(tm).to(dev))
+    check(tuple(a.cpu().numpy() for a in k[:4]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32_768, 960_000])
+def test_tris_pool_and_frame_shapes_bit_equal(dev, n):
+    """The lane pool the regen engine launches on, and a whole 1200x800
+    frame of rays, against the staircase's 384-slot table size."""
+    o, d, v0, e1, e2, nrm, feat, tm = _tri_inputs(dev, n=n, t=384, seed=2)
+    tab = ct.tri_table(v0, e1, e2, nrm)
+    k = _tri_modes_bit_equal(o, d, (v0, e1, e2, nrm), feat, tm, tab)
+    assert (k[1] >= 0).float().mean() > 0.1
+    assert (k[1][::7] == -1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [0.0, 0.4, 1.0])
+def test_tris_anyhit_live_shares_bit_equal(dev, live):
+    """Any-hit at 32,768 lanes with no, ~40% and every lane carrying a
+    shadow ray, t_max before or past the nearest hit."""
+    o, d, v0, e1, e2, nrm, _, _ = _tri_inputs(dev, n=32_768, t=384, seed=3)
+    tri = (v0, e1, e2, nrm)
+    t, idx = ct.tris_hit_soa(o, d, *tri, T_MIN, FLT_MAX)[:2]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    r = torch.rand(t.shape, generator=gen, device=dev)
+    odd = torch.arange(t.numel(), device=dev) % 2 == 1
+    tm = torch.where(idx >= 0, t * torch.where(odd, 0.5, 1.001), 30.0)
+    tm = torch.where(r < live, tm, -1.0)
+    args = (o, d, *tri, T_MIN, tm)
+    occ = ct.tris_anyhit_soa(*args)
+    assert torch.equal(occ, ct._tris_anyhit_ref(*args))
+    assert not occ[tm <= T_MIN].any()
+    if live:
+        assert occ.any() and not occ[tm > T_MIN].all()
+
+
+@pytest.mark.gpu
+def test_tris_largest_brute_table_bit_equal(dev):
+    """T = 16,384, the largest mesh the engine sends to this kernel
+    (wavefront.TRI_BRUTE_MAX): 32 tiles of the kernel."""
+    o, d, v0, e1, e2, nrm, feat, tm = _tri_inputs(dev, n=8192, t=16_384,
+                                                  seed=5)
+    k = _tri_modes_bit_equal(o, d, (v0, e1, e2, nrm), feat, tm)
+    assert (k[1] >= 15_872).any()  # winners in the last tile
 
 
 def _bvh_inputs(dev, n=40_000, t=20_000, seed=0, ppl=16):

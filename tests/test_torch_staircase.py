@@ -118,9 +118,9 @@ def test_scene_on_a_cuda_device_needs_the_kernel():
     calls = []
     real = ct.tris_hit_feat
 
-    def spy(origin, *a):
+    def spy(origin, *a, **kw):
         calls.append(origin.x.device.type)
-        return real(origin, *a)
+        return real(origin, *a, **kw)
 
     ct.tris_hit_feat = spy
     try:

@@ -17,11 +17,18 @@ from tpu_pathtracer.ops.pallas_tris import _tris_hit_impl as j_impl
 from tpu_pathtracer.ops.pallas_tris import tris_anyhit_soa as j_any
 from tpu_pathtracer.ops.pallas_tris import tris_hit_feat as j_feat
 from tpu_pathtracer.ops.v3 import V3 as JV3
+from tpu_pathtracer_torch.config import RenderConfig as TConfig
+from tpu_pathtracer_torch.engine.wavefront import make_view
+from tpu_pathtracer_torch.models.mesh import \
+    procedural_staircase_scene as t_stair
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
+from tri_cases import CASES, T_MIN
+from tri_cases import case as _case
+from tri_cases import prep as _prep
+from tri_cases import rays as _rays
 
-T_MIN = 0.01
 # t, u, v: the JAX kernel and the plain version evaluate the same
 # expressions in the same order, but XLA may contract a*b+c into an FMA
 # on the CPU where PyTorch does not. a, q·e and s·n are 3-term dot
@@ -29,14 +36,6 @@ T_MIN = 0.01
 # ulps of the magnitude of its terms: the bound on x = num/a is
 # 8·2⁻²³·(Σ|terms of num|/|a| + |x|·Σ|dᵢnᵢ|/|a|) + 1e-6.
 ULPS = 8 * 2.0 ** -23
-
-
-def _rays(n, seed, spread=12.0):
-    rng = np.random.RandomState(seed)
-    o = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
-    d = rng.uniform(-8, 8, (n, 3)).astype(np.float32) - o
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return o, d.astype(np.float32)
 
 
 def _tris(t, seed, sentinel_every=0):
@@ -52,18 +51,6 @@ def _tris(t, seed, sentinel_every=0):
         v2[::sentinel_every] = np.inf
     feat = rng.uniform(-3, 3, (t, 26)).astype(np.float32)
     return _prep(v0, v1, v2) + (feat,)
-
-
-def _prep(v0, v1, v2):
-    """(v0, e1, e2, n) as the engines' views build them (component-wise
-    float32 differences and cross products)."""
-    with np.errstate(invalid="ignore"):
-        e1 = v1 - v0
-        e2 = v2 - v0
-        n = np.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
-                      e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
-                      e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], axis=1)
-    return v0, e1, e2, n.astype(np.float32)
 
 
 def _tv3(a):
@@ -224,71 +211,7 @@ def test_staircase_shadow_rays_match_pallas(staircase):
     assert 0 < to.sum() < (tm > 0).sum()
 
 
-def _case(name):
-    """(origin, direction, v0, v1, v2, t_max, check) for one edge case of
-    the kernel's contract."""
-    if name == "tie_first_wins":
-        o = np.array([[0.2, 0.2, 5], [0.3, 0.1, 5]], np.float32)
-        d = np.array([[0, 0, -1], [0, 0, -1]], np.float32)
-        tri = np.array([[[5, 5, 5], [6, 5, 5], [5, 6, 5]],
-                        [[0, 0, 0], [1, 0, 0], [0, 1, 0]],
-                        [[0, 0, 0], [1, 0, 0], [0, 1, 0]],
-                        [[0, 0, -3], [1, 0, -3], [0, 1, -3]]], np.float32)
-
-        def check(t):
-            assert (t[1] == 1).all()  # slots 1 and 2 tie exactly
-        return o, d, tri, None, check
-    if name == "sentinel_padding_never_wins":
-        o, d = _rays(256, seed=8)
-        rng = np.random.RandomState(9)
-        tri = rng.uniform(-8, 8, (40, 3, 3)).astype(np.float32)
-        tri[::3] = np.inf
-
-        def check(t):
-            assert not np.isin(t[1], np.arange(0, 40, 3)).any()
-            assert (t[1] >= 0).sum() > 10
-        return o, d, tri, None, check
-    if name == "dead_lanes":
-        o, d = _rays(256, seed=10)
-        tri = np.random.RandomState(11).uniform(
-            -8, 8, (60, 3, 3)).astype(np.float32)
-        tm = np.full(256, FLT_MAX, np.float32)
-        tm[1::2] = -1.0
-
-        def check(t):
-            assert (t[1][1::2] == -1).all()
-            assert (t[1][0::2] >= 0).sum() > 10
-        return o, d, tri, tm, check
-    if name == "parallel_rays_miss":
-        o = np.array([[0.2, 5.0, 0.2], [0.1, -3.0, 0.3]], np.float32)
-        d = np.array([[0.0, -1.0, 0.0], [0.0, 1.0, 0.0]], np.float32)
-        # slot 0 lies across both rays in the plane y = 0; slot 1 is a
-        # wall in the plane x = 0.2, parallel to both (d·n = 0)
-        tri = np.array([[[0, 0, 0], [1, 0, 0], [0, 0, 1]],
-                        [[0.2, -5, 0], [0.2, 5, 0], [0.2, 0, 1]]],
-                       np.float32)
-
-        def check(t):
-            assert (t[1] == 0).all()  # never the parallel wall
-        return o, d, tri, None, check
-    if name == "three_chunks":
-        o, d = _rays(128, seed=12, spread=20.0)
-        rng = np.random.RandomState(13)
-        v0 = rng.uniform(-16, 16, (700, 3)).astype(np.float32)
-        tri = np.stack([v0, v0 + rng.uniform(-2, 2, (700, 3)),
-                        v0 + rng.uniform(-2, 2, (700, 3))],
-                       axis=1).astype(np.float32)
-
-        def check(t):
-            assert (t[1] >= 2 * ct.T_CHUNK).any()
-        return o, d, tri, None, check
-    raise KeyError(name)
-
-
-@pytest.mark.parametrize("name", ["tie_first_wins",
-                                  "sentinel_padding_never_wins",
-                                  "dead_lanes", "parallel_rays_miss",
-                                  "three_chunks"])
+@pytest.mark.parametrize("name", CASES)
 def test_contract_cases(name):
     o, d, tri, tm, check = _case(name)
     tri = _prep(tri[:, 0], tri[:, 1], tri[:, 2])
@@ -327,6 +250,46 @@ def test_cpu_tensors_take_the_plain_version():
     ct.tris_anyhit_soa(_tv3(o), _tv3(d), *(_tv3(a) for a in tri), T_MIN,
                        FLT_MAX)
     assert ct.LAUNCHES == before  # no kernel launched for CPU tensors
+
+
+def test_make_view_builds_the_table_once():
+    """make_view's prebuilt table is tri_table of its columns, and the
+    wrappers give the same results with it as without it."""
+    cfg = TConfig(nx=16, ny=12, ns=1, max_depth=2)
+    scene, cam = t_stair(cfg.nx, cfg.ny, device="cpu")
+    view = make_view(scene, cfg)
+    cols = (view.tri_v0, view.tri_e1, view.tri_e2, view.tri_n)
+    assert view.route == "brute"
+    assert torch.equal(view.tri_tab, ct.tri_table(*cols))
+    assert view.tri_tab.data_ptr() % 16 == 0
+    o, d = cam.generate_rays(torch.arange(cfg.num_pixels), 0, cfg.nx,
+                             cfg.ny)
+    args = (o, d, *cols, cfg.epsilon, FLT_MAX)
+    for with_tab, without in (
+            (ct.tris_hit_feat(*args[:6], view.tri_feat, *args[6:],
+                              tab=view.tri_tab),
+             ct.tris_hit_feat(*args[:6], view.tri_feat, *args[6:])),
+            (ct.tris_hit_soa(*args, tab=view.tri_tab),
+             ct.tris_hit_soa(*args))):
+        for a, b in zip(with_tab[:4], without[:4]):
+            assert torch.equal(a, b)
+        assert (with_tab[1] >= 0).all()
+    tm = torch.where(torch.arange(cfg.num_pixels) % 2 == 0, 30.0, -1.0)
+    assert torch.equal(ct.tris_anyhit_soa(*args[:7], tm, tab=view.tri_tab),
+                       ct.tris_anyhit_soa(*args[:7], tm))
+
+
+def test_prebuilt_table_is_checked():
+    o, d = _rays(8, seed=29)
+    tri = [_tv3(a) for a in _tris(6, seed=30)[:4]]
+    args = (_tv3(o), _tv3(d), *tri, T_MIN, FLT_MAX)
+    tab = ct.tri_table(*tri)
+    with pytest.raises(ValueError, match="shape"):
+        ct.tris_hit_soa(*args, tab=tab[:5])
+    with pytest.raises(TypeError, match="float64"):
+        ct.tris_anyhit_soa(*args, tab=tab.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ct.tris_hit_soa(*args, tab=torch.zeros(12, 6).t())
 
 
 def test_other_devices_raise():

@@ -194,6 +194,9 @@ class SceneView(NamedTuple):
     mat_rows: Optional[torch.Tensor] = None
     route: str = ""           # mesh_tier's route
     fast_math: bool = False   # the heap kernels' approximate reciprocal
+    # the brute-force kernel's [T, 12] table of tri_v0, tri_e1, tri_e2,
+    # tri_n (cuda_tris.tri_table), built once a render
+    tri_tab: Optional[torch.Tensor] = None
 
 
 def make_view(scene: Scene, config: Optional[RenderConfig] = None
@@ -206,7 +209,7 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
             [scene.sphere_center, sph_r[:, None],
              _material_table(scene.materials, scene.sphere_mat)],
             dim=1).contiguous()
-    tri_v0 = tri_e1 = tri_e2 = tri_n = tri_feat = None
+    tri_v0 = tri_e1 = tri_e2 = tri_n = tri_feat = tri_tab = None
     packet = mat_rows = None
     tier = mesh_tier(scene, config) if config is not None else "oracle"
     fast_math = False
@@ -243,12 +246,14 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
         tri_feat = torch.cat(
             [finite(mv1 - mv0), finite(mv2 - mv0), mtc,
              _material_table(scene.materials, safe_mid)], dim=1).contiguous()
+        tri_tab = _ct.tri_table(tri_v0, tri_e1, tri_e2, tri_n)
     atlas = None
     if scene.has_textures:
         # [K,H,W,3] -> [K*H*W, 3]: one row gather fetches a texel
         atlas = scene.tex_atlas.reshape(-1, 3)
     return SceneView(sph_c, sph_r, sph_feat, tri_v0, tri_e1, tri_e2, tri_n,
-                     tri_feat, atlas, packet, mat_rows, tier, fast_math)
+                     tri_feat, atlas, packet, mat_rows, tier, fast_math,
+                     tri_tab)
 
 
 def check_traversal(view: SceneView) -> None:
@@ -499,7 +504,7 @@ def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
         elif config.use_bvh:
             tt, tri_id, u, vv, f = _ct.tris_hit_feat(
                 origin, direction, view.tri_v0, view.tri_e1, view.tri_e2,
-                view.tri_n, view.tri_feat, eps, t_ray_max)
+                view.tri_n, view.tri_feat, eps, t_ray_max, tab=view.tri_tab)
             hit = tri_id >= 0
             e1 = V3(f[0], f[1], f[2])
             e2 = V3(f[3], f[4], f[5])
@@ -566,7 +571,7 @@ def occluded(scene: Scene, view: SceneView, config: RenderConfig,
         elif config.use_bvh:
             occ = occ | _ct.tris_anyhit_soa(
                 origin, direction, view.tri_v0, view.tri_e1, view.tri_e2,
-                view.tri_n, config.epsilon, t_max)
+                view.tri_n, config.epsilon, t_max, tab=view.tri_tab)
         else:
             res = _mesh_nearest(scene, origin, direction, config.epsilon,
                                 t_max)

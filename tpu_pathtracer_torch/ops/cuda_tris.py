@@ -20,7 +20,7 @@ the features are 0.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,8 +41,26 @@ T_CHUNK = 256  # triangles per pass of the plain version (bounds [N, chunk])
 
 
 def tri_table(v0: V3, e1: V3, e2: V3, nrm: V3) -> torch.Tensor:
-    """[T, 12] float32 rows (v0, e1, e2, n): the kernel's triangle table."""
+    """[T, 12] float32 rows (v0, e1, e2, n): the kernel's triangle table.
+    A fresh allocation, so 16-byte aligned. A caller that launches the
+    kernel many times on one mesh builds it once and passes it as
+    ``tab`` (``engine.wavefront.make_view``)."""
     return torch.stack([*v0, *e1, *e2, *nrm], dim=1).contiguous()
+
+
+def _check_table(tab: torch.Tensor, v0: V3, dev) -> None:
+    """Raise unless ``tab`` is a [T, 12] float32 table on ``dev`` for the
+    T triangles of ``v0``, contiguous and 16-byte aligned (float4)."""
+    _check("triangles", tab, dev, torch.float32, (v0.x.shape[0], 12))
+    if tab.data_ptr() % 16:
+        raise ValueError("triangle table must be 16-byte aligned (float4)")
+
+
+def _cpu_table(tab: Optional[torch.Tensor], v0: V3, origin: V3) -> None:
+    """The CPU path checks a prebuilt table as the kernel's does; the
+    plain versions build their own from the columns."""
+    if tab is not None:
+        _check_table(tab, v0, origin.x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -138,9 +156,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(mode: int, origin: V3, direction: V3, v0: V3, e1: V3, e2: V3,
-            nrm: V3, t_min: float, t_max, feat=None):
+            nrm: V3, t_min: float, t_max, feat=None, tab=None):
     """Check the inputs, allocate the outputs and launch one mode of the
-    kernel on the current stream."""
+    kernel on the current stream; ``tab`` the prebuilt table of the
+    columns, else built here."""
     dev = origin.x.device
     n = origin.x.shape[0]
     f32 = torch.float32
@@ -149,11 +168,10 @@ def _launch(mode: int, origin: V3, direction: V3, v0: V3, e1: V3, e2: V3,
         _check(name, a, dev, f32, (n,))
     tmax = _tmax_vector(t_max, n, origin.x)
     _check("t_max", tmax, dev, f32, (n,))
-    tab = tri_table(v0, e1, e2, nrm)
+    if tab is None:
+        tab = tri_table(v0, e1, e2, nrm)
+    _check_table(tab, v0, dev)
     t_count = tab.shape[0]
-    _check("triangles", tab, dev, f32, (t_count, 12))
-    if tab.data_ptr() % 16:
-        raise ValueError("triangle table must be 16-byte aligned (float4)")
     n_c = 0
     if feat is not None:
         n_c = feat.shape[1]
@@ -195,36 +213,44 @@ def _launch(mode: int, origin: V3, direction: V3, v0: V3, e1: V3, e2: V3,
 
 
 def tris_hit_feat(origin: V3, direction: V3, v0: V3, e1: V3, e2: V3,
-                  nrm: V3, feat: torch.Tensor, t_min: float, t_max):
+                  nrm: V3, feat: torch.Tensor, t_min: float, t_max, *,
+                  tab: Optional[torch.Tensor] = None):
     """Nearest triangle hit + the winner's feature row.
 
     origin/direction: V3 of [N]; v0/e1/e2/nrm: V3 of [T] (nrm = e1×e2);
-    feat [T, C]; t_max a float or [N]. Returns (t, idx int32, u, v,
-    feats: tuple of C [N] tensors, zero on a miss).
+    feat [T, C]; t_max a float or [N]; ``tab`` the columns'
+    :func:`tri_table`, if the caller built it (checked, not compared).
+    Returns (t, idx int32, u, v, feats: tuple of C [N] tensors, zero on a
+    miss).
     """
     if _on_cuda(origin):
         return _launch(_FEATURES, origin, direction, v0, e1, e2, nrm, t_min,
-                       t_max, feat)
+                       t_max, feat, tab)
+    _cpu_table(tab, v0, origin)
     return _tris_hit_feat_ref(origin, direction, v0, e1, e2, nrm, feat,
                               t_min, t_max)
 
 
 def tris_hit_soa(origin: V3, direction: V3, v0: V3, e1: V3, e2: V3,
-                 nrm: V3, t_min: float, t_max
+                 nrm: V3, t_min: float, t_max, *,
+                 tab: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, ...]:
     """Nearest triangle hit: (t [N] with FLT_MAX on a miss, idx [N] int32,
     −1 on a miss, u, v)."""
     if _on_cuda(origin):
         return _launch(_NEAREST, origin, direction, v0, e1, e2, nrm, t_min,
-                       t_max)
+                       t_max, tab=tab)
+    _cpu_table(tab, v0, origin)
     return _tris_hit_ref(origin, direction, v0, e1, e2, nrm, t_min, t_max)
 
 
 def tris_anyhit_soa(origin: V3, direction: V3, v0: V3, e1: V3, e2: V3,
-                    nrm: V3, t_min: float, t_max) -> torch.Tensor:
+                    nrm: V3, t_min: float, t_max, *,
+                    tab: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N] bool: any triangle hit in (t_min, t_max) — the shadow test."""
     if _on_cuda(origin):
         return _launch(_ANY_HIT, origin, direction, v0, e1, e2, nrm, t_min,
-                       t_max)
+                       t_max, tab=tab)
+    _cpu_table(tab, v0, origin)
     return _tris_anyhit_ref(origin, direction, v0, e1, e2, nrm, t_min,
                             t_max)
