@@ -63,6 +63,11 @@ line each; any failure raises and exits non-zero:
      without one at t_max = -1): t bit-equal, ids equal except exact
      ties, occlusion and per-ray counters equal; times as in phase 3; the
      distinct node rows and leaves the plain walk read (its bytes bound);
+     the same checks on the frame's own shape, the 131,072 contiguous
+     middle-row primary rays of one regen iteration's lane pool and their
+     NEE rays; on all five sets each mode's device time a call in a CUDA
+     graph beside its bound and its issue-rate floor (the SASS the
+     kernel issues for the run's node steps, leaf visits and slots);
  10. heap BVH (K5, K6) vs plain on the dragon-class knot, in the same way;
      then on the same lanes the heap tier's variants: the MXU-leaf kernels
      (K10 nearest, K10b any-hit; the kernel's t, winners, occlusion and
@@ -109,8 +114,9 @@ line each; any failure raises and exits non-zero:
      staircase-toy's, over their middle rows, two lane pools' worth of
      pixels (the profiler's cost grows with the kernels it records), under
      torch.profiler: host dispatches and device kernel time per regen
-     iteration, the device's busy share, the kernels that take most (the
-     staircase-toy's: also each triangle kernel by name). Both run after
+     iteration, the device's busy share, the kernels that take most (and
+     by name config 4's BVH4 kernels and the staircase-toy's triangle
+     kernels). Both run after
      config 4's frame: a profiler session slows the host's launches in
      the rest of the process;
  15. the leaf-fetch probes on the TPU probes' seeded inputs, counts from
@@ -196,7 +202,9 @@ from tpu_pathtracer_torch.experiments import regroup_probe as rp
 from tpu_pathtracer_torch.experiments import shapecast_probe as scp
 from tpu_pathtracer_torch.experiments import sphere_layout_probe as slp
 from tpu_pathtracer_torch.experiments import tpu_micro as um
-from tpu_pathtracer_torch.experiments.common import distinct
+from tpu_pathtracer_torch.experiments.common import (distinct,
+                                                      first_bounce,
+                                                      graph_ms)
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
@@ -256,6 +264,16 @@ MX_SPHERE_FLOPS, MX_SPHERE_RAY_FLOPS = 2 * 17 + 10, 2 * 5 + 6 * 3
 MX_AGREE = 0.995
 MX_T_REL = 5e-3  # tests/test_fast_math.py:59, plus the split's error
 TRI_ROW_BYTES = 48  # a [T, 12] f32 triangle row: v0, e1, e2, n
+# The issue rate an H100 SXM reaches at most: one warp instruction a
+# scheduler a cycle, 4 schedulers on each of its 132 SMs, at the 1,980 MHz
+# maximum SM clock. csrc/bvh4.cu's SASS for sm_90a (cuobjdump -sass of the
+# library built on an H100, rounded): the lane instructions of a slot
+# test (the unrolled leaf loop's body over its slots), of a node step
+# (its loads, four slab tests, the rank and the pushes) and of a leaf
+# visit's broadcast, merge and pop (a round's, times the visit's lanes:
+# 8 nearest, 16 any-hit), in each mode
+ISSUE_RATE = 528 * 1.98e9
+BVH4_SASS = {"nearest": (80, 210, 140 * 8), "any_hit": (75, 210, 82 * 16)}
 MX_ROW_BYTES = 4 * cmx.G_COLUMNS  # a [T, 20] f32 test-column row
 FAST_DELTA = 2.0 ** -20  # fast_math: the bound on t and on accept flips
 # K10 against the exact K5: the share of the hits whose winner may
@@ -306,25 +324,6 @@ def cuda_ms(fn, reps=7):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
-
-
-def graph_ms(fn, calls=20, reps=5):
-    """Device milliseconds of a call of ``fn``: ``calls`` calls captured
-    in one CUDA graph, whose replay is timed by CUDA events (median of
-    ``reps``) and divided by ``calls``. No host dispatch stands between
-    the launches, which at the lane pool's size would take longer than
-    the kernel (PERF.md: K25 at 16,384 rays)."""
-    fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return cuda_ms(graph.replay, reps) / calls
 
 
 def pool_rays(*vs):
@@ -418,32 +417,6 @@ def small_renders(tag, scene, cam, cfg, patches):
           f"{cfg.max_depth}: kernel vs plain rmse {r:.3e} ssim {s:.6f} "
           f"max |diff| {np.abs(img_k - img_p).max():.3e}")
     return img_k
-
-
-def first_bounce(scene, view, cfg, o1, d1, pix, patches):
-    """Bounce 0 of the rays ``o1``/``d1`` through the plain versions.
-    Returns (the second-bounce rays with t_max = -1 on dead lanes, the
-    NEE shadow rays as they reach the any-hit test)."""
-    shadow = {}
-    real = wf.occluded
-
-    def catch(scene_, view_, config_, origin, direction, t_max):
-        shadow.update(origin=origin, direction=direction,
-                      t_max=t_max.contiguous())
-        return real(scene_, view_, config_, origin, direction, t_max)
-
-    alive = torch.ones_like(pix, dtype=torch.bool)
-    with contextlib.ExitStack() as stack:
-        for mod, name, fn in patches:
-            stack.enter_context(mock.patch.object(mod, name, fn))
-        stack.enter_context(mock.patch.object(wf, "occluded", catch))
-        st, _ = wf.bounce_step(scene, view, cfg,
-                               wf.initial_state(o1, d1, alive), pix, 0, 0)
-    o2 = V3(*(c.contiguous() for c in st.origin))
-    d2 = V3(*(c.contiguous() for c in st.direction))
-    t2 = torch.where(st.alive, FLT_MAX, -1.0).contiguous()
-    return (o2, d2, t2), (shadow["origin"], shadow["direction"],
-                          shadow["t_max"])
 
 
 def compare_modes(tag, origin, direction, view, eps, flt_max):
@@ -1202,25 +1175,99 @@ def bvh_kernel_phase(tag, scene, cam, cfg, kern):
     """Phases 9 and 10: the tier's kernels against their plain versions
     on BVH_RAYS primary rays taken from across the frame, the same lanes'
     second-bounce rays and their NEE shadow rays. Returns (err, ms,
-    plain_ms, bound) of nearest and of any-hit, and the three ray sets
-    (name: (origin, direction, t_max))."""
+    plain_ms, bound) of each ray set (primary, bounce-2, NEE shadows), and
+    the three ray sets (name: (origin, direction, t_max))."""
     dev = cam.device
     view = wf.make_view(scene, cfg)
     pix = torch.linspace(0, cfg.num_pixels - 1, BVH_RAYS,
                          device=dev).to(torch.int64)
     o1, d1 = cam.generate_rays(pix, 0, cfg.nx, cfg.ny)
     eps = cfg.epsilon
-    near = compare_bvh_nearest(f"{tag} primary", kern, o1, d1,
-                               torch.full((BVH_RAYS,), FLT_MAX, device=dev),
-                               eps)
     (o2, d2, t2), shadow = first_bounce(scene, view, cfg, o1, d1, pix,
                                         kern.plain())
-    compare_bvh_nearest(f"{tag} bounce-2", kern, o2, d2, t2, eps)
-    anyh = compare_bvh_anyhit(f"{tag} NEE shadows", kern, *shadow, eps)
     rays = {"primary": (o1, d1, torch.full((BVH_RAYS,), FLT_MAX,
                                            device=dev)),
             "bounce-2": (o2, d2, t2), "NEE shadows": shadow}
-    return near, anyh, rays
+    out = {name: (compare_bvh_anyhit if name == "NEE shadows" else
+                  compare_bvh_nearest)(f"{tag} {name}", kern, *r, eps)
+           for name, r in rays.items()}
+    return out, rays
+
+
+def bvh4_pool_sets(scene, cam, cfg, kern):
+    """The frame's own shape: the BVH_RAYS contiguous middle-row pixels
+    (the lanes of one regen iteration's pool) as primary rays, and those
+    lanes' NEE shadow rays. Name: (origin, direction, t_max)."""
+    dev = cam.device
+    lo = (cfg.num_pixels - BVH_RAYS) // 2
+    pix = torch.arange(lo, lo + BVH_RAYS, device=dev)
+    o1, d1 = cam.generate_rays(pix, 0, cfg.nx, cfg.ny)
+    _, shadow = first_bounce(scene, wf.make_view(scene, cfg), cfg, o1, d1,
+                             pix, kern.plain())
+    return {"pool primary": (o1, d1, torch.full((BVH_RAYS,), FLT_MAX,
+                                                device=dev)),
+            "pool NEE shadows": shadow}
+
+
+def bvh4_floor(mode, cnt, slots):
+    """(ms, lane instructions): the least time the card could issue
+    csrc/bvh4.cu's SASS for a run's node steps, leaf visits and slot
+    tests (``cnt``: its per-ray counters) at ISSUE_RATE."""
+    slot, node, visit = BVH4_SASS[mode]
+    c = cnt.sum(dim=1, dtype=torch.int64)
+    lanes = slots * slot + int(c[4]) * node + int(c[2]) * visit
+    return lanes / 32 / ISSUE_RATE * 1e3, lanes
+
+
+def bvh4_graph_phase(kern, sets, checks, eps):
+    """Phase 9's device times: each mode's call on each ray set (name:
+    (origin, direction, t_max); NEE sets in any-hit) captured in a CUDA
+    graph, beside its bound (``checks``: the set's compare_bvh_* result)
+    and its issue-rate floor. Any-hit's slots are those up to the first
+    hit. Returns {name: (ms, bound, floor ms)}."""
+    tabs, out = kern.tabs, {}
+    for name, (o, d, tm) in sets.items():
+        if "NEE" in name:
+            call = lambda: kern.occluded(o, d, tm, tabs, eps)
+            occ, cnt = call()
+            best = cb4._bvh4_walk_ref(o, d, tm, tabs, eps, any_hit=True)[1]
+            c2 = int(cnt[2].sum(dtype=torch.int64))
+            slots = ((c2 - int(occ.sum())) * kern.slots
+                     + int((best[occ].to(torch.int64) % kern.slots
+                            + 1).sum()))
+            mode = "any_hit"
+        else:
+            call = lambda: kern.trace(o, d, tm, tabs, eps)
+            cnt = call()[2]
+            slots = int(cnt[2].sum(dtype=torch.int64)) * kern.slots
+            mode = "nearest"
+        ms = graph_ms(call)
+        floor, lanes = bvh4_floor(mode, cnt, slots)
+        bnd = checks[name][3]
+        phase("kernel", f"bvh4 staircase-hires {name} ({mode}): "
+              f"{ms:.4f} ms a call in a CUDA graph; bound {bnd[0]:.4f} ms "
+              f"by {bnd[1]}, issue-rate floor {floor:.4f} ms ({lanes} lane "
+              f"instructions: {slots} slot tests, "
+              f"{int(cnt[4].sum(dtype=torch.int64))} node steps)")
+        out[name] = (ms, bnd, floor)
+    return out
+
+
+def bvh4_record(name, replaces, launches, check, graph, pool):
+    """K8's or K9's JSON record: times and bound on phase 9's set
+    (``check``), the device time a call in a CUDA graph and the
+    issue-rate floor on each of the mode's sets (``graph_ms``,
+    ``floor_ms``) and, at the frame's own shape (``pool``: the set's
+    name), its time, bound and floor."""
+    rec = record(name, "bvh4.cu", OPS + replaces, launches, *check)
+    mine = {k: v for k, v in graph.items()
+            if ("NEE" in k) == ("NEE" in pool)}
+    ms, bnd, floor = graph[pool]
+    rec.update(graph_ms={k: v[0] for k, v in mine.items()},
+               floor_ms={k: v[2] for k, v in mine.items()},
+               pool=BVH_RAYS, ms_pool=ms, bound_ms_pool=bnd[0],
+               bound_by_pool=bnd[1], floor_ms_pool=floor)
+    return rec
 
 
 def staircase_hires_path(dev):
@@ -1236,8 +1283,16 @@ def staircase_hires_path(dev):
           f"{b4.n_clusters} clusters of {b4.width}, stack_cap "
           f"{b4.stack_cap}, quant {b4.quant}")
     kern = BvhKernels("bvh4", cb4.bvh4_tables(b4))
-    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a), _ = \
-        bvh_kernel_phase("bvh4 staircase-hires", scene, cam, cfg, kern)
+    checks, rays = bvh_kernel_phase("bvh4 staircase-hires", scene, cam,
+                                    cfg, kern)
+    pool = bvh4_pool_sets(scene, cam, cfg, kern)
+    tag = "bvh4 staircase-hires"
+    checks["pool primary"] = compare_bvh_nearest(
+        f"{tag} pool primary", kern, *pool["pool primary"], cfg.epsilon)
+    checks["pool NEE shadows"] = compare_bvh_anyhit(
+        f"{tag} pool NEE shadows", kern, *pool["pool NEE shadows"],
+        cfg.epsilon)
+    graph = bvh4_graph_phase(kern, {**rays, **pool}, checks, cfg.epsilon)
 
     scfg = RenderConfig(**SMALL)
     sscene, scam = procedural_staircase_scene(scfg.nx, scfg.ny, device=dev,
@@ -1280,11 +1335,13 @@ def staircase_hires_path(dev):
           f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, {iters} "
           f"regen iterations ({secs / iters * 1e3:.2f} ms each), kernel "
           f"launches {launches}, mean {img.mean():.4f}")
-    profile_frame("config 4", scene, cam, cfg)
-    return [record("bvh4_trace", "bvh4.cu", OPS + "pallas_bvh4.py:295",
-                   launches["nearest"], err, ms, plain_ms, bnd),
-            record("bvh4_occluded", "bvh4.cu", OPS + "pallas_bvh4.py:598",
-                   launches["any_hit"], err_a, ms_a, plain_a, bnd_a)]
+    profile_frame("config 4", scene, cam, cfg, itemize="bvh4")
+    return [bvh4_record("bvh4_trace", "pallas_bvh4.py:295",
+                        launches["nearest"], checks["primary"], graph,
+                        "pool primary"),
+            bvh4_record("bvh4_occluded", "pallas_bvh4.py:598",
+                        launches["any_hit"], checks["NEE shadows"], graph,
+                        "pool NEE shadows")]
 
 
 TRI_MODULES = (cb4, cb, ct, cmx, crg, cmr)
@@ -2091,8 +2148,9 @@ def dragon_path(dev):
           f"{scene.mesh.prims_per_leaf} a leaf, tier heap")
     tabs = cb.heap_tables(scene.mesh)
     kern = BvhKernels("heap", tabs)
-    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a), rays = \
-        bvh_kernel_phase("heap dragon", scene, cam, cfg, kern)
+    res, rays = bvh_kernel_phase("heap dragon", scene, cam, cfg, kern)
+    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a) = \
+        res["primary"], res["NEE shadows"]
     variants = heap_variants_phase(scene.mesh, tabs, rays, cfg.epsilon)
     mr_recs = mr_phase(tabs, rays, cfg.epsilon, (bnd, bnd_a))
     probe_recs = walk_probe_phase(tabs, rays, cfg.epsilon)

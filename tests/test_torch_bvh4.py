@@ -31,6 +31,7 @@ from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
+import bvh4_cases
 
 T_MIN = 1e-3
 
@@ -226,6 +227,22 @@ def test_stack_overflow_raises():
         cb4.check_stack(flagged)
 
 
+def test_launch_refuses_misaligned_tables():
+    """The kernel reads bounds as float4 and refs as int4: the wrapper
+    refuses tables that are not 16-byte aligned before it touches a
+    device."""
+    _, tm = both_meshes(2000, seed=2)
+    tabs = cb4.bvh4_tables(tb4.build_bvh4(tm, width=32))
+    o, d = rays(8, seed=3)
+    for name in ("bounds", "refs"):
+        a = getattr(tabs, name)
+        shifted = torch.cat([a[:1], a])[1:]  # the same values, 4 B off
+        assert torch.equal(shifted, a) and shifted.data_ptr() % 16
+        with pytest.raises(ValueError, match="aligned"):
+            cb4._launch(cb4._NEAREST, tv(o), tv(d), torch.full((8,), 9.0),
+                        tabs._replace(**{name: shifted}), T_MIN)
+
+
 def test_convert_carries_bvh4_tables():
     """A JAX mesh with BVH4 tables converts to the port's, with the
     port's own triangle table."""
@@ -242,3 +259,79 @@ def test_convert_carries_bvh4_tables():
                 assert torch.equal(a, b), f.name
             else:
                 assert a == b, f.name
+
+
+def case_tables(c):
+    """A contract case's tables in both packages: (the JAX package's
+    Bvh4Data, the port's)."""
+    if c.tree is not None:
+        args = bvh4_cases.assemble_args(c.tree)
+        return jb4._assemble4(*args), tb4._assemble4(*args, "cpu")
+    arrays = bvh4_cases.soup(c.soup["t"], c.soup["seed"])
+    jm = jbvh.build_bvh(*arrays, prims_per_leaf=16, bvh4=False)
+    tm = tbvh.build_bvh(*arrays, prims_per_leaf=16, bvh4=False,
+                        device="cpu")
+    kw = dict(width=c.soup["width"], quant=c.soup["quant"])
+    return (jb4.attach_bvh4(jm, **kw).bvh4,
+            tb4.attach_bvh4(tm, **kw).bvh4)
+
+
+def slot_t(tab, o, d, ids):
+    """t of each ray against SAH slots ``ids`` of the [S, 12] triangle
+    table, float64."""
+    rows = tab[ids].astype(np.float64)
+    v0, n = rows[:, 0:3], rows[:, 9:12]
+    return ((o - v0) * n).sum(1) / -(d * n).sum(1)
+
+
+@pytest.mark.parametrize("name", bvh4_cases.CASES)
+def test_contract_cases_match_jax_kernels(name):
+    """The contract's edge cases (tests/bvh4_cases.py): the plain walk's
+    nearest hit against ``packet_trace4`` and its occlusion against
+    ``packet_occluded4`` in interpret mode (t to rtol 2e-6, winners equal
+    except exact ties between the two walks' orders), and each case's own
+    check of the walk: winners, t, occlusion and counters. Where the case
+    knows its deepest stack, the walk passes at exactly that stack_cap
+    and raises at one less."""
+    c = bvh4_cases.case(name)
+    j4, t4 = case_tables(c)
+    assert t4.quant == bool(c.soup and c.soup["quant"])
+    tabs = cb4.bvh4_tables(t4)
+    o, d, tmax = tv(c.o), tv(c.d), torch.from_numpy(c.t_max)
+    t, tri, cnt = cb4.bvh4_trace(o, d, tmax, tabs, bvh4_cases.T_MIN)
+    occ, ocnt = cb4.bvh4_occluded(o, d, tmax, tabs, bvh4_cases.T_MIN)
+    t, tri, occ = t.numpy(), tri.numpy(), occ.numpy()
+    c.check(t, tri, occ, cnt.numpy())
+    # any-hit walks the nearest walk's steps up to its first hit
+    assert bool((ocnt <= cnt).all())
+    if name in bvh4_cases.NOT_JAX:
+        return
+
+    kw = dict(interpret=True, quant=j4.quant, qparams=j4.qparams)
+    (jt, jtri, *_), _ = packet_trace4(
+        jv(c.o), jv(c.d), jnp.asarray(c.t_max), j4.bounds, j4.refs,
+        j4.blocks, j4.tri_feat, j4.width, bvh4_cases.T_MIN, j4.stack_cap,
+        **kw)
+    jt, jtri = np.asarray(jt), np.asarray(jtri)
+    hit = jtri >= 0
+    np.testing.assert_array_equal(tri >= 0, hit)
+    np.testing.assert_allclose(t[hit], jt[hit], rtol=2e-6)
+    diff = hit & (tri != jtri)
+    tab = tabs.tri.numpy()
+    np.testing.assert_allclose(slot_t(tab, c.o[diff], c.d[diff], tri[diff]),
+                               slot_t(tab, c.o[diff], c.d[diff],
+                                      jtri[diff]), rtol=2e-6)
+    jocc, _ = packet_occluded4(
+        jv(c.o), jv(c.d), jnp.asarray(c.t_max), j4.bounds, j4.refs,
+        j4.blocks, j4.width, bvh4_cases.T_MIN, j4.stack_cap, **kw)
+    np.testing.assert_array_equal(occ, np.asarray(jocc))
+
+    if c.need is not None:
+        assert t4.stack_cap > c.need
+        exact = tabs._replace(stack_cap=c.need)
+        t2, tri2, cnt2 = cb4.bvh4_trace(o, d, tmax, exact,
+                                        bvh4_cases.T_MIN)
+        assert torch.equal(cnt2, cnt) and np.array_equal(tri2.numpy(), tri)
+        with pytest.raises(RuntimeError, match="overflow"):
+            cb4.bvh4_trace(o, d, tmax, tabs._replace(stack_cap=c.need - 1),
+                           bvh4_cases.T_MIN)

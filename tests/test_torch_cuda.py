@@ -47,6 +47,7 @@ from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
+import bvh4_cases
 import tri_cases
 
 T_MIN = 0.01
@@ -356,7 +357,8 @@ def test_heap_kernel_bit_equal(dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width,quant", [(32, False), (64, True)])
+@pytest.mark.parametrize("width,quant", [(32, False), (64, True),
+                                         (64, False), (33, False)])
 def test_bvh4_kernel_bit_equal(dev, width, quant):
     mesh, o, d, tm = _bvh_inputs(dev, seed=1)
     tabs = cb4.bvh4_tables(tb4.attach_bvh4(mesh, width=width,
@@ -364,6 +366,90 @@ def test_bvh4_kernel_bit_equal(dev, width, quant):
     _assert_walks_equal(cb4.bvh4_trace, cb4.bvh4_occluded,
                         cb4._bvh4_trace_ref, cb4._bvh4_occluded_ref,
                         cb4.LAUNCHES, o, d, tm, tabs)
+
+
+def _bvh4_modes_bit_equal(o, d, tm, tabs):
+    """Both modes of the kernel against the plain walk, bit-equal in
+    every output (a NaN t_max gives t = NaN on both sides); returns the
+    kernel's (t, tri, occ, counters) as numpy arrays."""
+    t, tri, cnt = cb4.bvh4_trace(o, d, tm, tabs, T_MIN)
+    occ, ocnt = cb4.bvh4_occluded(o, d, tm, tabs, T_MIN)
+    pt, ptri, pcnt = cb4._bvh4_trace_ref(o, d, tm, tabs, T_MIN)
+    pocc, pocnt = cb4._bvh4_occluded_ref(o, d, tm, tabs, T_MIN)
+    torch.cuda.synchronize()
+    cb4.check_stack(tabs)
+    np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+    for a, b in ((tri, ptri), (cnt, pcnt), (occ, pocc), (ocnt, pocnt)):
+        assert torch.equal(a, b)
+    return tuple(a.cpu().numpy() for a in (t, tri, occ, cnt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", bvh4_cases.CASES)
+def test_bvh4_contract_cases_bit_equal(dev, name):
+    """The contract's edge cases (tests/bvh4_cases.py, held against the
+    JAX kernels on the CPU), the kernel against the plain walk in both
+    modes, and each case's own check. Where the case knows its deepest
+    stack, the kernel runs at exactly that stack_cap without overflow
+    and stops a ray at one less."""
+    c = bvh4_cases.case(name)
+    if c.tree is not None:
+        t4 = tb4._assemble4(*bvh4_cases.assemble_args(c.tree), dev)
+    else:
+        base, v1, v2, _, _ = bvh4_cases.soup(c.soup["t"], c.soup["seed"])
+        mesh = tbvh.build_bvh(base, v1, v2, prims_per_leaf=16, bvh4=False,
+                              device=dev)
+        t4 = tb4.attach_bvh4(mesh, width=c.soup["width"],
+                             quant=c.soup["quant"]).bvh4
+    tabs = cb4.bvh4_tables(t4)
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    o, d, tm = v(c.o), v(c.d), torch.from_numpy(c.t_max).to(dev)
+    c.check(*_bvh4_modes_bit_equal(o, d, tm, tabs))
+    if c.need is not None:
+        _bvh4_modes_bit_equal(o, d, tm, tabs._replace(stack_cap=c.need))
+        short = tabs._replace(stack_cap=c.need - 1,
+                              overflow=torch.zeros_like(tabs.overflow))
+        _, _, cnt = cb4.bvh4_trace(o, d, tm, short, T_MIN)
+        torch.cuda.synchronize()
+        assert (cnt[3] == -1).all()
+        with pytest.raises(RuntimeError, match="overflow"):
+            cb4.check_stack(short)
+
+
+@pytest.mark.gpu
+def test_bvh4_divergent_warps_bit_equal(dev):
+    """Rays from one origin inside the soup, neighbouring lanes into
+    opposite halves of it: every warp's rays walk different nodes and
+    leaves."""
+    mesh, _, _, _ = _bvh_inputs(dev, n=2, seed=3)
+    tabs = cb4.bvh4_tables(tb4.attach_bvh4(mesh, width=64).bvh4)
+    rng = np.random.RandomState(4)
+    n = 40_000
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 0] = np.abs(d[:, 0]) * np.where(np.arange(n) % 2, -1, 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    o = v(np.zeros((n, 3), np.float32))
+    tm = torch.where(torch.arange(n, device=dev) % 3 == 0, 4.0, FLT_MAX)
+    t, tri, occ, cnt = _bvh4_modes_bit_equal(o, v(d), tm, tabs)
+    assert (tri[0::2] >= 0).mean() > 0.5 and (tri[1::2] >= 0).mean() > 0.5
+    assert occ.any() and not occ.all()
+
+
+@pytest.mark.gpu
+def test_bvh4_launches_count_one_a_call(dev):
+    """Each wrapper call adds one to its mode's launch count."""
+    mesh, o, d, tm = _bvh_inputs(dev, n=1000, seed=5)
+    tabs = cb4.bvh4_tables(tb4.attach_bvh4(mesh, width=64).bvh4)
+    before = dict(cb4.LAUNCHES)
+    cb4.bvh4_trace(o, d, tm, tabs, T_MIN)
+    assert cb4.LAUNCHES == {**before, "nearest": before["nearest"] + 1}
+    cb4.bvh4_occluded(o, d, tm, tabs, T_MIN)
+    cb4.bvh4_occluded(o, d, FLT_MAX, tabs, T_MIN)
+    assert cb4.LAUNCHES == {"nearest": before["nearest"] + 1,
+                            "any_hit": before["any_hit"] + 2}
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
 """What the probes share on the card: the card's line, CUDA-event times,
-kernels timed in turns, device times from the profiler, and the walk
-telemetry they print.
+kernels timed in turns or in a CUDA graph, device times from the
+profiler, a first bounce's ray sets, and the walk telemetry they print.
 
 A probe needs a CUDA device: :func:`card` exits non-zero without one
 (the kernels have no CPU mode), and prints the ``nvidia-smi`` name and
@@ -9,12 +9,18 @@ power limit first, so every time a probe prints stands beside them.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import subprocess
 import sys
 from typing import Callable, Dict, List
+from unittest import mock
 
 import torch
+
+from tpu_pathtracer_torch.engine import wavefront as wf
+from tpu_pathtracer_torch.ops.v3 import V3
+from tpu_pathtracer_torch.ops.vec import FLT_MAX
 
 WARP = 32
 
@@ -63,6 +69,55 @@ def in_turns(fns: Dict[str, Callable], rounds: int = 4,
         for name in order:
             out[name].append(median_ms(fns[name], reps))
     return out
+
+
+def graph_ms(fn: Callable, calls: int = 20, reps: int = 5) -> float:
+    """Device milliseconds of a call of ``fn``: ``calls`` calls captured
+    in one CUDA graph, whose replay is timed by CUDA events (median of
+    ``reps`` after a warm-up replay) and divided by ``calls``. No host
+    dispatch stands between the launches, which at the lane pool's size
+    would take longer than the kernel (PERF.md: K25 at 16,384 rays)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return median_ms(graph.replay, reps) / calls
+
+
+def first_bounce(scene, view, cfg, o1, d1, pix, patches):
+    """Bounce 0 of the rays ``o1``/``d1`` through the engine, with
+    ``patches`` ((module, name, function) triples, say the plain versions
+    of the kernels) in place. Returns (the second-bounce rays with t_max
+    = -1 on dead lanes, the NEE shadow rays as they reach the any-hit
+    test)."""
+    shadow = {}
+    real = wf.occluded
+
+    def catch(scene_, view_, config_, origin, direction, t_max):
+        shadow.update(origin=origin, direction=direction,
+                      t_max=t_max.contiguous())
+        return real(scene_, view_, config_, origin, direction, t_max)
+
+    alive = torch.ones_like(pix, dtype=torch.bool)
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in patches:
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        stack.enter_context(mock.patch.object(wf, "occluded", catch))
+        st, _ = wf.bounce_step(scene, view, cfg,
+                               wf.initial_state(o1, d1, alive), pix, 0, 0)
+    o2 = V3(*(c.contiguous() for c in st.origin))
+    d2 = V3(*(c.contiguous() for c in st.direction))
+    t2 = torch.where(st.alive, FLT_MAX, -1.0).contiguous()
+    return (o2, d2, t2), (shadow["origin"], shadow["direction"],
+                          shadow["t_max"])
 
 
 def device_ms(fn: Callable, reps: int = 7) -> Dict[str, float]:

@@ -233,6 +233,9 @@ def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
     _check("triangles", tabs.tri, dev, f32, (s, 12))
     if tabs.tri.data_ptr() % 16:
         raise ValueError("triangle table must be 16-byte aligned (float4)")
+    if tabs.bounds.data_ptr() % 16 or tabs.refs.data_ptr() % 16:
+        raise ValueError("bounds and refs must be 16-byte aligned (float4, "
+                         "int4)")
     cnt = torch.empty((5, n), dtype=torch.int32, device=dev)
     t_out = tri_out = occ_out = None
     if mode == _ANY_HIT:
