@@ -33,10 +33,13 @@ line each; any failure raises and exits non-zero:
      sphere_layout_probe.cu and shapecast_probe.cu side by side,
      g++ the native BVH builder (seconds, ptxas lines);
   3. spheres, kernel vs plain on the 960,000 primary rays of sample 0 and
-     on the second-bounce rays, in all three modes; times (CUDA events,
-     median of 7 warm runs); K1 also timed on the middle 32,768 primary
-     rays, the lane pool the regen engine launches it on (a call's device
-     time in a CUDA graph, and its table's build alone) beside its bound;
+     on the second-bounce rays, in all three modes, with the view's table;
+     times (CUDA events, median of 7 warm runs); K1 also timed on the
+     middle 32,768 rays of each set, the lane pool the regen engine
+     launches it on, as the frame calls it (the view's table, a float
+     t_max): a call's device time in a CUDA graph beside its bound and its
+     issue-rate floor (the SASS the kernel issues for the pairs it tests
+     and the pairs with disc > 0, where it takes the roots);
  3b. the mx layout on the same two ray sets: K2 (nearest + features) and
      K3 (any-hit) through ``spheres_hit_feat``/``spheres_anyhit_soa(mx=
      True)``, counts from 0; each bit-equal to its plain version; against
@@ -110,15 +113,15 @@ line each; any failure raises and exits non-zero:
      regroup rmse < 1e-4, fast_math SSIM >= 0.999, mx_leaf SSIM >= 0.999
      and rmse < 2e-3 (MX_FRAME_RMSE), also on two more sample windows,
      and at mx_passes=6 closer to the default than at 3;
- 14. profile: one sample per pixel of config 4's frame and of the
-     staircase-toy's, over their middle rows, two lane pools' worth of
-     pixels (the profiler's cost grows with the kernels it records), under
-     torch.profiler: host dispatches and device kernel time per regen
-     iteration, the device's busy share, the kernels that take most (and
-     by name config 4's BVH4 kernels and the staircase-toy's triangle
-     kernels). Both run after
-     config 4's frame: a profiler session slows the host's launches in
-     the rest of the process;
+ 14. profile: one sample per pixel of config 4's frame, of the
+     staircase-toy's and of the headline's, over their middle rows, two
+     lane pools' worth of pixels (the profiler's cost grows with the
+     kernels it records), under torch.profiler: host dispatches and device
+     kernel time per regen iteration, the device's busy share, the kernels
+     that take most (and by name config 4's BVH4 kernels, the
+     staircase-toy's triangle kernels and the headline's sphere kernel).
+     All run after config 4's frame: a profiler session slows the host's
+     launches in the rest of the process;
  15. the leaf-fetch probes on the TPU probes' seeded inputs, counts from
      0: K14 (``leafmt_probe.leafmt_run``, modes pure, cond, dma, db, db2)
      and K15 (``dma_probe.dma_chain``, sync and db), each bit-equal to its
@@ -204,7 +207,8 @@ from tpu_pathtracer_torch.experiments import sphere_layout_probe as slp
 from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.experiments.common import (distinct,
                                                       first_bounce,
-                                                      graph_ms)
+                                                      graph_ms,
+                                                      sphere_pairs)
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
@@ -274,6 +278,12 @@ TRI_ROW_BYTES = 48  # a [T, 12] f32 triangle row: v0, e1, e2, n
 # 8 nearest, 16 any-hit), in each mode
 ISSUE_RATE = 528 * 1.98e9
 BVH4_SASS = {"nearest": (80, 210, 140 * 8), "any_hit": (75, 210, 82 * 16)}
+# csrc/spheres.cu's SASS for sm_90a, the nearest modes' unrolled slot
+# loop (cuobjdump -sass of experiments/spheres_ab.py --out, counted on
+# an H100's build): the lane instructions of a pair, and those it adds
+# where disc > 0 (the IEEE sqrtf's fast path, the roots, the compares and
+# the selects)
+SPHERE_SASS = (21, 18)
 MX_ROW_BYTES = 4 * cmx.G_COLUMNS  # a [T, 20] f32 test-column row
 FAST_DELTA = 2.0 ** -20  # fast_math: the bound on t and on accept flips
 # K10 against the exact K5: the share of the hits whose winner may
@@ -424,14 +434,15 @@ def compare_modes(tag, origin, direction, view, eps, flt_max):
     Returns (max abs error over t and features, kernel ms, plain ms) of
     the features mode."""
     args = (origin, direction, view.sph_c, view.sph_r)
-    t_k, i_k, f_k = cs.spheres_hit_feat(*args, view.sph_feat, eps, flt_max)
+    tab = view.sph_tab
+    t_k, i_k, f_k = cs.spheres_hit_feat(*args, view.sph_feat, eps, flt_max,
+                                        tab=tab)
     t_p, i_p, f_p = cs._spheres_hit_feat_ref(*args, view.sph_feat, eps,
                                              flt_max)
     torch.cuda.synchronize()
     mism = (i_k != i_p).nonzero().flatten()
     if mism.numel() > 1000:
         raise AssertionError(f"{tag}: idx differs on {mism.numel()} lanes")
-    tab = cs.sphere_table(view.sph_c, view.sph_r)
     if not ties_within_ulp(origin, direction, tab, i_k, i_p, mism, eps,
                            flt_max):
         raise AssertionError(f"{tag}: idx differs where t does not tie")
@@ -450,7 +461,7 @@ def compare_modes(tag, origin, direction, view, eps, flt_max):
     err = max(dt.max().item() if dt.numel() else 0.0,
               (fk[:, hit] - fp[:, hit]).abs().max().item())
 
-    t2_k, i2_k = cs.spheres_hit_soa(*args, eps, flt_max)
+    t2_k, i2_k = cs.spheres_hit_soa(*args, eps, flt_max, tab=tab)
     t2_p, i2_p = cs._spheres_hit_ref(*args, eps, flt_max)
     if not (torch.equal(i2_k, i_k) and torch.equal(t2_k, t_k)):
         raise AssertionError(f"{tag}: t/idx mode differs from features "
@@ -462,30 +473,76 @@ def compare_modes(tag, origin, direction, view, eps, flt_max):
     # even lanes and at half of it on odd ones, so both outcomes occur
     odd = torch.arange(t_p.numel(), device=t_p.device) % 2 == 1
     tm = torch.where(i_p >= 0, t_p * torch.where(odd, 0.5, 1.001), flt_max)
-    o_k = cs.spheres_anyhit_soa(*args, eps, tm)
+    o_k = cs.spheres_anyhit_soa(*args, eps, tm, tab=tab)
     o_p = cs._spheres_anyhit_ref(*args, eps, tm)
     if not torch.equal(o_k, o_p):
         raise AssertionError(f"{tag}: any-hit differs on "
                              f"{(o_k != o_p).sum().item()} lanes")
 
     ms = cuda_ms(lambda: cs.spheres_hit_feat(*args, view.sph_feat, eps,
-                                             flt_max))
+                                             flt_max, tab=tab))
     plain_ms = cuda_ms(lambda: cs._spheres_hit_feat_ref(
         *args, view.sph_feat, eps, flt_max))
-    ms_soa = cuda_ms(lambda: cs.spheres_hit_soa(*args, eps, flt_max))
+    ms_soa = cuda_ms(lambda: cs.spheres_hit_soa(*args, eps, flt_max,
+                                                tab=tab))
     plain_soa = cuda_ms(lambda: cs._spheres_hit_ref(*args, eps, flt_max))
-    ms_any = cuda_ms(lambda: cs.spheres_anyhit_soa(*args, eps, tm))
+    ms_any = cuda_ms(lambda: cs.spheres_anyhit_soa(*args, eps, tm,
+                                                   tab=tab))
     plain_any = cuda_ms(lambda: cs._spheres_anyhit_ref(*args, eps, tm))
     n, s = origin.x.shape[0], view.sph_r.shape[0]
     bnd = bound(n * s * SPHERE_FLOPS, n * (28 + 8 + 72) + s * (16 + 72))
+    _, floor = sphere_floor(origin, direction, view, eps)
     phase("kernel", f"{tag}: {n} rays x {s} spheres: idx equal on "
           f"{int(same.sum())}/{same.numel()} lanes ({mism.numel()} ties), "
           f"hits {int(hit.sum())}, max |err| t+features {err:.3e}, "
           f"occ equal ({int(o_k.sum())} occluded); features "
           f"{ms:.3f} ms vs plain {plain_ms:.3f} ms (bound {bnd[0]:.4f} ms "
-          f"by {bnd[1]}), t/idx {ms_soa:.3f} ms vs plain {plain_soa:.3f} "
-          f"ms, any-hit {ms_any:.3f} ms vs plain {plain_any:.3f} ms")
+          f"by {bnd[1]}, {floor}), t/idx {ms_soa:.3f} ms vs plain "
+          f"{plain_soa:.3f} ms, any-hit {ms_any:.3f} ms vs plain "
+          f"{plain_any:.3f} ms")
     return err, ms, plain_ms, bnd
+
+
+def plain_spheres():
+    """The engine's sphere call sent to the plain version, which builds
+    its own table from the columns (the view's prebuilt one is
+    dropped)."""
+    return [(cs, "spheres_hit_feat",
+             lambda *a, tab=None: cs._spheres_hit_feat_ref(*a))]
+
+
+def sphere_pool(tag, origin, direction, view, eps):
+    """K1 on the middle POOL lanes of one ray set as the frame calls it
+    (the view's table, a float t_max): a call's device time in a CUDA
+    graph, beside its bound and its issue-rate floor. Returns (ms, bound,
+    floor ms)."""
+    po, pd = pool_rays(origin, direction)
+    k1 = lambda: cs.spheres_hit_feat(po, pd, view.sph_c, view.sph_r,
+                                     view.sph_feat, eps, FLT_MAX,
+                                     tab=view.sph_tab)
+    ms = graph_ms(k1)
+    s_count = view.sph_r.shape[0]
+    bnd = bound(POOL * s_count * SPHERE_FLOPS,
+                POOL * (28 + 8 + 72) + s_count * (16 + 72))
+    floor, text = sphere_floor(po, pd, view, eps)
+    phase("kernel", f"{tag} pool: {POOL} rays x {s_count} spheres: "
+          f"{ms:.4f} ms a call in a CUDA graph; bound {bnd[0]:.4f} ms by "
+          f"{bnd[1]}, {text}")
+    return ms, bnd, floor
+
+
+def sphere_floor(origin, direction, view, eps):
+    """(ms, text): the least time the card could issue csrc/spheres.cu's
+    SASS for the nearest modes on these rays at t_max = FLT_MAX, at
+    ISSUE_RATE."""
+    n = origin.x.shape[0]
+    pairs, disc = sphere_pairs(origin, direction, view.sph_tab, eps,
+                               torch.full((n,), FLT_MAX,
+                                          device=origin.x.device))
+    lanes = pairs * SPHERE_SASS[0] + disc * SPHERE_SASS[1]
+    floor = lanes / 32 / ISSUE_RATE * 1e3
+    return floor, (f"issue-rate floor {floor:.4f} ms ({lanes} lane "
+                   f"instructions: {pairs} pairs, {disc} with disc > 0)")
 
 
 def plain_tris():
@@ -812,7 +869,8 @@ def mx_path(sets, view, eps):
 
 
 def spheres_path(dev):
-    """Phases 3-5 and 3b. Returns the JSON records of K1, K2 and K3."""
+    """Phases 3-5 and 3b. Returns the headline's profile (phase 14, to run
+    after config 4's frame) and the JSON records of K1, K2 and K3."""
     cfg = RenderConfig(**HEADLINE)
     scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device=dev)
     view = wf.make_view(scene, cfg)
@@ -820,20 +878,7 @@ def spheres_path(dev):
     o1, d1 = cam.generate_rays(pix, 0, cfg.nx, cfg.ny)
     err1, ms, plain_ms, bnd = compare_modes("spheres primary", o1, d1, view,
                                             cfg.epsilon, FLT_MAX)
-    # K1 at the lane pool the regen engine launches it on: time and bound
-    po, pd = pool_rays(o1, d1)
-    k1 = lambda: cs.spheres_hit_feat(po, pd, view.sph_c, view.sph_r,
-                                     view.sph_feat, cfg.epsilon, FLT_MAX)
-    ms_pool = graph_ms(k1)
-    table_ms = graph_ms(lambda: cs.sphere_table(view.sph_c, view.sph_r))
-    s_count = view.sph_r.shape[0]
-    bnd_pool = bound(POOL * s_count * SPHERE_FLOPS,
-                     POOL * (28 + 8 + 72) + s_count * (16 + 72))
-    phase("kernel", f"spheres primary pool: {POOL} rays x {s_count} "
-          f"spheres: {ms_pool:.4f} ms a call in a CUDA graph, of which "
-          f"{table_ms:.4f} ms the table's build; bound "
-          f"{bnd_pool[0]:.4f} ms by {bnd_pool[1]}")
-    with mock.patch.object(cs, "spheres_hit_feat", cs._spheres_hit_feat_ref):
+    with mock.patch.object(*plain_spheres()[0]):
         st, _ = wf.bounce_step(scene, view, cfg,
                                wf.initial_state(o1, d1, torch.ones_like(
                                    pix, dtype=torch.bool)), pix, 0, 0)
@@ -842,13 +887,16 @@ def spheres_path(dev):
     d2 = V3(*(c[live].contiguous() for c in st.direction))
     err2, _, _, _ = compare_modes("spheres bounce-2", o2, d2, view,
                                   cfg.epsilon, FLT_MAX)
+    # K1 at the lane pool the regen engine launches it on
+    pool = {name: sphere_pool(f"spheres {name}", o, d, view, cfg.epsilon)
+            for name, (o, d) in (("primary", (o1, d1)),
+                                 ("bounce-2", (o2, d2)))}
     mx_recs = mx_path({"primary": (o1, d1), "bounce-2": (o2, d2)}, view,
                       cfg.epsilon)
 
     scfg = RenderConfig(**SMALL)
     sscene, scam = random_spheres_scene(scfg.nx, scfg.ny, device=dev)
-    small_renders("spheres", sscene, scam, scfg,
-                  [(cs, "spheres_hit_feat", cs._spheres_hit_feat_ref)])
+    small_renders("spheres", sscene, scam, scfg, plain_spheres())
 
     render_image_regen(scene, cam, cfg, ns=1)  # warm-up
     cs.LAUNCHES = 0
@@ -876,9 +924,15 @@ def spheres_path(dev):
     k1_rec = record("spheres_hit_feat", "spheres.cu",
                     OPS + "pallas_spheres.py:73", launches, max(err1, err2),
                     ms, plain_ms, bnd)
+    ms_pool, bnd_pool, floor_pool = pool["primary"]
     k1_rec.update(pool=POOL, ms_pool=ms_pool, bound_ms_pool=bnd_pool[0],
-                  bound_by_pool=bnd_pool[1])
-    return [k1_rec, *mx_recs]
+                  bound_by_pool=bnd_pool[1], floor_ms_pool=floor_pool,
+                  ms_pool_bounce2=pool["bounce-2"][0])
+    # profiled later: a profiler session slows the host's launches of the
+    # frames that follow it in the process (PERF.md)
+    profile = functools.partial(profile_frame, "headline", scene, cam, cfg,
+                                itemize="spheres_kernel")
+    return profile, [k1_rec, *mx_recs]
 
 
 def tri_record(name, launches, frame, pool):
@@ -2224,10 +2278,11 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     build_all()
-    kernels = spheres_path(dev)
+    headline_profile, kernels = spheres_path(dev)
     stair_profile, stair_recs = staircase_path(dev)
     kernels += [*stair_recs, *staircase_hires_path(dev)]
     stair_profile()
+    headline_profile()
     kernels += [*dragon_path(dev), *leaf_probe_phase(dev),
                 *micro_phase(dev), *packet8_phase(dev), *layout_phase(dev)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")

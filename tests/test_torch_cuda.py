@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import render_image_regen
 from tpu_pathtracer_torch.experiments import dma_probe as dm
 from tpu_pathtracer_torch.experiments import dual_probe as dp
@@ -48,6 +49,7 @@ from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh4_cases
+import sphere_cases
 import tri_cases
 
 T_MIN = 0.01
@@ -152,9 +154,114 @@ def test_small_render_kernel_equals_plain(dev):
     cs.LAUNCHES = 0
     img = render_image_regen(scene, cam, cfg)
     assert cs.LAUNCHES > 0
-    with mock.patch.object(cs, "spheres_hit_feat", cs._spheres_hit_feat_ref):
+    # the plain version builds its own table: the engine's is dropped
+    with mock.patch.object(cs, "spheres_hit_feat",
+                           lambda *a, tab=None: cs._spheres_hit_feat_ref(*a)):
         ref = render_image_regen(scene, cam, cfg)
     np.testing.assert_array_equal(img, ref)
+
+
+def _sphere_modes_bit_equal(o, d, c, r, feat, tm, tab=None):
+    """All three modes of the kernel against the plain version, bit-equal
+    in every output; returns the kernel's (t, idx, features)."""
+    args = (o, d, c, r, T_MIN, tm)
+    before = cs.LAUNCHES
+    k = cs.spheres_hit_feat(*args[:4], feat, *args[4:], tab=tab)
+    p = cs._spheres_hit_feat_ref(*args[:4], feat, *args[4:])
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES == before + 1
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert torch.equal(torch.stack(k[2]), torch.stack(p[2]))
+    for a, b in zip(cs.spheres_hit_soa(*args, tab=tab), k[:2]):
+        assert torch.equal(a, b)
+    assert torch.equal(cs.spheres_hit_soa(*args, tab=tab)[0],
+                       cs._spheres_hit_ref(*args)[0])
+    occ = cs.spheres_anyhit_soa(*args, tab=tab)
+    assert torch.equal(occ, cs._spheres_anyhit_ref(*args))
+    return k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_tab", [False, True])
+@pytest.mark.parametrize("name", sphere_cases.CASES)
+def test_sphere_contract_cases_bit_equal(dev, name, with_tab):
+    """The contract's edge cases (tests/sphere_cases.py, held against the
+    JAX kernel on the CPU), the kernel against the plain version, with the
+    table built by the wrapper or passed in, and t_max as an [N] tensor
+    and, where the case has one t_max for every ray, as a float."""
+    o, d, c, r, tm, check = sphere_cases.case(name)
+    n = o.shape[0]
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    c, r = v(c), torch.from_numpy(r).to(dev)
+    feat = torch.from_numpy(np.random.RandomState(13).uniform(
+        -3, 3, (r.shape[0], 18)).astype(np.float32)).to(dev)
+    tab = cs.sphere_table(c, r) if with_tab else None
+    tms = [torch.from_numpy(np.full(n, FLT_MAX, np.float32) if tm is None
+                            else tm).to(dev)]
+    if tm is None:
+        tms.append(FLT_MAX)
+    for t_max in tms:
+        k = _sphere_modes_bit_equal(v(o), v(d), c, r, feat, t_max, tab)
+        check((k[0].cpu().numpy(), k[1].cpu().numpy(),
+               torch.stack(k[2], 1).cpu().numpy()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t_max", [FLT_MAX, 8.0, T_MIN, -1.0, float("nan")])
+def test_sphere_float_tmax_bit_equal(dev, t_max):
+    """One t_max for every ray, passed to the kernel as a float: live,
+    finite, dead (<= t_min) and NaN."""
+    o, d, c, r, feat = _inputs(dev, n=4099, s=486, seed=6)
+    k = _sphere_modes_bit_equal(o, d, c, r, feat, t_max,
+                                cs.sphere_table(c, r))
+    live = t_max > T_MIN  # False for NaN
+    assert bool((k[1] >= 0).any()) == live
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32_768, 960_000])
+def test_spheres_pool_and_frame_shapes_bit_equal(dev, n):
+    """The lane pool the regen engine launches K1 on, and a whole
+    1200x800 frame of rays, against the headline's 486 spheres."""
+    o, d, c, r, feat = _inputs(dev, n=n, s=486, seed=7)
+    tab = cs.sphere_table(c, r)
+    k = _sphere_modes_bit_equal(o, d, c, r, feat, FLT_MAX, tab)
+    assert (k[1] >= 0).float().mean() > 0.1
+    tm = torch.linspace(0.5, 30.0, n, device=dev)
+    _sphere_modes_bit_equal(o, d, c, r, feat, tm, tab)
+
+
+@pytest.mark.gpu
+def test_sphere_frame_call_dispatches_only_its_outputs(dev):
+    """The frame's call, spheres_hit_feat with the view's table and a
+    float t_max, dispatches its three output allocations and the unbind
+    of the features, and nothing else: no table build, no [N] t_max."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func.overloadpacket.__name__))
+            return func(*args, **(kwargs or {}))
+
+    cfg = RenderConfig(nx=48, ny=32, ns=1, max_depth=2)
+    scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device=dev)
+    view = wf.make_view(scene, cfg)
+    o, d = cam.generate_rays(torch.arange(cfg.num_pixels, device=dev), 0,
+                             cfg.nx, cfg.ny)
+    call = lambda: cs.spheres_hit_feat(o, d, view.sph_c, view.sph_r,
+                                       view.sph_feat, cfg.epsilon, FLT_MAX,
+                                       tab=view.sph_tab)
+    call()  # built and loaded
+    before = cs.LAUNCHES
+    with Ops() as mode:
+        call()
+    assert cs.LAUNCHES == before + 1
+    assert sorted(mode.ops) == ["empty", "empty", "empty", "unbind"]
 
 
 def _tri_inputs(dev, n=50_000, t=700, seed=0):

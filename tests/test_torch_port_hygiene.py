@@ -47,6 +47,7 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.sphere_layout_probe",
             "tpu_pathtracer_torch.experiments.shapecast_probe",
             "tpu_pathtracer_torch.experiments.bvh4_ab",
+            "tpu_pathtracer_torch.experiments.spheres_ab",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -89,7 +90,8 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.gather_probe, "
             "tpu_pathtracer_torch.experiments.sphere_layout_probe, "
             "tpu_pathtracer_torch.experiments.shapecast_probe, "
-            "tpu_pathtracer_torch.experiments.bvh4_ab\n"
+            "tpu_pathtracer_torch.experiments.bvh4_ab, "
+            "tpu_pathtracer_torch.experiments.spheres_ab\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"

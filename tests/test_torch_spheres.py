@@ -1,7 +1,8 @@
 """The sphere kernel's plain PyTorch version against the JAX package's
 Pallas kernel ``_kernel_sb`` (interpret mode), in all three modes, plus
-the contract's edge cases. The CUDA kernel itself runs only on a card:
-``tests/test_torch_cuda.py`` holds it against the plain version there."""
+the contract's edge cases (``tests/sphere_cases.py``). The CUDA kernel
+itself runs only on a card: ``tests/test_torch_cuda.py`` holds it
+against the plain version there."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,14 +11,21 @@ import torch
 
 from tpu_pathtracer.ops.pallas_spheres import (spheres_anyhit_soa as j_any,
                                                spheres_hit_feat as j_feat,
-                                               spheres_hit_pallas as j_hit)
+                                               spheres_hit_pallas as j_hit,
+                                               spheres_hit_soa as j_soa)
 from tpu_pathtracer.ops.v3 import V3 as JV3
+from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.engine.wavefront import make_view
+from tpu_pathtracer_torch.models.spheres import random_spheres_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
-
-T_MIN = 0.01
+from sphere_cases import CASES, T_MIN
+from sphere_cases import case as _case
+from sphere_cases import rays as _rays
+from sphere_cases import spheres as _spheres
+from sphere_cases import tv3 as _tv3
 # t: the JAX kernel and the plain version evaluate the same oc-form
 # expressions, but XLA may contract a*b+c into an FMA on the CPU where
 # PyTorch does not. Bound: the JAX test's own rtol 1e-5
@@ -34,28 +42,6 @@ def _t_tol(o, d, c, r, idx, t):
     disc = b * b - (np.sum(oc * oc, axis=1) - r[np.maximum(idx, 0)] ** 2.0)
     graze = 4 * 2.0 ** -23 * b * b / np.sqrt(np.maximum(disc, 1e-30))
     return np.where(hit, T_RTOL * np.abs(t) + graze, 0.0)
-
-
-def _rays(n, seed):
-    rng = np.random.RandomState(seed)
-    o = rng.uniform(-12, 12, (n, 3)).astype(np.float32)
-    tgt = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
-    d = tgt - o
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return o, d.astype(np.float32)
-
-
-def _spheres(s, seed):
-    rng = np.random.RandomState(seed)
-    c = rng.uniform(-10, 10, (s, 3)).astype(np.float32)
-    r = rng.uniform(0.4, 2.0, s).astype(np.float32)
-    feat = rng.uniform(-3, 3, (s, 18)).astype(np.float32)
-    return c, r, feat
-
-
-def _tv3(a):
-    return V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
-                for k in range(3)))
 
 
 def _jv3(a):
@@ -133,98 +119,33 @@ def test_anyhit_mode_matches_pallas():
     assert 0 < to.numpy().sum() < (idx.numpy() >= 0).sum()
 
 
-def _case(name):
-    """(origin, direction, centers, radii, feat, t_max, check) for one
-    edge case of the kernel's contract."""
-    if name == "tie_first_wins":
-        o = np.array([[0, 0, 5], [0.1, 0, 5]], np.float32)
-        d = np.array([[0, 0, -1], [0, 0, -1]], np.float32)
-        c = np.array([[5, 5, 5], [0, 0, 0], [0, 0, 0], [0, 0, -3]],
-                     np.float32)
-        r = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
-
-        def check(t):
-            assert (t[1] == 1).all()  # slots 1 and 2 tie exactly
-        return o, d, c, r, None, check
-    if name == "miss":
-        rng = np.random.RandomState(7)
-        o = rng.uniform(-1, 1, (64, 3)).astype(np.float32)
-        d = np.concatenate([np.ones((64, 1)),
-                            rng.uniform(-0.2, 0.2, (64, 2))], axis=1)
-        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-        # every ray heads to +x, every sphere lies at x < -5
-        c = rng.uniform(-3, 3, (8, 3)).astype(np.float32)
-        c[:, 0] -= 8.0
-        r = np.full(8, 0.5, np.float32)
-
-        def check(t):
-            assert (t[1] == -1).all()
-            assert (t[0] == np.float32(FLT_MAX)).all()
-            assert (t[2] == 0).all()
-        return o, d, c, r, None, check
-    if name == "nonpositive_radius_never_wins":
-        o, d = _rays(256, seed=8)
-        # slots 0-5 sit 0.25 off rays 0-5 at distance 4, where a sphere
-        # of radius >= 0.25 would be hit; slots 6-11 (radius 1) sit on
-        # the same rays at distance 6
-        side = np.cross(d[:6], np.array([0.0, 0.0, 1.0], np.float32))
-        side /= np.linalg.norm(side, axis=1, keepdims=True)
-        c = np.concatenate([o[:6] + 4.0 * d[:6] + 0.25 * side,
-                            o[:6] + 6.0 * d[:6]]).astype(np.float32)
-        r = np.array([-1.0, 0.0, -2.0, 0.0, -0.5, -0.3]
-                     + [1.0] * 6, np.float32)
-
-        def check(t):
-            assert not np.isin(t[1], np.arange(6)).any()
-            assert (t[1][:6] >= 6).all()  # the live sphere behind wins
-        return o, d, c, r, None, check
-    if name == "per_ray_tmax":
-        o, d = _rays(256, seed=9)
-        c, r, _ = _spheres(30, seed=10)
-        t0, i0 = cs.spheres_hit_soa(_tv3(o), _tv3(d), _tv3(c),
-                                    torch.from_numpy(r), T_MIN, FLT_MAX)
-        hit0 = i0.numpy() >= 0
-        tm = np.where(hit0, t0.numpy() * 0.5, 1e38).astype(np.float32)
-
-        def check(t):
-            # nothing before half the nearest hit; t is FLT_MAX, not t_max
-            assert (t[1][hit0] == -1).all()
-            assert (t[0][hit0] == np.float32(FLT_MAX)).all()
-            assert hit0.sum() > 20
-        return o, d, c, r, tm, check
-    if name in ("ragged_s_130", "s_600_two_chunks"):
-        s = 130 if name == "ragged_s_130" else 600
-        o, d = _rays(256, seed=11)
-        c, r, _ = _spheres(s, seed=12)
-        c = c * 2.0  # spread the larger set out
-
-        def check(t):
-            assert (t[1] >= 0).sum() > 50
-            if s > cs.S_CHUNK:
-                assert (t[1] >= cs.S_CHUNK).any()
-        return o, d, c, r, None, check
-    raise KeyError(name)
-
-
-@pytest.mark.parametrize("name", ["tie_first_wins", "miss",
-                                  "nonpositive_radius_never_wins",
-                                  "per_ray_tmax", "ragged_s_130",
-                                  "s_600_two_chunks"])
+@pytest.mark.parametrize("name", CASES)
 def test_contract_cases(name):
+    """Each case of tests/sphere_cases.py in all three modes: the plain
+    version against the Pallas kernel in interpret mode (idx, occlusion
+    and features exact, t within _t_tol), then the case's own check."""
     o, d, c, r, tm, check = _case(name)
     feat = np.random.RandomState(13).uniform(
         -3, 3, (c.shape[0], 18)).astype(np.float32)
     j, t, tol = _both_feat(o, d, c, r, feat, tm)
     _assert_feat_equal(j, t, tol)
     check(t)
-    # the other two modes agree with the features mode
+    tmv = _tmax(tm, o.shape[0])
+    jt, ji = j_soa(_jv3(o), _jv3(d), _jv3(c), jnp.asarray(r), T_MIN,
+                   jnp.asarray(tmv), interpret=True)
+    jo = j_any(_jv3(o), _jv3(d), _jv3(c), jnp.asarray(r), T_MIN,
+               jnp.asarray(tmv), interpret=True)
+    np.testing.assert_array_equal(np.asarray(ji), t[1])
+    assert (np.abs(np.asarray(jt) - t[0]) <= tol).all()
+    # the other two modes of the port agree with its features mode
     args = (_tv3(o), _tv3(d), _tv3(c), torch.from_numpy(r), T_MIN,
-            torch.from_numpy(_tmax(tm, o.shape[0])))
+            torch.from_numpy(tmv))
     t2, i2 = cs.spheres_hit_soa(*args)
     np.testing.assert_array_equal(i2.numpy(), t[1])
     np.testing.assert_array_equal(t2.numpy(), t[0])
-    np.testing.assert_array_equal(cs.spheres_anyhit_soa(*args).numpy(),
-                                  t[1] >= 0)
+    occ = cs.spheres_anyhit_soa(*args).numpy()
+    np.testing.assert_array_equal(occ, np.asarray(jo))
+    np.testing.assert_array_equal(occ, t[1] >= 0)
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -234,6 +155,53 @@ def test_cpu_tensors_take_the_plain_version():
     cs.spheres_hit_feat(_tv3(o), _tv3(d), _tv3(c), torch.from_numpy(r),
                         torch.from_numpy(feat), T_MIN, FLT_MAX)
     assert cs.LAUNCHES == before  # no kernel launched for CPU tensors
+
+
+def test_make_view_builds_the_table_once():
+    """make_view's prebuilt table is sphere_table of its columns, and the
+    wrappers give the same results with it as without it."""
+    cfg = RenderConfig(nx=16, ny=12, ns=1, max_depth=2)
+    scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device="cpu")
+    view = make_view(scene, cfg)
+    assert torch.equal(view.sph_tab, cs.sphere_table(view.sph_c, view.sph_r))
+    assert view.sph_tab.data_ptr() % 16 == 0
+    o, d = cam.generate_rays(torch.arange(cfg.num_pixels), 0, cfg.nx,
+                             cfg.ny)
+    args = (o, d, view.sph_c, view.sph_r)
+    with_tab = cs.spheres_hit_feat(*args, view.sph_feat, cfg.epsilon,
+                                   FLT_MAX, tab=view.sph_tab)
+    without = cs.spheres_hit_feat(*args, view.sph_feat, cfg.epsilon, FLT_MAX)
+    for a, b in zip(with_tab[:2], without[:2]):
+        assert torch.equal(a, b)
+    assert torch.equal(torch.stack(with_tab[2]), torch.stack(without[2]))
+    assert (with_tab[1] >= 0).any()
+    for a, b in zip(cs.spheres_hit_soa(*args, cfg.epsilon, FLT_MAX,
+                                       tab=view.sph_tab), without[:2]):
+        assert torch.equal(a, b)
+    tm = torch.where(torch.arange(cfg.num_pixels) % 2 == 0, 30.0, -1.0)
+    assert torch.equal(
+        cs.spheres_anyhit_soa(*args, cfg.epsilon, tm, tab=view.sph_tab),
+        cs.spheres_anyhit_soa(*args, cfg.epsilon, tm))
+
+
+def test_prebuilt_table_is_checked():
+    o, d = _rays(8, seed=29)
+    c, r, feat = _spheres(6, seed=30)
+    args = (_tv3(o), _tv3(d), _tv3(c), torch.from_numpy(r), T_MIN, FLT_MAX)
+    tab = cs.sphere_table(*args[2:4])
+    with pytest.raises(ValueError, match="shape"):
+        cs.spheres_hit_soa(*args, tab=tab[:5])
+    with pytest.raises(TypeError, match="float64"):
+        cs.spheres_anyhit_soa(*args, tab=tab.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cs.spheres_hit_soa(*args, tab=torch.zeros(4, 6).t())
+    misaligned = torch.zeros(6 * 4 + 1)[1:].view(6, 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cs.spheres_hit_feat(*args[:4], torch.from_numpy(feat), T_MIN,
+                            FLT_MAX, tab=misaligned)
+    # the mx layout's table is [S, 8]
+    with pytest.raises(ValueError, match="shape"):
+        cs.spheres_anyhit_soa(*args, mx=True, tab=tab)
 
 
 def test_other_devices_raise():

@@ -152,8 +152,9 @@ spheres_mx_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
 }  // namespace
 
 // Launches one mode on `stream`; returns cudaGetLastError() (0 = launched).
-// The arguments are spheres_hit_launch's (spheres.cu), except that sph is
-// [s, 8] f32 rows (cxh, cyh, czh, ccq, cxl, cyl, czl, 0), 16-byte aligned.
+// The arguments are spheres_hit_launch's (spheres.cu), except that tmax
+// is always the rays' [n] t_max (there is no tmax_all) and sph is [s, 8]
+// f32 rows (cxh, cyh, czh, ccq, cxl, cyl, czl, 0), 16-byte aligned.
 // Pointers the mode does not use may be null.
 extern "C" int spheres_mx_launch(int mode, const float* ox, const float* oy,
                                  const float* oz, const float* dx,

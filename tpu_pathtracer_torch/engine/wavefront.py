@@ -197,11 +197,14 @@ class SceneView(NamedTuple):
     # the brute-force kernel's [T, 12] table of tri_v0, tri_e1, tri_e2,
     # tri_n (cuda_tris.tri_table), built once a render
     tri_tab: Optional[torch.Tensor] = None
+    # the sphere kernel's [S, 4] table of sph_c, sph_r
+    # (cuda_spheres.sphere_table), built once a render
+    sph_tab: Optional[torch.Tensor] = None
 
 
 def make_view(scene: Scene, config: Optional[RenderConfig] = None
               ) -> SceneView:
-    sph_c = sph_r = sph_feat = None
+    sph_c = sph_r = sph_feat = sph_tab = None
     if scene.has_spheres:
         sph_c = V3.from_array(scene.sphere_center)
         sph_r = scene.sphere_radius.contiguous()
@@ -209,6 +212,7 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
             [scene.sphere_center, sph_r[:, None],
              _material_table(scene.materials, scene.sphere_mat)],
             dim=1).contiguous()
+        sph_tab = _cs.sphere_table(sph_c, sph_r)
     tri_v0 = tri_e1 = tri_e2 = tri_n = tri_feat = tri_tab = None
     packet = mat_rows = None
     tier = mesh_tier(scene, config) if config is not None else "oracle"
@@ -253,7 +257,7 @@ def make_view(scene: Scene, config: Optional[RenderConfig] = None
         atlas = scene.tex_atlas.reshape(-1, 3)
     return SceneView(sph_c, sph_r, sph_feat, tri_v0, tri_e1, tri_e2, tri_n,
                      tri_feat, atlas, packet, mat_rows, tier, fast_math,
-                     tri_tab)
+                     tri_tab, sph_tab)
 
 
 def check_traversal(view: SceneView) -> None:
@@ -465,7 +469,7 @@ def intersect_scene(scene: Scene, view: SceneView, config: RenderConfig,
     if scene.has_spheres:
         st, _, f = _cs.spheres_hit_feat(origin, direction, view.sph_c,
                                         view.sph_r, view.sph_feat, eps,
-                                        FLT_MAX)
+                                        FLT_MAX, tab=view.sph_tab)
         center = V3(f[0], f[1], f[2])
         radius = f[3]
         scols = _cols_from_feats(f, 4)
@@ -578,7 +582,8 @@ def occluded(scene: Scene, view: SceneView, config: RenderConfig,
             occ = occ | (res.tri_id >= 0)
     if scene.has_spheres:
         occ = occ | _cs.spheres_anyhit_soa(origin, direction, view.sph_c,
-                                           view.sph_r, config.epsilon, t_max)
+                                           view.sph_r, config.epsilon, t_max,
+                                           tab=view.sph_tab)
     return occ, counters
 
 

@@ -33,9 +33,7 @@ mixed bounces, 25: the frame's tail, a third of the lanes live).
 from __future__ import annotations
 
 import ctypes
-import re
 import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -48,8 +46,9 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import render_regen
-from tpu_pathtracer_torch.experiments.common import (card, first_bounce,
-                                                      graph_ms)
+from tpu_pathtracer_torch.experiments.common import (build, card,
+                                                      first_bounce, graph_ms,
+                                                      variant)
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
@@ -67,47 +66,12 @@ LEAF_LOOPS = (("for (int k = s; k < width; k += L)",
               ("k < width; ++k, row += 3", "k < 0; ++k, row += 3"))
 
 
-def variant(text: str, spec: str) -> str:
-    """``text`` with each ``constexpr int K`` of ``spec`` ("K:V,...") set
-    to V."""
-    for kv in spec.split(","):
-        k, v = kv.split(":")
-        text, n = re.subn(rf"constexpr int {k} = -?\d+;",
-                          f"constexpr int {k} = {int(v)};", text)
-        if n != 1:
-            raise ValueError(f"no constexpr int {k} in the source")
-    return text
-
-
 def noleaf(text: str) -> str:
     """``text`` with its nearest leaf loop cut."""
     for old, new in LEAF_LOOPS:
         if old in text:
             return text.replace(old, new)
     raise ValueError("no known leaf loop in the source")
-
-
-def build(name: str, text: str, out: Path | None):
-    """(library path, ptxas lines) of ``text`` built as ``name``."""
-    src = _build.BUILD_DIR / "ab" / f"{name}.cu"
-    src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text(text)
-    lib = src.with_suffix(".so")
-    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
-                           str(_build.CSRC_DIR), "-o", str(lib), str(src)],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-    if out is not None:
-        out.mkdir(parents=True, exist_ok=True)
-        (out / f"{name}.ptxas.txt").write_text(log)
-        dump = Path(_build.nvcc()).parent / "cuobjdump"
-        sass = subprocess.run([str(dump), "-sass", str(lib)],
-                              capture_output=True, text=True)
-        (out / f"{name}.sass").write_text(sass.stdout + sass.stderr)
-    return lib, [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
 
 
 def load(lib: Path) -> ctypes.CDLL:

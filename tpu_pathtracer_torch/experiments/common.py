@@ -1,6 +1,8 @@
 """What the probes share on the card: the card's line, CUDA-event times,
 kernels timed in turns or in a CUDA graph, device times from the
-profiler, a first bounce's ray sets, and the walk telemetry they print.
+profiler, a first bounce's ray sets, the walk telemetry they print, and
+the A/Bs' builds of a kernel's other sources (``bvh4_ab``,
+``spheres_ab``).
 
 A probe needs a CUDA device: :func:`card` exits non-zero without one
 (the kernels have no CPU mode), and prints the ``nvidia-smi`` name and
@@ -10,15 +12,18 @@ power limit first, so every time a probe prints stands beside them.
 from __future__ import annotations
 
 import contextlib
+import re
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 from typing import Callable, Dict, List
 from unittest import mock
 
 import torch
 
 from tpu_pathtracer_torch.engine import wavefront as wf
+from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 
@@ -97,7 +102,7 @@ def first_bounce(scene, view, cfg, o1, d1, pix, patches):
     ``patches`` ((module, name, function) triples, say the plain versions
     of the kernels) in place. Returns (the second-bounce rays with t_max
     = -1 on dead lanes, the NEE shadow rays as they reach the any-hit
-    test)."""
+    test, or None in a scene without NEE)."""
     shadow = {}
     real = wf.occluded
 
@@ -116,8 +121,9 @@ def first_bounce(scene, view, cfg, o1, d1, pix, patches):
     o2 = V3(*(c.contiguous() for c in st.origin))
     d2 = V3(*(c.contiguous() for c in st.direction))
     t2 = torch.where(st.alive, FLT_MAX, -1.0).contiguous()
-    return (o2, d2, t2), (shadow["origin"], shadow["direction"],
-                          shadow["t_max"])
+    nee = ((shadow["origin"], shadow["direction"], shadow["t_max"])
+           if shadow else None)
+    return (o2, d2, t2), nee
 
 
 def device_ms(fn: Callable, reps: int = 7) -> Dict[str, float]:
@@ -141,6 +147,26 @@ def device_ms(fn: Callable, reps: int = 7) -> Dict[str, float]:
             and e.self_device_time_total > 0}
 
 
+def sphere_pairs(origin: V3, direction: V3, tab: torch.Tensor,
+                 t_min: float, t_max: torch.Tensor, chunk: int = 1 << 17):
+    """(pairs, disc pairs) of csrc/spheres.cu's nearest modes on these
+    rays: the (ray, sphere) pairs it tests, every slot of ``tab`` [S, 4]
+    for each ray with t_max > t_min, and of those the pairs with
+    disc > 0, where it takes the roots (the plain version's b and c)."""
+    live = t_max > t_min
+    pairs = int(live.sum()) * tab.shape[0]
+    disc_pairs = 0
+    for a in range(0, origin.x.shape[0], chunk):
+        o = V3(*(c[a:a + chunk, None] for c in origin))
+        d = V3(*(c[a:a + chunk, None] for c in direction))
+        ocx, ocy, ocz = o.x - tab[:, 0], o.y - tab[:, 1], o.z - tab[:, 2]
+        b = ocx * d.x + ocy * d.y + ocz * d.z
+        c = ocx * ocx + ocy * ocy + ocz * ocz - tab[:, 3]
+        hit = (b * b - c > 0.0) & live[a:a + chunk, None]
+        disc_pairs += int(hit.sum())
+    return pairs, disc_pairs
+
+
 def distinct(ids: List[torch.Tensor]) -> int:
     """The number of distinct ids in a walk's ``visits`` list."""
     return torch.unique(torch.cat(ids)).numel() if ids else 0
@@ -156,3 +182,38 @@ def per_ray(cnt: torch.Tensor) -> str:
     return (f"steps/ray {steps.mean().item():7.1f} (warp max "
             f"{warp(steps):7.1f})  leaves/ray {leaves.mean().item():6.1f} "
             f"(warp max {warp(leaves):6.1f})")
+
+
+def variant(text: str, spec: str) -> str:
+    """``text`` with each ``constexpr int K`` of ``spec`` ("K:V,...") set
+    to V."""
+    for kv in spec.split(","):
+        k, v = kv.split(":")
+        text, n = re.subn(rf"constexpr int {k} = -?\d+;",
+                          f"constexpr int {k} = {int(v)};", text)
+        if n != 1:
+            raise ValueError(f"no constexpr int {k} in the source")
+    return text
+
+
+def build(name: str, text: str, out: Path | None):
+    """(library path, ptxas lines) of ``text`` built as ``name``."""
+    src = _build.BUILD_DIR / "ab" / f"{name}.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    lib = src.with_suffix(".so")
+    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I",
+                           str(_build.CSRC_DIR), "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+    if out is not None:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"{name}.ptxas.txt").write_text(log)
+        dump = Path(_build.nvcc()).parent / "cuobjdump"
+        sass = subprocess.run([str(dump), "-sass", str(lib)],
+                              capture_output=True, text=True)
+        (out / f"{name}.sass").write_text(sass.stdout + sass.stderr)
+    return lib, [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]

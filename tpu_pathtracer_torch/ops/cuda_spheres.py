@@ -28,7 +28,7 @@ lanes: it is a measured decision record, on no render path.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -52,7 +52,10 @@ S_CHUNK = 512  # spheres per pass of the plain version (bounds [N, chunk])
 
 def sphere_table(centers: V3, radii: torch.Tensor) -> torch.Tensor:
     """[S, 4] float32 rows (cx, cy, cz, r²·sign(r)): a slot with radius
-    <= 0 gets r² <= 0, so disc < 0 by Cauchy–Schwarz and it never wins."""
+    <= 0 gets r² <= 0, so disc < 0 by Cauchy–Schwarz and it never wins.
+    A fresh allocation, so 16-byte aligned. A caller that launches the
+    kernel many times on one scene builds it once and passes it as
+    ``tab`` (``engine.wavefront.make_view``)."""
     r2 = radii * radii * torch.where(radii > 0, 1.0, -1.0)
     return torch.stack([centers.x, centers.y, centers.z, r2], dim=1)
 
@@ -242,14 +245,15 @@ def _spheres_anyhit_ref(origin, direction, centers, radii, t_min, t_max,
 
 def _launcher(mx: bool = False):
     """The launch function of csrc/spheres.cu, or of spheres_mx.cu (the
-    same arguments)."""
+    same arguments but ``tmax_all``: it always takes the [N] t_max)."""
     lib = _build.load("spheres_mx" if mx else "spheres")
     fn = lib.spheres_mx_launch if mx else lib.spheres_hit_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [p] * 8 + [ctypes.c_int, p,
-                                                  ctypes.c_int, ctypes.c_int,
-                                                  ctypes.c_float] + [p] * 5
+        tmax = [p] if mx else [p, ctypes.c_float]
+        fn.argtypes = ([ctypes.c_int] + [p] * 6 + tmax
+                       + [p, ctypes.c_int, p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_float] + [p] * 5)
         fn.restype = ctypes.c_int
     return fn
 
@@ -266,10 +270,25 @@ def _check(name: str, a: torch.Tensor, device, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_table(tab: torch.Tensor, radii: torch.Tensor, dev,
+                 mx: bool = False) -> None:
+    """Raise unless ``tab`` is the [S, 4] (``mx``: [S, 8]) float32 table
+    on ``dev`` for the S spheres of ``radii``, contiguous and 16-byte
+    aligned (float4)."""
+    _check("spheres", tab, dev, torch.float32,
+           (radii.shape[0], 8 if mx else 4))
+    if tab.data_ptr() % 16:
+        raise ValueError("sphere table must be 16-byte aligned (float4)")
+
+
 def _launch(mode: int, origin: V3, direction: V3, centers: V3,
-            radii: torch.Tensor, t_min: float, t_max, feat=None, mx=False):
+            radii: torch.Tensor, t_min: float, t_max, feat=None, mx=False,
+            tab=None):
     """Check the inputs, allocate the outputs and launch one mode of the
-    kernel (``mx``: of csrc/spheres_mx.cu) on the current stream."""
+    kernel (``mx``: of csrc/spheres_mx.cu) on the current stream; ``tab``
+    the kernel's prebuilt table of the spheres, else built here. A float
+    ``t_max`` goes to csrc/spheres.cu as one value, not as an [N]
+    tensor."""
     global LAUNCHES
     dev = origin.x.device
     n = origin.x.shape[0]
@@ -277,14 +296,16 @@ def _launch(mode: int, origin: V3, direction: V3, centers: V3,
     for name, a in zip(("ox", "oy", "oz", "dx", "dy", "dz"),
                        (*origin, *direction)):
         _check(name, a, dev, f32, (n,))
-    tmax = _tmax_vector(t_max, n, origin.x)
-    _check("t_max", tmax, dev, f32, (n,))
-    tab = (mx_sphere_table if mx else sphere_table)(centers,
-                                                     radii).contiguous()
+    tmax, tmax_all = None, 0.0
+    if mx or isinstance(t_max, torch.Tensor):
+        tmax = _tmax_vector(t_max, n, origin.x)
+        _check("t_max", tmax, dev, f32, (n,))
+    else:
+        tmax_all = float(t_max)
+    if tab is None:
+        tab = (mx_sphere_table if mx else sphere_table)(centers, radii)
+    _check_table(tab, radii, dev, mx)
     s = tab.shape[0]
-    _check("spheres", tab, dev, f32, (s, 8 if mx else 4))
-    if tab.data_ptr() % 16:
-        raise ValueError("sphere table must be 16-byte aligned (float4)")
     n_c = 0
     if feat is not None:
         n_c = feat.shape[1]
@@ -302,11 +323,11 @@ def _launch(mode: int, origin: V3, direction: V3, centers: V3,
     if n:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            tm = [ptr(tmax)] if mx else [ptr(tmax), tmax_all]
             rc = _launcher(mx)(
-                mode, *(a.data_ptr() for a in (*origin, *direction)),
-                tmax.data_ptr(), tab.data_ptr(), s, ptr(feat), n_c, n,
-                float(t_min), ptr(t_out), ptr(idx_out), ptr(f_out),
-                ptr(occ_out), stream)
+                mode, *(a.data_ptr() for a in (*origin, *direction)), *tm,
+                tab.data_ptr(), s, ptr(feat), n_c, n, float(t_min),
+                ptr(t_out), ptr(idx_out), ptr(f_out), ptr(occ_out), stream)
         if rc != 0:
             raise RuntimeError(f"spheres{' mx' if mx else ''} kernel launch "
                                f"failed: CUDA error {rc}")
@@ -335,42 +356,59 @@ def _on_cuda(origin: V3) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _cpu_table(tab: Optional[torch.Tensor], radii: torch.Tensor,
+               origin: V3, mx: bool = False) -> None:
+    """The CPU path checks a prebuilt table as the kernel's does; the
+    plain versions build their own from the columns."""
+    if tab is not None:
+        _check_table(tab, radii, origin.x.device, mx)
+
+
 def spheres_hit_feat(origin: V3, direction: V3, centers: V3,
                      radii: torch.Tensor, feat: torch.Tensor, t_min: float,
-                     t_max, mx: bool = False
+                     t_max, mx: bool = False, *,
+                     tab: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, tuple]:
     """Nearest sphere hit + the winner's feature row.
 
     origin/direction: V3 of [N]; centers: V3 of [S]; radii [S]; feat
     [S, C] per-sphere features; t_max a float or [N]; ``mx`` the MXU b/c
-    layout (module docstring). Returns (t [N], idx [N] int32, feats: tuple
-    of C [N] tensors, zero on a miss).
+    layout (module docstring); ``tab`` the spheres' :func:`sphere_table`
+    (``mx``: :func:`mx_sphere_table`), if the caller built it (checked,
+    not compared).
+    Returns (t [N], idx [N] int32, feats: tuple of C [N] tensors, zero on
+    a miss).
     """
     if _on_cuda(origin):
         return _launch(_FEATURES, origin, direction, centers, radii, t_min,
-                       t_max, feat, mx)
+                       t_max, feat, mx, tab)
+    _cpu_table(tab, radii, origin, mx)
     return _spheres_hit_feat_ref(origin, direction, centers, radii, feat,
                                  t_min, t_max, mx)
 
 
 def spheres_hit_soa(origin: V3, direction: V3, centers: V3,
-                    radii: torch.Tensor, t_min: float,
-                    t_max) -> Tuple[torch.Tensor, torch.Tensor]:
+                    radii: torch.Tensor, t_min: float, t_max, *,
+                    tab: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest sphere hit: (t [N] with FLT_MAX on a miss, idx [N] int32,
     −1 on a miss)."""
     if _on_cuda(origin):
         return _launch(_NEAREST, origin, direction, centers, radii, t_min,
-                       t_max)
+                       t_max, tab=tab)
+    _cpu_table(tab, radii, origin)
     return _spheres_hit_ref(origin, direction, centers, radii, t_min, t_max)
 
 
 def spheres_anyhit_soa(origin: V3, direction: V3, centers: V3,
                        radii: torch.Tensor, t_min: float,
-                       t_max, mx: bool = False) -> torch.Tensor:
+                       t_max, mx: bool = False, *,
+                       tab: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[N] bool: any sphere hit in (t_min, t_max) — the shadow test
     (``mx``: by the MXU b/c layout)."""
     if _on_cuda(origin):
         return _launch(_ANY_HIT, origin, direction, centers, radii, t_min,
-                       t_max, mx=mx)
+                       t_max, mx=mx, tab=tab)
+    _cpu_table(tab, radii, origin, mx)
     return _spheres_anyhit_ref(origin, direction, centers, radii, t_min,
                                t_max, mx)
