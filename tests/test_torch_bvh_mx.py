@@ -39,6 +39,7 @@ import jax.numpy as jnp
 
 from test_torch_bvh4 import T_MIN, jv, soup, tri_t, tv
 from test_torch_tris import _tol
+from tpu_pathtracer.models.scene import MeshData as JMeshData
 from tpu_pathtracer.ops import bvh as jbvh
 from tpu_pathtracer.ops.pallas_bvh_mx import (build_packet_mx,
                                               packet_occluded_mx,
@@ -48,6 +49,7 @@ from tpu_pathtracer_torch.ops import bvh as tbvh
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
+import bvh_mx_cases
 
 OFFSET = 30.0  # moves the soup off the origin, so G is recentred
 # (JAX block row, G column group, port column) of every used G entry
@@ -192,6 +194,109 @@ def test_mx_walk_against_exact_heap_walk(meshes):
     for k in (0, 2, 3, 7, 8, 9):  # t, u, v, tu, tv, mid
         np.testing.assert_array_equal(outs[k].numpy()[same],
                                       ref[k].numpy()[same])
+
+
+def test_g_parts_are_the_split_of_g(meshes):
+    """The kernel's table of G's bf16 parts holds ``_split3``'s hi, mid
+    and lo of every test column bit for bit, ``_split_g``'s parts at
+    either pass count, and zeros in its padding; the centre's values are
+    the centre tensor's."""
+    *_, tabs = meshes
+    parts = tabs.parts
+    assert parts.dtype == torch.bfloat16
+    assert parts.shape == (tabs.g.shape[0], cmx.PART_COLUMNS)
+    wide = parts.to(torch.float32)
+    cols = cmx.G_COLUMNS
+    got = [wide[:, k * cols:(k + 1) * cols] for k in range(3)]
+    for a, b in zip(got, cmx._split3(tabs.g)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for passes in cmx.PASSES:
+        for a, b in zip(got, cmx._split_g(tabs.g, passes)):
+            if b is not None:
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert not wide[:, 3 * cols:].any()
+    assert tabs.center_xyz == tuple(tabs.center.tolist())
+
+
+def _case_meshes(c):
+    """A contract case's mesh in both packages, and the port's tables."""
+    tm = bvh_mx_cases.port_mesh(c, "cpu")
+    if c.soup is not None:
+        jm = jbvh.build_bvh(*bvh_mx_cases.soup(**c.soup),
+                            prims_per_leaf=c.P, bvh4=False)
+    else:
+        v0, v1, v2 = c.slots
+        nl = v0.shape[0] // c.P
+        bmin, bmax = jbvh._node_boxes(v0, v1, v2, nl, c.P)
+        n = v0.shape[0]
+        jm = JMeshData(v0=jnp.asarray(v0), v1=jnp.asarray(v1),
+                       v2=jnp.asarray(v2),
+                       tex_coords=jnp.zeros((n, 6), jnp.float32),
+                       mesh_id=jnp.zeros((n,), jnp.int32),
+                       bvh_min=jnp.asarray(bmin), bvh_max=jnp.asarray(bmax),
+                       bounds_min=jnp.asarray(bmin[1]),
+                       bounds_max=jnp.asarray(bmax[1]), first_leaf=nl,
+                       prims_per_leaf=c.P)
+    return jm, cmx.mx_tables(tm)
+
+
+@pytest.mark.parametrize("passes", [3, 6])
+@pytest.mark.parametrize("name", bvh_mx_cases.CASES)
+def test_contract_cases_match_jax_kernels(name, passes):
+    """The leaf test's edge cases (tests/bvh_mx_cases.py, held kernel
+    against plain on the card): the plain walk meets each case's own
+    check, and agrees with the JAX kernels in interpret mode as
+    test_mx_walk_matches_jax_kernels holds it: hits and occlusion equal,
+    winners but near-ties, t within the XLA-contraction bound."""
+    c = bvh_mx_cases.case(name)
+    jm, tabs = _case_meshes(c)
+    mx = build_packet_mx(jm, max_width=64)
+    pm = mx.pm
+    o, d, tmax = tv(c.o), tv(c.d), torch.from_numpy(c.t_max)
+    tk, tri, cnt = cmx.mx_trace(o, d, tmax, tabs, bvh_mx_cases.T_MIN,
+                                passes)
+    occ, ocnt = cmx.mx_occluded(o, d, tmax, tabs, bvh_mx_cases.T_MIN,
+                                passes)
+    c.check(tk.numpy(), tri.numpy(), occ.numpy(), cnt.numpy())
+    # any-hit walks the nearest walk's steps up to its first hit
+    assert bool((ocnt <= cnt).all())
+
+    kw = dict(center=mx.center, passes=passes, interpret=True,
+              smem_nodes=pm.smem_nodes, top_rows=pm.top_rows,
+              nodes_top=pm.nodes_top)
+    jouts, _ = packet_trace_mx(jv(c.o), jv(c.d), jnp.asarray(c.t_max),
+                               pm.nodes, mx.gblocks, mx.tri_geom,
+                               pm.cl_first, pm.width, bvh_mx_cases.T_MIN,
+                               **kw)
+    jtri, tri = np.asarray(jouts[1]), tri.numpy()
+    hit = jtri >= 0
+    np.testing.assert_array_equal(tri >= 0, hit)
+    _assert_near_ties(jm, c.o, c.d, tri, jtri, hit)
+    t = cmx.exact_winner(o, d, tk, torch.from_numpy(tri),
+                         tabs.heap.tri_feat)[0].numpy()
+    v0 = np.asarray(jm.v0)
+    with np.errstate(invalid="ignore", over="ignore"):
+        e1, e2 = np.asarray(jm.v1) - v0, np.asarray(jm.v2) - v0
+        tol_t = _tol(c.o, c.d, (v0, e1, e2, np.cross(e1, e2)), tri, t)[0]
+    assert (np.abs(t - np.asarray(jouts[0]))[hit] <= tol_t[hit]).all()
+    jocc, _ = packet_occluded_mx(jv(c.o), jv(c.d), jnp.asarray(c.t_max),
+                                 pm.nodes, mx.gblocks, pm.cl_first,
+                                 pm.width, bvh_mx_cases.T_MIN, **kw)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
+
+
+def test_nan_u_case_takes_a_slot_with_nan_u():
+    """The nan_u case's winner is a slot whose split-bf16 u is NaN while
+    its a and t are finite, at both pass counts."""
+    c = bvh_mx_cases.case("nan_u")
+    tabs = cmx.mx_tables(bvh_mx_cases.port_mesh(c, "cpu"))
+    o, d = tv(c.o), tv(c.d)
+    fparts = cmx.ray_features(o, d, tabs.center)
+    rows = tabs.g[12].expand(c.o.shape[0], 1, cmx.G_COLUMNS)
+    for passes in cmx.PASSES:
+        a, tn, un, _ = cmx.numerators(rows, fparts, passes)
+        assert torch.isfinite(a).all() and torch.isfinite(tn / a).all()
+        assert torch.isnan(un / a).all()
 
 
 def test_passes_other_than_3_or_6_raise(meshes):

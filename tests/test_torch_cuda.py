@@ -49,6 +49,7 @@ from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh4_cases
+import bvh_mx_cases
 import sphere_cases
 import tri_cases
 
@@ -675,6 +676,93 @@ def test_mx_kernel_bit_equal(dev, passes):
     assert not ok[::7].any() and not ck[:, ::7].any()
     assert cmx.LAUNCHES["nearest"] == before["nearest"] + 2
     assert cmx.LAUNCHES["any_hit"] == before["any_hit"] + 2
+
+
+def _mx_modes_bit_equal(o, d, tm, tabs, passes):
+    """Both modes of K10 against the plain walk, bit-equal in every
+    output (a NaN t_max gives t = NaN on both sides), one launch a mode;
+    returns the kernel's (t, tri, occ, counters) as numpy arrays."""
+    before = dict(cmx.LAUNCHES)
+    t, tri, cnt = cmx.mx_trace(o, d, tm, tabs, T_MIN, passes)
+    occ, ocnt = cmx.mx_occluded(o, d, tm, tabs, T_MIN, passes)
+    assert cmx.LAUNCHES == {"nearest": before["nearest"] + 1,
+                            "any_hit": before["any_hit"] + 1}
+    pt, ptri, pcnt = cmx._mx_trace_ref(o, d, tm, tabs, T_MIN, passes)
+    pocc, pocnt = cmx._mx_occluded_ref(o, d, tm, tabs, T_MIN, passes)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+    for a, b in ((tri, ptri), (cnt, pcnt), (occ, pocc), (ocnt, pocnt)):
+        assert torch.equal(a, b)
+    return tuple(a.cpu().numpy() for a in (t, tri, occ, cnt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("passes", [3, 6])
+@pytest.mark.parametrize("name", bvh_mx_cases.CASES)
+def test_mx_contract_cases_bit_equal(dev, name, passes):
+    """The leaf test's edge cases (tests/bvh_mx_cases.py, held against
+    the JAX kernels on the CPU), K10 and K10b against the plain walk, and
+    each case's own check."""
+    c = bvh_mx_cases.case(name)
+    tabs = cmx.mx_tables(bvh_mx_cases.port_mesh(c, dev))
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    c.check(*_mx_modes_bit_equal(v(c.o), v(c.d),
+                                 torch.from_numpy(c.t_max).to(dev), tabs,
+                                 passes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("passes", [3, 6])
+def test_mx_pool_bit_equal(dev, passes):
+    """The dragon frame's lane pool, 196,608 lanes (engine/regen.py, the
+    untextured packet path), over 64-slot leaves; every 7th lane dead."""
+    mesh, o, d, tm = _bvh_inputs(dev, n=196_608, seed=8, ppl=64)
+    tabs = cmx.mx_tables(mesh)
+    t, tri, occ, cnt = _mx_modes_bit_equal(o, d, tm, tabs, passes)
+    assert (tri >= 0).mean() > 0.1 and not occ[::7].any()
+    assert not cnt[:, ::7].any()
+
+
+@pytest.mark.gpu
+def test_mx_frame_call_dispatches_only_its_outputs(dev):
+    """The frame's calls, mx_trace and mx_occluded with the view's tables
+    and an [N] t_max, dispatch their output allocations and the t_max
+    view, and nothing else: no .tolist(), no _local_scalar_dense, no copy
+    to the host."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func.overloadpacket.__name__))
+            return func(*args, **(kwargs or {}))
+
+    cfg = RenderConfig(nx=48, ny=32, ns=1, max_depth=2, textures=False,
+                       packet_threshold=1, bvh4=False, mx_leaf=True)
+    scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, nu=96, nv=24,
+                                prims_per_leaf=32, device=dev)
+    view = wf.make_view(scene, cfg)
+    assert isinstance(view.packet, cmx.MxTables)
+    o, d = cam.generate_rays(torch.arange(cfg.num_pixels, device=dev), 0,
+                             cfg.nx, cfg.ny)
+    tm = torch.full((cfg.num_pixels,), FLT_MAX, device=dev)
+    calls = {"nearest": lambda: cmx.mx_trace(o, d, tm, view.packet,
+                                             cfg.epsilon, cfg.mx_passes),
+             "any_hit": lambda: cmx.mx_occluded(o, d, tm, view.packet,
+                                                cfg.epsilon, cfg.mx_passes)}
+    want = {"nearest": ["empty", "empty", "empty", "expand"],
+            "any_hit": ["empty", "empty", "expand"]}
+    for mode, call in calls.items():
+        call()  # built and loaded
+        before = cmx.LAUNCHES[mode]
+        with Ops() as ops:
+            call()
+        assert cmx.LAUNCHES[mode] == before + 1
+        assert sorted(ops.ops) == want[mode]
 
 
 @pytest.mark.gpu

@@ -48,6 +48,7 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.shapecast_probe",
             "tpu_pathtracer_torch.experiments.bvh4_ab",
             "tpu_pathtracer_torch.experiments.spheres_ab",
+            "tpu_pathtracer_torch.experiments.bvh_mx_ab",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -91,7 +92,8 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.sphere_layout_probe, "
             "tpu_pathtracer_torch.experiments.shapecast_probe, "
             "tpu_pathtracer_torch.experiments.bvh4_ab, "
-            "tpu_pathtracer_torch.experiments.spheres_ab\n"
+            "tpu_pathtracer_torch.experiments.spheres_ab, "
+            "tpu_pathtracer_torch.experiments.bvh_mx_ab\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"
@@ -108,7 +110,7 @@ def test_import_builds_nothing():
                                    "regroup_probe", "leafround_probe",
                                    "multirow_probe", "gather_probe",
                                    "sphere_layout_probe",
-                                   "shapecast_probe"])
+                                   "shapecast_probe", "bvh_mx_ab"])
 def test_probes_exit_without_a_card(probe):
     """A probe measures the card and has no CPU mode: without a CUDA
     device it exits non-zero and prints nothing."""

@@ -296,11 +296,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def check_walk_inputs(origin: V3, direction: V3, tmax: torch.Tensor,
-                      tabs: HeapTables, rows: torch.Tensor, what: str):
+                      tabs: HeapTables, rows: torch.Tensor, what: str,
+                      dtype: torch.dtype = torch.float32):
     """Raise for inputs a heap-walk kernel (bvh.cu, bvh_mx.cu, bvh_rg.cu)
     does not take: rays and t_max [n] f32 on one device, the node table,
-    and the per-slot ``rows`` (``what``) covering every leaf, both 16-byte
-    aligned. Returns (device, n)."""
+    and the per-slot ``rows`` (``what``, of ``dtype``) covering every
+    leaf, both 16-byte aligned. Returns (device, n)."""
     dev = origin.x.device
     n = origin.x.shape[0]
     f32 = torch.float32
@@ -309,7 +310,7 @@ def check_walk_inputs(origin: V3, direction: V3, tmax: torch.Tensor,
         _check(name, a, dev, f32, (n,))
     _check("nodes", tabs.nodes, dev, f32, (2 * tabs.first_leaf, 8))
     t_count = rows.shape[0]
-    _check(what, rows, dev, f32, (t_count, rows.shape[1]))
+    _check(what, rows, dev, dtype, (t_count, rows.shape[1]))
     if t_count < tabs.first_leaf * tabs.prims_per_leaf:
         raise ValueError(f"{t_count} triangle slots do not cover "
                          f"{tabs.first_leaf} leaves of "

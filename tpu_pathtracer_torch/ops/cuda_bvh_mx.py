@@ -8,7 +8,9 @@ The walk is the heap kernel's (``ops/cuda_bvh.py``); at a leaf the four
 Möller–Trumbore numerators of every slot come from the ray's feature
 vector F = [d, o', o'×d, 1] against the slot's test columns G, each split
 into bf16 parts (3 or 6 passes), which is how the TPU kernel runs the
-leaf test on its matrix unit. That test only picks the winner: t, u, v
+leaf test on its matrix unit. :func:`mx_tables` splits G once a render
+(``MxTables.parts``, the kernel's input); the plain version splits the
+f32 G itself. That test only picks the winner: t, u, v
 and the features are then recomputed in exact f32 from the winner's id
 (:func:`exact_winner`). The contract and the summation order are in
 ``csrc/bvh_mx.cu``; kernel and plain version agree bit for bit (winner,
@@ -28,8 +30,7 @@ import torch
 
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh as _cb
-from tpu_pathtracer_torch.ops.cuda_spheres import _check, _on_cuda, \
-    _tmax_vector
+from tpu_pathtracer_torch.ops.cuda_spheres import _on_cuda, _tmax_vector
 from tpu_pathtracer_torch.ops.v3 import V3
 
 # Kernel launches by the wrappers below, per mode. Callers reset them to
@@ -49,6 +50,9 @@ PASSES = (3, 6)
 #   ua =  q·e2:           cols 7-9  = v0'×e2, 10-12 = e2   x F rows 0-2, 6-8
 #   va = -(q·e1):         cols 13-15 = -(v0'×e1), 16-18 = -e1  x the same
 G_COLUMNS = 20
+# A slot's row of G's bf16 parts, the kernel's table: _split3's hi, mid
+# and lo of the G_COLUMNS entries side by side, then zeros (128 B a slot).
+PART_COLUMNS = 64
 _GROUPS = ((slice(0, 3), (0, 1, 2)),
            (slice(3, 7), (3, 4, 5, 9)),
            (slice(7, 13), (0, 1, 2, 6, 7, 8)),
@@ -61,6 +65,8 @@ class MxTables(NamedTuple):
     heap: _cb.HeapTables   # node table, and tri_feat for the exact recompute
     g: torch.Tensor        # [T, 20] f32 test columns (G_COLUMNS)
     center: torch.Tensor   # [3] f32 recentering of G and of the rays
+    parts: torch.Tensor    # [T, 64] bf16 G parts (PART_COLUMNS), the kernel's
+    center_xyz: Tuple[float, float, float]  # center's values, read once
 
 
 def pow2_center(c: torch.Tensor) -> torch.Tensor:
@@ -92,8 +98,17 @@ def mx_tables(mesh) -> MxTables:
     k = -((v0p[:, 0] * n[:, 0] + v0p[:, 1] * n[:, 1]) + v0p[:, 2] * n[:, 2])
     g = torch.cat([-n, n, k[:, None], _cross(v0p, e2), e2,
                    -_cross(v0p, e1), -e1, torch.zeros_like(k)[:, None]],
-                  dim=1)
-    return MxTables(heap, g.contiguous(), center)
+                  dim=1).contiguous()
+    return MxTables(heap, g, center, g_parts(g), tuple(center.tolist()))
+
+
+def g_parts(g: torch.Tensor) -> torch.Tensor:
+    """[T, PART_COLUMNS] bf16: each test-column row's ``_split3`` parts
+    hi, mid and lo side by side, then zeros. Each part is a bf16 value, so
+    the cast is exact; at three passes ``_split_g``'s parts are hi and
+    mid."""
+    pad = g.new_zeros((g.shape[0], PART_COLUMNS - 3 * G_COLUMNS))
+    return torch.cat([*_split3(g), pad], dim=1).to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -227,15 +242,15 @@ def _lib() -> ctypes.CDLL:
 def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
             tabs: MxTables, t_min: float, passes: int):
     """Check the inputs, allocate the outputs and launch one mode of the
-    kernel on the current stream."""
+    kernel on the current stream: no host sync (the centre's values come
+    with the tables)."""
     _check_passes(passes)
     heap = tabs.heap
-    if tabs.g.shape[1:] != (G_COLUMNS,):
-        raise ValueError(f"test-column rows must be [T, {G_COLUMNS}]")
-    dev, n = _cb.check_walk_inputs(origin, direction, tmax, heap, tabs.g,
-                                   "test-column")
+    if tabs.parts.shape[1:] != (PART_COLUMNS,):
+        raise ValueError(f"G-part rows must be [T, {PART_COLUMNS}]")
+    dev, n = _cb.check_walk_inputs(origin, direction, tmax, heap,
+                                   tabs.parts, "G-part", torch.bfloat16)
     f32 = torch.float32
-    _check("center", tabs.center, dev, f32, (3,))
     cnt = torch.empty((5, n), dtype=torch.int32, device=dev)
     t_out = tri_out = occ_out = None
     if mode == _ANY_HIT:
@@ -245,14 +260,14 @@ def _launch(mode: int, origin: V3, direction: V3, tmax: torch.Tensor,
         tri_out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
         ptr = lambda a: None if a is None else a.data_ptr()
-        cx, cy, cz = tabs.center.tolist()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _lib().bvh_mx_launch(
                 mode, passes,
                 *(a.data_ptr() for a in (*origin, *direction, tmax)),
-                heap.nodes.data_ptr(), tabs.g.data_ptr(), heap.first_leaf,
-                heap.prims_per_leaf, cx, cy, cz, float(t_min), n,
+                heap.nodes.data_ptr(), tabs.parts.data_ptr(),
+                heap.first_leaf, heap.prims_per_leaf, *tabs.center_xyz,
+                float(t_min), n,
                 ptr(t_out), ptr(tri_out), ptr(occ_out), cnt.data_ptr(),
                 stream)
         if rc != 0:
