@@ -71,7 +71,11 @@ line each; any failure raises and exits non-zero:
      NEE rays; on all five sets each mode's device time a call in a CUDA
      graph beside its bound and its issue-rate floor (the SASS the
      kernel issues for the run's node steps, leaf visits and slots);
- 10. heap BVH (K5, K6) vs plain on the dragon-class knot, in the same way;
+ 10. heap BVH (K5, K6) vs plain on the dragon-class knot, in the same way,
+     also on the frame's shape, the 196,608 contiguous middle-row pixels
+     of the dragon's lane pool and their NEE rays; each mode's device time
+     a call in a CUDA graph at 131,072 and at the pool beside its bound and
+     issue-rate floor, as phase 9's (exact and fast_math);
      then on the same lanes the heap tier's variants: the MXU-leaf kernels
      (K10 nearest, K10b any-hit; the kernel's t, winners, occlusion and
      counters bit-equal, also on the frame's shape, the 196,608 contiguous
@@ -83,10 +87,10 @@ line each; any failure raises and exits non-zero:
      occlusion flips counted); the
      regrouped kernel (K11: t, winners and counters bit-equal; its leaf
      visits within [1, 1.5]x K5's) and K5/K6's fast_math mode against the
-     exact plain walk (t within 2^-20 relative where the winners agree;
-     winners, hits and occlusion equal except on lanes with a triangle
-     whose exact u, v, u+v, t or |a| lies within 2^-20 of an accept
-     bound, counted);
+     exact plain walk, on phase 10's sets and the pool's (t within 2^-20
+     relative where the winners agree; winners, hits and occlusion equal
+     except on lanes with a triangle whose exact u, v, u+v, t or |a| lies
+     within 2^-20 of an accept bound, counted);
  10c. the packet walk on the same primary and NEE lanes: K12a
      (``mr_trace``) and K12b (``mr_occluded``), counts from 0; t, winners,
      features, occlusion and per-packet counters bit-equal to the plain
@@ -118,13 +122,14 @@ line each; any failure raises and exits non-zero:
      and rmse < 2e-3 (MX_FRAME_RMSE), also on two more sample windows,
      and at mx_passes=6 closer to the default than at 3;
  14. profile: one sample per pixel of config 4's frame, of the
-     staircase-toy's, of the headline's and of the dragon's under mx_leaf,
-     over their middle rows, two lane pools' worth of pixels (the
-     profiler's cost grows with the kernels it records), under
-     torch.profiler: host dispatches and device kernel time per regen
-     iteration, the device's busy share, the kernels that take most (and
-     by name config 4's BVH4 kernels, the staircase-toy's triangle
-     kernels, the headline's sphere kernel and the dragon's K10 and K10b).
+     staircase-toy's, of the headline's, of the dragon's and of the
+     dragon's under mx_leaf, over their middle rows, two lane pools' worth
+     of pixels (the profiler's cost grows with the kernels it records),
+     under torch.profiler: host dispatches and device kernel time per
+     regen iteration, the device's busy share, the kernels that take most
+     (and by name config 4's BVH4 kernels, the staircase-toy's triangle
+     kernels, the headline's sphere kernel, the dragon's K5 and K6 and,
+     under mx_leaf, K10 and K10b).
      All run after phase 13, the last timed frame: a profiler session
      slows the host's launches in the rest of the process;
  15. the leaf-fetch probes on the TPU probes' seeded inputs, counts from
@@ -298,6 +303,16 @@ MX_ROW_BYTES = 2 * 2 * cmx.G_COLUMNS
 # loop's ballots) and of a leaf visit's F reads, merge or ballot and pop
 # (a round's, times the visit's lanes: 16 nearest, 32 any-hit)
 MX_SASS = {"nearest": (195, 105, 170 * 16), "any_hit": (196, 105, 82 * 32)}
+# csrc/bvh.cu's SASS for sm_90a (cuobjdump -sass of experiments/bvh_ab.py
+# --out, counted on an H100's build), as BVH4_SASS: the lane instructions
+# of a slot test (the leaf loop's body, the division's slow path not
+# taken; fast_math's loop is unrolled twice), of a node step (the walk
+# loop without its leaf phase: the step, the ballots, the loop) and of a
+# leaf visit's shuffles, merge or ballot and pop (a round's, times the
+# visit's lanes: 16 nearest, 32 any-hit), in each mode and arithmetic
+HEAP_SASS = {"nearest": (68, 117, 146 * 16), "any_hit": (71, 112, 62 * 32),
+             "nearest_fast_math": (58, 117, 152 * 16),
+             "any_hit_fast_math": (61, 112, 62 * 32)}
 MX_POOL = 3 << 16  # the dragon frame's lane pool (engine/regen.py)
 FAST_DELTA = 2.0 ** -20  # fast_math: the bound on t and on accept flips
 # K10 against the exact K5: the share of the hits whose winner may
@@ -1279,37 +1294,41 @@ def pool_sets(scene, cam, cfg, kern, n=BVH_RAYS):
 
 def issue_floor(sass, mode, cnt, slots):
     """(ms, lane instructions): the least time the card could issue a BVH
-    kernel's SASS (``sass``: BVH4_SASS or MX_SASS) for a run's node
-    steps, leaf visits and slot tests (``cnt``: its per-ray counters) at
-    ISSUE_RATE."""
+    kernel's SASS (``sass``: BVH4_SASS, HEAP_SASS or MX_SASS) for a run's
+    node steps, leaf visits and slot tests (``cnt``: its per-ray
+    counters) at ISSUE_RATE."""
     slot, node, visit = sass[mode]
     c = cnt.sum(dim=1, dtype=torch.int64)
     lanes = slots * slot + int(c[4]) * node + int(c[2]) * visit
     return lanes / 32 / ISSUE_RATE * 1e3, lanes
 
 
-def graph_phase(tag, kern, sets, checks, eps, sass):
+def graph_phase(tag, kern, sets, checks, eps, sass, fast_math=False):
     """Phases 9 and 10's device times: each mode's call on each ray set
     (name: (origin, direction, t_max); NEE sets in any-hit) captured in a
     CUDA graph, beside its bound (``checks``: the set's compare_bvh_*
     result) and its issue-rate floor (``sass``). Any-hit's slots are those
-    up to the first hit. Returns {name: (ms, bound, floor ms)}."""
+    up to the first hit. ``fast_math``: the heap kernels' fast_math mode
+    (the bound is the exact mode's: the same work). Returns {name: (ms,
+    bound, floor ms)}."""
     tabs, out = kern.tabs, {}
+    kw = dict(approx_recip=True) if fast_math else {}
+    suffix = "_fast_math" if fast_math else ""
     for name, (o, d, tm) in sets.items():
         if "NEE" in name:
-            call = lambda: kern.occluded(o, d, tm, tabs, eps)
+            call = lambda: kern.occluded(o, d, tm, tabs, eps, **kw)
             occ, cnt = call()
             best = kern.route.walk(o, d, tm, tabs, eps, any_hit=True)[1]
             c2 = int(cnt[2].sum(dtype=torch.int64))
             slots = ((c2 - int(occ.sum())) * kern.slots
                      + int((best[occ].to(torch.int64) % kern.slots
                             + 1).sum()))
-            mode = "any_hit"
+            mode = "any_hit" + suffix
         else:
-            call = lambda: kern.trace(o, d, tm, tabs, eps)
+            call = lambda: kern.trace(o, d, tm, tabs, eps, **kw)
             cnt = call()[2]
             slots = int(cnt[2].sum(dtype=torch.int64)) * kern.slots
-            mode = "nearest"
+            mode = "nearest" + suffix
         ms = graph_ms(call)
         floor, lanes = issue_floor(sass, mode, cnt, slots)
         bnd = checks[name][3]
@@ -1324,9 +1343,9 @@ def graph_phase(tag, kern, sets, checks, eps, sass):
 
 def graph_record(name, source, replaces, launches, check, graph, pool,
                  lanes=BVH_RAYS):
-    """A BVH kernel's JSON record (K8, K9, K10, K10b): times and bound on
-    its phase's set (``check``), the device time a call in a CUDA graph
-    and the issue-rate floor on each of the mode's sets (``graph_ms``,
+    """A BVH kernel's JSON record (K5, K6, K8, K9, K10, K10b): times and
+    bound on its phase's set (``check``), the device time a call in a CUDA
+    graph and the issue-rate floor on each of the mode's sets (``graph_ms``,
     ``floor_ms``) and, at the frame's own shape (``pool``: the set's
     name, ``lanes`` lanes), its time, bound and floor."""
     rec = record(name, source, OPS + replaces, launches, *check)
@@ -1592,12 +1611,15 @@ def mx_departures(tag, mesh, mx_tabs, origin, direction, t_max, eps):
     return out
 
 
-def heap_variants_phase(scene, cam, cfg, tabs, rays):
+def heap_variants_phase(scene, cam, cfg, tabs, rays, heap_pool,
+                        heap_checks):
     """Phase 10's second half: the heap tier's other kernels on the same
     lanes; K10 and K10b also on the frame's shape (the MX_POOL contiguous
     middle-row pixels and their NEE rays), and each mode's device time a
-    call in a CUDA graph. Returns ({record name: (err, ms, plain_ms,
-    bound)}, the nearest modes' from the primary rays; K10/K10b's
+    call in a CUDA graph; K5/K6's fast_math mode also on K5/K6's pool sets
+    (``heap_pool``, with ``heap_checks`` their bounds), timed the same
+    way. Returns ({record name: (err, ms, plain_ms, bound)}, the nearest
+    modes' from the primary rays; K10/K10b's and K5/K6's fast_math
     graph_phase times)."""
     out = {}
     mesh, eps = scene.mesh, cfg.epsilon
@@ -1659,7 +1681,14 @@ def heap_variants_phase(scene, cam, cfg, tabs, rays):
                       False)
     out["heap_occluded_fast_math"] = compare_fast_math(
         "fast_math dragon NEE shadows", heap, *shadow, eps, True)
-    return out, mx_graph
+    for name, (o, d, t) in heap_pool.items():
+        compare_fast_math(f"fast_math dragon {name}", heap, o, d, t, eps,
+                          "NEE" in name)
+    fm_graph = graph_phase("fast_math dragon", heap,
+                           {"primary": rays["primary"],
+                            "NEE shadows": shadow, **heap_pool},
+                           heap_checks, eps, HEAP_SASS, fast_math=True)
+    return out, mx_graph, fm_graph
 
 
 def mr_phase(tabs, rays, eps, bounds):
@@ -2226,10 +2255,11 @@ def mx_frame_checks(scene, cam, cfg, base, mx_img):
 
 
 def dragon_path(dev):
-    """Phases 10, 10c, 10d and 13. Returns the mx_leaf frame's profile
-    (phase 14, to run after the timed frames) and the JSON records of K5,
-    K6, the heap tier's variants (K10, K10b, K11, K5/K6 fast_math), the
-    packet walk (K12a, K12b) and the walk probes (K13, K16)."""
+    """Phases 10, 10c, 10d and 13. Returns the default and mx_leaf frames'
+    profiles (phase 14, to run after the timed frames) and the JSON
+    records of K5, K6, the heap tier's variants (K10, K10b, K11, K5/K6
+    fast_math), the packet walk (K12a, K12b) and the walk probes (K13,
+    K16)."""
     cfg = RenderConfig(**DRAGON)
     t0 = time.perf_counter()
     scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, device=dev, **DRAGON_MESH)
@@ -2241,10 +2271,21 @@ def dragon_path(dev):
           f"{scene.mesh.prims_per_leaf} a leaf, tier heap")
     tabs = cb.heap_tables(scene.mesh)
     kern = BvhKernels("heap", tabs)
-    res, rays = bvh_kernel_phase("heap dragon", scene, cam, cfg, kern)
-    (err, ms, plain_ms, bnd), (err_a, ms_a, plain_a, bnd_a) = \
-        res["primary"], res["NEE shadows"]
-    variants, mx_graph = heap_variants_phase(scene, cam, cfg, tabs, rays)
+    tag = "heap dragon"
+    res, rays = bvh_kernel_phase(tag, scene, cam, cfg, kern)
+    bnd, bnd_a = res["primary"][3], res["NEE shadows"][3]
+    # K5/K6 at the frame's shape: the dragon's lane pool
+    pool = pool_sets(scene, cam, cfg, kern, MX_POOL)
+    res["pool primary"] = compare_bvh_nearest(
+        f"{tag} pool primary", kern, *pool["pool primary"], cfg.epsilon)
+    res["pool NEE shadows"] = compare_bvh_anyhit(
+        f"{tag} pool NEE shadows", kern, *pool["pool NEE shadows"],
+        cfg.epsilon)
+    graph = graph_phase(tag, kern, {"primary": rays["primary"],
+                                    "NEE shadows": rays["NEE shadows"],
+                                    **pool}, res, cfg.epsilon, HEAP_SASS)
+    variants, mx_graph, fm_graph = heap_variants_phase(
+        scene, cam, cfg, tabs, rays, pool, res)
     mr_recs = mr_phase(tabs, rays, cfg.epsilon, (bnd, bnd_a))
     probe_recs = walk_probe_phase(tabs, rays, cfg.epsilon)
 
@@ -2281,22 +2322,29 @@ def dragon_path(dev):
     fm_l = knob_launches["fast_math=True"]
     rec = lambda name, src, rep, n, key: record(name, src, rep, n,
                                                 *variants[key])
-    # profiled later, as the other frames: K10 and K10b by name
-    profile = functools.partial(profile_frame, "dragon mx_leaf", scene, cam,
-                                cfg.replace(mx_leaf=True),
-                                itemize="::mx_kernel")
-    return profile, [
-        record("heap_trace", "bvh.cu", OPS + "pallas_bvh.py:937",
-               launches["cuda_bvh.nearest"], err, ms, plain_ms, bnd),
-        record("heap_occluded", "bvh.cu", OPS + "pallas_bvh.py:1393",
-               launches["cuda_bvh.any_hit"], err_a, ms_a, plain_a,
-               bnd_a),
-        rec("heap_trace_fast_math", "bvh.cu", OPS + "pallas_bvh.py:937",
-            fm_l["cuda_bvh.nearest_fast_math"], "heap_trace_fast_math"),
-        rec("heap_occluded_fast_math", "bvh.cu",
-            OPS + "pallas_bvh.py:1393",
-            fm_l["cuda_bvh.any_hit_fast_math"],
-            "heap_occluded_fast_math"),
+    # profiled later, as the other frames: the default frame's K5 and K6,
+    # and the mx_leaf frame's K10 and K10b, by name
+    profiles = [
+        functools.partial(profile_frame, "dragon", scene, cam, cfg,
+                          itemize="::heap_kernel"),
+        functools.partial(profile_frame, "dragon mx_leaf", scene, cam,
+                          cfg.replace(mx_leaf=True), itemize="::mx_kernel")]
+    return profiles, [
+        graph_record("heap_trace", "bvh.cu", "pallas_bvh.py:937",
+                     launches["cuda_bvh.nearest"], res["primary"], graph,
+                     "pool primary", MX_POOL),
+        graph_record("heap_occluded", "bvh.cu", "pallas_bvh.py:1393",
+                     launches["cuda_bvh.any_hit"], res["NEE shadows"],
+                     graph, "pool NEE shadows", MX_POOL),
+        graph_record("heap_trace_fast_math", "bvh.cu", "pallas_bvh.py:937",
+                     fm_l["cuda_bvh.nearest_fast_math"],
+                     variants["heap_trace_fast_math"], fm_graph,
+                     "pool primary", MX_POOL),
+        graph_record("heap_occluded_fast_math", "bvh.cu",
+                     "pallas_bvh.py:1393",
+                     fm_l["cuda_bvh.any_hit_fast_math"],
+                     variants["heap_occluded_fast_math"], fm_graph,
+                     "pool NEE shadows", MX_POOL),
         graph_record("mx_trace", "bvh_mx.cu", "pallas_bvh_mx.py:190",
                      mx_l["cuda_bvh_mx.nearest"], variants["mx_trace"],
                      mx_graph, "pool primary", MX_POOL),
@@ -2328,12 +2376,12 @@ def main():
     headline_profile, kernels = spheres_path(dev)
     stair_profile, stair_recs = staircase_path(dev)
     config4_profile, config4_recs = staircase_hires_path(dev)
-    dragon_profile, dragon_recs = dragon_path(dev)
+    dragon_profiles, dragon_recs = dragon_path(dev)
     kernels += [*stair_recs, *config4_recs, *dragon_recs]
     # phase 14 after every timed frame: a profiler session slows the
     # host's later launches in the process
     for profile in (config4_profile, stair_profile, headline_profile,
-                    dragon_profile):
+                    *dragon_profiles):
         profile()
     kernels += [*leaf_probe_phase(dev), *micro_phase(dev),
                 *packet8_phase(dev), *layout_phase(dev)]

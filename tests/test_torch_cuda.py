@@ -1,5 +1,6 @@
 """The CUDA sphere (exact and mx), triangle, heap-BVH (exact and
-fast_math, MXU-leaf, regrouped, packet walk) and BVH4 kernels, and the
+fast_math, on its contract cases and at the dragon's lane pool; MXU-leaf,
+regrouped, packet walk) and BVH4 kernels, and the
 probes' kernels (K13-K16), the TPU micro-benchmarks' (K17a-K20), the
 regroup and 8-row packet probes' (K21-K24), the sphere layout probe's
 (K25a, K25b) and the shape-cast probe's (K26),
@@ -50,6 +51,7 @@ from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh4_cases
 import bvh_mx_cases
+import heap_cases
 import sphere_cases
 import tri_cases
 
@@ -61,6 +63,22 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def _op_recorder():
+    """A dispatch mode that records, by name (``.ops``), the aten ops
+    dispatched under it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func.overloadpacket.__name__))
+            return func(*args, **(kwargs or {}))
+    return Ops()
 
 
 def _inputs(dev, n=50_000, s=700, seed=0):
@@ -238,17 +256,6 @@ def test_sphere_frame_call_dispatches_only_its_outputs(dev):
     """The frame's call, spheres_hit_feat with the view's table and a
     float t_max, dispatches its three output allocations and the unbind
     of the features, and nothing else: no table build, no [N] t_max."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Ops(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops.append(str(func.overloadpacket.__name__))
-            return func(*args, **(kwargs or {}))
-
     cfg = RenderConfig(nx=48, ny=32, ns=1, max_depth=2)
     scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device=dev)
     view = wf.make_view(scene, cfg)
@@ -259,7 +266,7 @@ def test_sphere_frame_call_dispatches_only_its_outputs(dev):
                                        tab=view.sph_tab)
     call()  # built and loaded
     before = cs.LAUNCHES
-    with Ops() as mode:
+    with _op_recorder() as mode:
         call()
     assert cs.LAUNCHES == before + 1
     assert sorted(mode.ops) == ["empty", "empty", "empty", "unbind"]
@@ -659,6 +666,139 @@ def test_heap_fast_math_within_bound(dev):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("ppl", [5, 33, 64])
+def test_heap_kernel_leaf_widths_bit_equal(dev, ppl):
+    """Leaf widths that are no multiple of a pair's lanes (5, 33) and the
+    dragon's 64."""
+    mesh, o, d, tm = _bvh_inputs(dev, seed=9, ppl=ppl)
+    tabs = cb.heap_tables(mesh)
+    _assert_walks_equal(cb.heap_trace, cb.heap_occluded, cb._heap_trace_ref,
+                        cb._heap_occluded_ref, cb.LAUNCHES, o, d, tm, tabs)
+
+
+def _heap_modes_bit_equal(o, d, tm, tabs, t_min=T_MIN):
+    """Both modes of K5/K6 against the plain walk, bit-equal in every
+    output (a NaN t_max gives t = NaN on both sides), one launch a mode;
+    returns the kernel's (t, tri, occ, counters) as numpy arrays."""
+    before = dict(cb.LAUNCHES)
+    t, tri, cnt = cb.heap_trace(o, d, tm, tabs, t_min)
+    occ, ocnt = cb.heap_occluded(o, d, tm, tabs, t_min)
+    assert cb.LAUNCHES == {**before, "nearest": before["nearest"] + 1,
+                           "any_hit": before["any_hit"] + 1}
+    pt, ptri, pcnt = cb._heap_trace_ref(o, d, tm, tabs, t_min)
+    pocc, pocnt = cb._heap_occluded_ref(o, d, tm, tabs, t_min)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+    for a, b in ((tri, ptri), (cnt, pcnt), (occ, pocc), (ocnt, pocnt)):
+        assert torch.equal(a, b)
+    return tuple(a.cpu().numpy() for a in (t, tri, occ, cnt))
+
+
+def _heap_case(dev, name):
+    """A contract case's tables and rays on the card."""
+    c = heap_cases.case(name)
+    tabs = cb.heap_tables(heap_cases.port_mesh(c, dev))
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    return c, tabs, v(c.o), v(c.d), torch.from_numpy(c.t_max).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", heap_cases.CASES)
+def test_heap_contract_cases_bit_equal(dev, name):
+    """The contract's edge cases (tests/heap_cases.py, held against the
+    JAX kernels on the CPU), K5 and K6 against the plain walk, and each
+    case's own check."""
+    c, tabs, o, d, tm = _heap_case(dev, name)
+    c.check(*_heap_modes_bit_equal(o, d, tm, tabs, heap_cases.T_MIN))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", heap_cases.CASES)
+def test_heap_fast_math_contract_cases_within_bound(dev, name):
+    """The fast_math mode on the contract's edge cases, held as
+    test_heap_fast_math_within_bound holds it: t within 2^-20 relative
+    where the winners agree, winners and occlusion equal on all but a
+    handful of lanes."""
+    c, tabs, o, d, tm = _heap_case(dev, name)
+    t_min = heap_cases.T_MIN
+    tk, ik, _ = cb.heap_trace(o, d, tm, tabs, t_min, approx_recip=True)
+    tp, ip, _ = cb._heap_trace_ref(o, d, tm, tabs, t_min)
+    same = (ik == ip) & (ip >= 0)
+    assert int((ik != ip).sum()) <= 8
+    assert bool(((tk - tp).abs() <= FAST_T_RTOL * tp.abs())[same].all())
+    ok, _ = cb.heap_occluded(o, d, tm, tabs, t_min, approx_recip=True)
+    op, _ = cb._heap_occluded_ref(o, d, tm, tabs, t_min)
+    assert int((ok != op).sum()) <= 8
+
+
+@pytest.mark.gpu
+def test_heap_pool_bit_equal(dev):
+    """The dragon frame's lane pool, 196,608 lanes (engine/regen.py, the
+    untextured packet path), over 64-slot leaves; every 7th lane dead."""
+    mesh, o, d, tm = _bvh_inputs(dev, n=196_608, seed=8, ppl=64)
+    tabs = cb.heap_tables(mesh)
+    t, tri, occ, cnt = _heap_modes_bit_equal(o, d, tm, tabs)
+    assert (tri >= 0).mean() > 0.1 and not occ[::7].any()
+    assert not cnt[:, ::7].any()
+
+
+@pytest.mark.gpu
+def test_heap_divergent_warps_bit_equal(dev):
+    """Rays from one origin inside the soup, neighbouring lanes into
+    opposite halves of it: every warp's rays walk different nodes and
+    leaves."""
+    mesh, _, _, _ = _bvh_inputs(dev, n=2, seed=3, ppl=64)
+    tabs = cb.heap_tables(mesh)
+    rng = np.random.RandomState(4)
+    n = 40_000
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 0] = np.abs(d[:, 0]) * np.where(np.arange(n) % 2, -1, 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    o = v(np.zeros((n, 3), np.float32))
+    tm = torch.where(torch.arange(n, device=dev) % 3 == 0, 4.0, FLT_MAX)
+    t, tri, occ, cnt = _heap_modes_bit_equal(o, v(d), tm, tabs)
+    assert (tri[0::2] >= 0).mean() > 0.5 and (tri[1::2] >= 0).mean() > 0.5
+    assert occ.any() and not occ.all()
+
+
+@pytest.mark.gpu
+def test_heap_frame_call_dispatches_only_its_outputs(dev):
+    """The frame's calls, heap_trace and heap_occluded with the view's
+    tables and an [N] t_max, in both arithmetic modes, dispatch their
+    output allocations and the t_max view, and nothing else: no
+    .tolist(), no _local_scalar_dense, no copy to the host."""
+    cfg = RenderConfig(nx=48, ny=32, ns=1, max_depth=2, textures=False,
+                       packet_threshold=1, bvh4=False)
+    scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, nu=96, nv=24,
+                                prims_per_leaf=32, device=dev)
+    view = wf.make_view(scene, cfg)
+    assert isinstance(view.packet, cb.HeapTables)
+    o, d = cam.generate_rays(torch.arange(cfg.num_pixels, device=dev), 0,
+                             cfg.nx, cfg.ny)
+    tm = torch.full((cfg.num_pixels,), FLT_MAX, device=dev)
+    want = {"nearest": ["empty", "empty", "empty", "expand"],
+            "any_hit": ["empty", "empty", "expand"]}
+    for approx in (False, True):
+        calls = {"nearest": lambda: cb.heap_trace(o, d, tm, view.packet,
+                                                  cfg.epsilon,
+                                                  approx_recip=approx),
+                 "any_hit": lambda: cb.heap_occluded(o, d, tm, view.packet,
+                                                     cfg.epsilon,
+                                                     approx_recip=approx)}
+        for mode, call in calls.items():
+            key = mode + ("_fast_math" if approx else "")
+            call()  # built and loaded
+            before = cb.LAUNCHES[key]
+            with _op_recorder() as ops:
+                call()
+            assert cb.LAUNCHES[key] == before + 1
+            assert sorted(ops.ops) == want[mode]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("passes", [3, 6])
 def test_mx_kernel_bit_equal(dev, passes):
     mesh, o, d, tm = _bvh_inputs(dev, seed=4)
@@ -730,17 +870,6 @@ def test_mx_frame_call_dispatches_only_its_outputs(dev):
     and an [N] t_max, dispatch their output allocations and the t_max
     view, and nothing else: no .tolist(), no _local_scalar_dense, no copy
     to the host."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Ops(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = []
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.ops.append(str(func.overloadpacket.__name__))
-            return func(*args, **(kwargs or {}))
-
     cfg = RenderConfig(nx=48, ny=32, ns=1, max_depth=2, textures=False,
                        packet_threshold=1, bvh4=False, mx_leaf=True)
     scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, nu=96, nv=24,
@@ -759,7 +888,7 @@ def test_mx_frame_call_dispatches_only_its_outputs(dev):
     for mode, call in calls.items():
         call()  # built and loaded
         before = cmx.LAUNCHES[mode]
-        with Ops() as ops:
+        with _op_recorder() as ops:
             call()
         assert cmx.LAUNCHES[mode] == before + 1
         assert sorted(ops.ops) == want[mode]

@@ -49,6 +49,7 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.bvh4_ab",
             "tpu_pathtracer_torch.experiments.spheres_ab",
             "tpu_pathtracer_torch.experiments.bvh_mx_ab",
+            "tpu_pathtracer_torch.experiments.bvh_ab",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -93,7 +94,8 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.shapecast_probe, "
             "tpu_pathtracer_torch.experiments.bvh4_ab, "
             "tpu_pathtracer_torch.experiments.spheres_ab, "
-            "tpu_pathtracer_torch.experiments.bvh_mx_ab\n"
+            "tpu_pathtracer_torch.experiments.bvh_mx_ab, "
+            "tpu_pathtracer_torch.experiments.bvh_ab\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"
@@ -110,7 +112,8 @@ def test_import_builds_nothing():
                                    "regroup_probe", "leafround_probe",
                                    "multirow_probe", "gather_probe",
                                    "sphere_layout_probe",
-                                   "shapecast_probe", "bvh_mx_ab"])
+                                   "shapecast_probe", "bvh_mx_ab",
+                                   "bvh_ab"])
 def test_probes_exit_without_a_card(probe):
     """A probe measures the card and has no CPU mode: without a CUDA
     device it exits non-zero and prints nothing."""

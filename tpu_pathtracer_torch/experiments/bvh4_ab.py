@@ -46,9 +46,9 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import render_regen
-from tpu_pathtracer_torch.experiments.common import (build, card,
-                                                      first_bounce, graph_ms,
-                                                      variant)
+from tpu_pathtracer_torch.experiments.common import (ab_sources, build,
+                                                      card, first_bounce,
+                                                      graph_ms, noleaf)
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
@@ -64,14 +64,6 @@ ITERS = (12, 25)
 LEAF_LOOPS = (("for (int k = s; k < width; k += L)",
                "for (int k = s; k < 0; k += L)"),
               ("k < width; ++k, row += 3", "k < 0; ++k, row += 3"))
-
-
-def noleaf(text: str) -> str:
-    """``text`` with its nearest leaf loop cut."""
-    for old, new in LEAF_LOOPS:
-        if old in text:
-            return text.replace(old, new)
-    raise ValueError("no known leaf loop in the source")
 
 
 def load(lib: Path) -> ctypes.CDLL:
@@ -131,24 +123,12 @@ def ray_sets(scene, cam, cfg, tabs, iters):
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    out = None
-    if "--out" in argv:
-        k = argv.index("--out")
-        out = Path(argv.pop(k + 1))
-        argv.pop(k)
-    cut = "--noleaf" in argv
-    argv = [a for a in argv if a != "--noleaf"]
     dev = card("bvh4_ab")
-    new = (_build.CSRC_DIR / "bvh4.cu").read_text()
-    texts = {}
-    for arg in argv:
-        name, what = arg.split("=", 1)
-        texts[name] = (variant(new, what) if ":" in what
-                       else Path(what).read_text())
-    texts.setdefault("new", new)
+    texts, cut, out = ab_sources(argv,
+                                 (_build.CSRC_DIR / "bvh4.cu").read_text())
     if cut:
-        texts.update({f"{k}_noleaf": noleaf(v) for k, v in list(
-            texts.items())})
+        texts.update({f"{k}_noleaf": noleaf(v, LEAF_LOOPS)
+                      for k, v in list(texts.items())})
     with ThreadPoolExecutor(len(texts)) as ex:
         built = dict(zip(texts, ex.map(lambda kv: build(*kv, out),
                                        texts.items())))

@@ -54,9 +54,10 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import render_regen
-from tpu_pathtracer_torch.experiments.common import (build, card,
-                                                      event_ms, first_bounce,
-                                                      graph_ms, variant)
+from tpu_pathtracer_torch.experiments.common import (ab_sources, build,
+                                                      card, event_ms,
+                                                      first_bounce,
+                                                      graph_ms, noleaf)
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
@@ -71,19 +72,6 @@ ROUNDS = 5
 FULL = 2         # the regen iteration (from 1) of the pool full of paths
 TAIL_LIVE = 0.1  # the tail set: the last iteration with this live share
 FRAMES = 2       # rounds of the 4 spp frame through each source
-# the nearest leaf loops of csrc/bvh_mx.cu and of its first form (one
-# thread a ray), and the same loops cut
-LEAF_LOOPS = (("for (int k = s; k < P; k += L)",
-               "for (int k = s; k < 0; k += L)"),
-              ("for (int k = 0; k < P; ++k)", "for (int k = 0; k < 0; ++k)"))
-
-
-def noleaf(text: str) -> str:
-    """``text`` with its nearest leaf loop cut."""
-    for old, new in LEAF_LOOPS:
-        if old in text:
-            return text.replace(old, new, 1)
-    raise ValueError("no known leaf loop in the source")
 
 
 def load(lib: Path) -> ctypes.CDLL:
@@ -188,21 +176,9 @@ def ray_sets(scene, cam, cfg, tabs):
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    out = None
-    if "--out" in argv:
-        k = argv.index("--out")
-        out = Path(argv.pop(k + 1))
-        argv.pop(k)
-    cut = "--noleaf" in argv
-    argv = [a for a in argv if a != "--noleaf"]
     dev = card("bvh_mx_ab")
-    new = (_build.CSRC_DIR / "bvh_mx.cu").read_text()
-    texts = {}
-    for arg in argv:
-        name, what = arg.split("=", 1)
-        texts[name] = (variant(new, what) if ":" in what
-                       else Path(what).read_text())
-    texts.setdefault("new", new)
+    texts, cut, out = ab_sources(
+        argv, (_build.CSRC_DIR / "bvh_mx.cu").read_text())
     if cut:
         texts.update({f"{k}_noleaf": noleaf(v) for k, v in list(
             texts.items())})

@@ -1,8 +1,8 @@
 """What the probes share on the card: the card's line, CUDA-event times,
 kernels timed in turns or in a CUDA graph, device times from the
 profiler, a first bounce's ray sets, the walk telemetry they print, and
-the A/Bs' builds of a kernel's other sources (``bvh4_ab``,
-``spheres_ab``).
+the A/Bs' command line and builds of a kernel's other sources
+(``bvh4_ab``, ``spheres_ab``, ``bvh_mx_ab``, ``bvh_ab``).
 
 A probe needs a CUDA device: :func:`card` exits non-zero without one
 (the kernels have no CPU mode), and prints the ``nvidia-smi`` name and
@@ -194,6 +194,46 @@ def variant(text: str, spec: str) -> str:
         if n != 1:
             raise ValueError(f"no constexpr int {k} in the source")
     return text
+
+
+def ab_sources(argv: List[str], new: str):
+    """An A/B's command line: ``NAME=PATH`` (a source file) and
+    ``NAME=K:V,...`` (``new`` with its constants set, :func:`variant`),
+    in order, then ``new`` itself as "new" unless named; ``--noleaf``;
+    ``--out DIR``. Returns ({name: source text}, whether --noleaf was
+    given, DIR or None)."""
+    argv = list(argv)
+    out = None
+    if "--out" in argv:
+        k = argv.index("--out")
+        out = Path(argv.pop(k + 1))
+        argv.pop(k)
+    cut = "--noleaf" in argv
+    texts = {}
+    for arg in (a for a in argv if a != "--noleaf"):
+        name, what = arg.split("=", 1)
+        texts[name] = (variant(new, what) if ":" in what
+                       else Path(what).read_text())
+    texts.setdefault("new", new)
+    return texts, cut, out
+
+
+# the nearest leaf loops of the heap kernels' split form (csrc/bvh.cu,
+# csrc/bvh_mx.cu) and of their first forms (one thread a ray), and the
+# same loops cut
+HEAP_LEAF_LOOPS = (("for (int k = s; k < P; k += L)",
+                    "for (int k = s; k < 0; k += L)"),
+                   ("for (int k = 0; k < P; ++k)",
+                    "for (int k = 0; k < 0; ++k)"))
+
+
+def noleaf(text: str, loops=HEAP_LEAF_LOOPS) -> str:
+    """``text`` with the first of ``loops`` ((loop, cut loop) pairs) that
+    it holds cut: its first occurrence, the nearest mode's."""
+    for old, new in loops:
+        if old in text:
+            return text.replace(old, new, 1)
+    raise ValueError("no known leaf loop in the source")
 
 
 def build(name: str, text: str, out: Path | None):

@@ -52,9 +52,9 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import render_regen
-from tpu_pathtracer_torch.experiments.common import (build, card,
-                                                      first_bounce, graph_ms,
-                                                      sphere_pairs, variant)
+from tpu_pathtracer_torch.experiments.common import (ab_sources, build,
+                                                      card, first_bounce,
+                                                      graph_ms, sphere_pairs)
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
@@ -128,19 +128,9 @@ def ray_sets(scene, cam, cfg, view):
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    out = None
-    if "--out" in argv:
-        k = argv.index("--out")
-        out = Path(argv.pop(k + 1))
-        argv.pop(k)
     dev = card("spheres_ab")
-    new = (_build.CSRC_DIR / "spheres.cu").read_text()
-    texts = {}
-    for arg in argv:
-        name, what = arg.split("=", 1)
-        texts[name] = (variant(new, what) if ":" in what
-                       else Path(what).read_text())
-    texts.setdefault("new", new)
+    texts, _, out = ab_sources(argv,
+                               (_build.CSRC_DIR / "spheres.cu").read_text())
     with ThreadPoolExecutor(len(texts)) as ex:
         built = dict(zip(texts, ex.map(
             lambda kv: build(f"spheres_{kv[0]}", kv[1], out),
