@@ -85,8 +85,12 @@ line each; any failure raises and exits non-zero:
      departs from the exact K5 at 3 and 6 passes (winners a neighbour of
      K5's, pass-throughs, extra hits, each counted and bounded; K10b's
      occlusion flips counted); the
-     regrouped kernel (K11: t, winners and counters bit-equal; its leaf
-     visits within [1, 1.5]x K5's) and K5/K6's fast_math mode against the
+     regrouped kernel (K11: t, winners and counters bit-equal, also on the
+     pool's 196,608 contiguous middle-row primary rays; its leaf visits
+     within [1, 1.5]x K5's; K5 and K11 in turns, device time a call in a
+     CUDA graph; K11's device time a call in a CUDA graph at 131,072 and
+     at the pool beside its bound and issue-rate floor, as phase 9's) and
+     K5/K6's fast_math mode against the
      exact plain walk, on phase 10's sets and the pool's (t within 2^-20
      relative where the winners agree; winners, hits and occlusion equal
      except on lanes with a triangle whose exact u, v, u+v, t or |a| lies
@@ -123,13 +127,14 @@ line each; any failure raises and exits non-zero:
      and at mx_passes=6 closer to the default than at 3;
  14. profile: one sample per pixel of config 4's frame, of the
      staircase-toy's, of the headline's, of the dragon's and of the
-     dragon's under mx_leaf, over their middle rows, two lane pools' worth
-     of pixels (the profiler's cost grows with the kernels it records),
-     under torch.profiler: host dispatches and device kernel time per
-     regen iteration, the device's busy share, the kernels that take most
-     (and by name config 4's BVH4 kernels, the staircase-toy's triangle
-     kernels, the headline's sphere kernel, the dragon's K5 and K6 and,
-     under mx_leaf, K10 and K10b).
+     dragon's under mx_leaf and under regroup, over their middle rows, two
+     lane pools' worth of pixels (the profiler's cost grows with the
+     kernels it records), under torch.profiler: host dispatches and device
+     kernel time per regen iteration, the device's busy share, the kernels
+     that take most (and by name config 4's BVH4 kernels, the
+     staircase-toy's triangle kernels, the headline's sphere kernel, the
+     dragon's K5 and K6, under mx_leaf K10 and K10b, and under regroup K11
+     and K6).
      All run after phase 13, the last timed frame: a profiler session
      slows the host's launches in the rest of the process;
  15. the leaf-fetch probes on the TPU probes' seeded inputs, counts from
@@ -313,6 +318,15 @@ MX_SASS = {"nearest": (195, 105, 170 * 16), "any_hit": (196, 105, 82 * 32)}
 HEAP_SASS = {"nearest": (68, 117, 146 * 16), "any_hit": (71, 112, 62 * 32),
              "nearest_fast_math": (58, 117, 152 * 16),
              "any_hit_fast_math": (61, 112, 62 * 32)}
+# csrc/bvh_rg.cu's SASS for sm_90a (cuobjdump -sass of
+# experiments/bvh_rg_ab.py --out, counted on an H100's build), as
+# HEAP_SASS: the lane instructions of a slot test (half the leaf loop's
+# body, which tests a slot of each of a window's two leaves; the
+# division's slow path not taken), of a node step (the walk loop without
+# its leaf phase) and of a leaf visit: half a window's pass (its
+# shuffles, the lanes' merges and the commit, 140 a lane, times the
+# window's 32 lanes) and the visit's record
+RG_SASS = {"nearest": (72, 108, 70 * 32 + 16)}
 MX_POOL = 3 << 16  # the dragon frame's lane pool (engine/regen.py)
 FAST_DELTA = 2.0 ** -20  # fast_math: the bound on t and on accept flips
 # K10 against the exact K5: the share of the hits whose winner may
@@ -960,7 +974,7 @@ def spheres_path(dev):
     # profiled later: a profiler session slows the host's launches of the
     # frames that follow it in the process (PERF.md)
     profile = functools.partial(profile_frame, "headline", scene, cam, cfg,
-                                itemize="spheres_kernel")
+                                itemize=("spheres_kernel",))
     return profile, [k1_rec, *mx_recs]
 
 
@@ -1021,7 +1035,7 @@ def staircase_path(dev):
     # profiled later: a profiler session slows the host's launches of the
     # frames that follow it in the process (PERF.md)
     profile = functools.partial(profile_frame, "staircase-toy", scene, cam,
-                                cfg, itemize="tris_kernel")
+                                cfg, itemize=("tris_kernel",))
     return profile, [tri_record("tris_hit_feat", launches["features"],
                        times["primary", "frame"], times["primary", "pool"]),
             tri_record("tris_anyhit_soa", launches["any_hit"],
@@ -1035,7 +1049,7 @@ def profile_frame(tag, scene, cam, cfg, itemize=None):
     then under torch.profiler; prints host dispatches and device kernel
     time per regen iteration, the device's busy share (profiled device
     time over the unprofiled wall time), the kernels that take most and,
-    by name, each kernel whose name holds ``itemize``."""
+    by name, each kernel whose name holds one of ``itemize``."""
     from torch.profiler import ProfilerActivity, profile
     one = cfg.replace(ns=1)
     n = min(cfg.num_pixels,
@@ -1066,12 +1080,13 @@ def profile_frame(tag, scene, cam, cfg, itemize=None):
         return
     named = ""
     if itemize:
-        mine = [e for e in kernels if itemize in e.key]
+        mine = [e for e in kernels if any(k in e.key for k in itemize)]
         named = "; " + (", ".join(
             f"{short(e.key)} {dev_us(e) / 1e3 / iters:.4f} ms/iter "
             f"({e.count} launches, {dev_us(e) / 1e3 / e.count:.4f} ms "
             f"each, {dev_us(e) / 1e3 / device_ms:.1%} of device time)"
-            for e in mine) if mine else f"no {itemize} recorded")
+            for e in mine) if mine
+            else f"no {' or '.join(itemize)} recorded")
     phase("profile", f"{head}{per_iter:.2f} ms each unprofiled; profiled "
           f"{launches / iters:.0f} kernel "
           f"launches and {device_ms / iters:.3f} ms of device time an "
@@ -1343,11 +1358,11 @@ def graph_phase(tag, kern, sets, checks, eps, sass, fast_math=False):
 
 def graph_record(name, source, replaces, launches, check, graph, pool,
                  lanes=BVH_RAYS):
-    """A BVH kernel's JSON record (K5, K6, K8, K9, K10, K10b): times and
-    bound on its phase's set (``check``), the device time a call in a CUDA
-    graph and the issue-rate floor on each of the mode's sets (``graph_ms``,
-    ``floor_ms``) and, at the frame's own shape (``pool``: the set's
-    name, ``lanes`` lanes), its time, bound and floor."""
+    """A BVH kernel's JSON record (K5, K6, K8, K9, K10, K10b, K11): times
+    and bound on its phase's set (``check``), the device time a call in a
+    CUDA graph and the issue-rate floor on each of the mode's sets
+    (``graph_ms``, ``floor_ms``) and, at the frame's own shape (``pool``:
+    the set's name, ``lanes`` lanes), its time, bound and floor."""
     rec = record(name, source, OPS + replaces, launches, *check)
     mine = {k: v for k, v in graph.items()
             if ("NEE" in k) == ("NEE" in pool)}
@@ -1429,7 +1444,7 @@ def staircase_hires_path(dev):
     # profiled later: a profiler session slows the host's launches of the
     # frames timed after it
     profile = functools.partial(profile_frame, "config 4", scene, cam, cfg,
-                                itemize="bvh4")
+                                itemize=("bvh4",))
     return profile, [
         graph_record("bvh4_trace", "bvh4.cu", "pallas_bvh4.py:295",
                      launches["nearest"], checks["primary"], graph,
@@ -1619,7 +1634,7 @@ def heap_variants_phase(scene, cam, cfg, tabs, rays, heap_pool,
     call in a CUDA graph; K5/K6's fast_math mode also on K5/K6's pool sets
     (``heap_pool``, with ``heap_checks`` their bounds), timed the same
     way. Returns ({record name: (err, ms, plain_ms, bound)}, the nearest
-    modes' from the primary rays; K10/K10b's and K5/K6's fast_math
+    modes' from the primary rays; K10/K10b's, K11's and K5/K6's fast_math
     graph_phase times)."""
     out = {}
     mesh, eps = scene.mesh, cfg.epsilon
@@ -1655,25 +1670,29 @@ def heap_variants_phase(scene, cam, cfg, tabs, rays, heap_pool,
           f"from K6's on {flips[3]} lanes at 3 passes, {flips[6]} at 6, of "
           f"{int((shadow[2] > 0).sum())} shadow rays")
     rg = BvhKernels("heap-rg", tabs)
-    out["rg_trace"] = compare_bvh_nearest("heap-rg dragon primary", rg, o1,
-                                          d1, t1, eps)
-    compare_bvh_nearest("heap-rg dragon bounce-2", rg, o2, d2, t2, eps)
-    for name, (o, d, t) in (("primary", rays["primary"]),
-                            ("bounce-2", rays["bounce-2"])):
+    rg_sets = {"primary": rays["primary"], "bounce-2": rays["bounce-2"],
+               "pool primary": heap_pool["pool primary"]}
+    rg_checks = {name: compare_bvh_nearest(f"heap-rg dragon {name}", rg,
+                                           *r, eps)
+                 for name, r in rg_sets.items()}
+    out["rg_trace"] = rg_checks["primary"]
+    for name, (o, d, t) in rg_sets.items():
         v5 = int(cb.heap_trace(o, d, t, tabs, eps)[2][2].sum())
         ratio = int(crg.rg_trace(o, d, t, tabs, eps)[2][2].sum()) / max(v5,
                                                                         1)
         if not 1.0 <= ratio <= 1.5:
             raise AssertionError(f"heap-rg dragon {name}: K11's leaf visits "
                                  f"are {ratio:.3f}x K5's, outside [1, 1.5]")
-        # K5 and K11 in turns on the same lanes
+        # K5 and K11 in turns on the same lanes, device time in a graph
         k5 = lambda: cb.heap_trace(o, d, t, tabs, eps)
         k11 = lambda: crg.rg_trace(o, d, t, tabs, eps)
-        turns = [cuda_ms(f) for f in (k5, k11, k11, k5)]
+        turns = [graph_ms(f) for f in (k5, k11, k11, k5)]
         phase("kernel", f"heap-rg dragon {name}: K11's leaf visits "
               f"{ratio:.3f}x K5's {v5} (window {crg.WINDOW}; bound 1.5x); in "
-              f"turns K5 {turns[0]:.3f} ms, K11 {turns[1]:.3f} ms, K11 "
-              f"{turns[2]:.3f} ms, K5 {turns[3]:.3f} ms")
+              f"turns, ms a call in a CUDA graph: K5 {turns[0]:.4f}, K11 "
+              f"{turns[1]:.4f}, K11 {turns[2]:.4f}, K5 {turns[3]:.4f}")
+    rg_graph = graph_phase("heap-rg dragon", rg, rg_sets, rg_checks, eps,
+                           RG_SASS)
     heap = BvhKernels("heap", tabs)
     out["heap_trace_fast_math"] = compare_fast_math(
         "fast_math dragon primary", heap, o1, d1, t1, eps, False)
@@ -1688,7 +1707,7 @@ def heap_variants_phase(scene, cam, cfg, tabs, rays, heap_pool,
                            {"primary": rays["primary"],
                             "NEE shadows": shadow, **heap_pool},
                            heap_checks, eps, HEAP_SASS, fast_math=True)
-    return out, mx_graph, fm_graph
+    return out, mx_graph, rg_graph, fm_graph
 
 
 def mr_phase(tabs, rays, eps, bounds):
@@ -2284,7 +2303,7 @@ def dragon_path(dev):
     graph = graph_phase(tag, kern, {"primary": rays["primary"],
                                     "NEE shadows": rays["NEE shadows"],
                                     **pool}, res, cfg.epsilon, HEAP_SASS)
-    variants, mx_graph, fm_graph = heap_variants_phase(
+    variants, mx_graph, rg_graph, fm_graph = heap_variants_phase(
         scene, cam, cfg, tabs, rays, pool, res)
     mr_recs = mr_phase(tabs, rays, cfg.epsilon, (bnd, bnd_a))
     probe_recs = walk_probe_phase(tabs, rays, cfg.epsilon)
@@ -2320,15 +2339,18 @@ def dragon_path(dev):
     mx_l = knob_launches["mx_leaf=True"]
     rg_l = knob_launches["regroup=True"]
     fm_l = knob_launches["fast_math=True"]
-    rec = lambda name, src, rep, n, key: record(name, src, rep, n,
-                                                *variants[key])
     # profiled later, as the other frames: the default frame's K5 and K6,
-    # and the mx_leaf frame's K10 and K10b, by name
+    # the mx_leaf frame's K10 and K10b, and the regroup frame's K11 and
+    # K6, by name
     profiles = [
         functools.partial(profile_frame, "dragon", scene, cam, cfg,
-                          itemize="::heap_kernel"),
+                          itemize=("::heap_kernel",)),
         functools.partial(profile_frame, "dragon mx_leaf", scene, cam,
-                          cfg.replace(mx_leaf=True), itemize="::mx_kernel")]
+                          cfg.replace(mx_leaf=True),
+                          itemize=("::mx_kernel",)),
+        functools.partial(profile_frame, "dragon regroup", scene, cam,
+                          cfg.replace(regroup=True),
+                          itemize=("::rg_kernel", "::heap_kernel"))]
     return profiles, [
         graph_record("heap_trace", "bvh.cu", "pallas_bvh.py:937",
                      launches["cuda_bvh.nearest"], res["primary"], graph,
@@ -2352,8 +2374,9 @@ def dragon_path(dev):
                      mx_l["cuda_bvh_mx.any_hit"],
                      variants["mx_occluded"], mx_graph,
                      "pool NEE shadows", MX_POOL),
-        rec("rg_trace", "bvh_rg.cu", OPS + "pallas_bvh_rg.py:230",
-            rg_l["cuda_bvh_rg.nearest"], "rg_trace"), *mr_recs,
+        graph_record("rg_trace", "bvh_rg.cu", "pallas_bvh_rg.py:230",
+                     rg_l["cuda_bvh_rg.nearest"], variants["rg_trace"],
+                     rg_graph, "pool primary", MX_POOL), *mr_recs,
         *probe_recs]
 
 

@@ -52,6 +52,7 @@ from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh4_cases
 import bvh_mx_cases
 import heap_cases
+import rg_cases
 import sphere_cases
 import tri_cases
 
@@ -941,6 +942,108 @@ def test_rg_kernel_bit_equal(dev):
         assert int(k[2][2].sum()) >= int(h[2][2].sum())
     assert not k[2][:, ::7].any() and (k[1][::7] == -1).all()
     assert crg.LAUNCHES["nearest"] == before + 2
+
+
+def _rg_bit_equal(o, d, tm, tabs, t_min=T_MIN):
+    """K11 against its plain walk, bit-equal in every output (a NaN t_max
+    gives t = NaN on both sides), one launch; returns the kernel's (t,
+    tri, counters) as numpy arrays."""
+    before = crg.LAUNCHES["nearest"]
+    t, tri, cnt = crg.rg_trace(o, d, tm, tabs, t_min)
+    assert crg.LAUNCHES["nearest"] == before + 1
+    pt, ptri, pcnt = crg._rg_trace_ref(o, d, tm, tabs, t_min)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(t.cpu().numpy(), pt.cpu().numpy())
+    assert torch.equal(tri, ptri) and torch.equal(cnt, pcnt)
+    return tuple(a.cpu().numpy() for a in (t, tri, cnt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", rg_cases.CASES)
+def test_rg_contract_cases_bit_equal(dev, name):
+    """The regrouped walk's edge cases (tests/rg_cases.py, held against
+    the JAX kernel and the heap walk on the CPU), K11 against its plain
+    walk, and each case's own check."""
+    c = rg_cases.case(name)
+    tabs = cb.heap_tables(rg_cases.port_mesh(c, dev))
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    c.check(*_rg_bit_equal(v(c.o), v(c.d),
+                           torch.from_numpy(c.t_max).to(dev), tabs,
+                           rg_cases.T_MIN))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ppl", [5, 33, 64])
+def test_rg_kernel_leaf_widths_bit_equal(dev, ppl):
+    """Leaf widths that are no multiple of a window's lanes (5, 33) and
+    the dragon's 64; n no multiple of 32."""
+    mesh, o, d, tm = _bvh_inputs(dev, n=40_003, seed=10, ppl=ppl)
+    tabs = cb.heap_tables(mesh)
+    for t_max in (FLT_MAX, tm):
+        t, tri, cnt = _rg_bit_equal(o, d, t_max, tabs)
+        assert (tri >= 0).mean() > 0.1
+    assert not cnt[:, ::7].any() and (tri[::7] == -1).all()
+
+
+@pytest.mark.gpu
+def test_rg_pool_bit_equal(dev):
+    """The dragon frame's lane pool, 196,608 lanes (engine/regen.py, the
+    untextured packet path), over 64-slot leaves; every 7th lane dead;
+    leaf visits within [1, 1.5]x the heap walk's."""
+    mesh, o, d, tm = _bvh_inputs(dev, n=196_608, seed=8, ppl=64)
+    tabs = cb.heap_tables(mesh)
+    t, tri, cnt = _rg_bit_equal(o, d, tm, tabs)
+    assert (tri >= 0).mean() > 0.1 and not cnt[:, ::7].any()
+    te, _, ce = cb.heap_trace(o, d, tm, tabs, T_MIN)
+    np.testing.assert_array_equal(t, te.cpu().numpy())
+    visits, visits_heap = int(cnt[2].sum()), int(ce[2].sum())
+    assert visits_heap <= visits <= 1.5 * visits_heap
+
+
+@pytest.mark.gpu
+def test_rg_divergent_warps_bit_equal(dev):
+    """Rays from one origin inside the soup, neighbouring lanes into
+    opposite halves of it: every warp's rays walk different nodes and
+    leaves and fill their windows at different steps."""
+    mesh, _, _, _ = _bvh_inputs(dev, n=2, seed=3, ppl=64)
+    tabs = cb.heap_tables(mesh)
+    rng = np.random.RandomState(4)
+    n = 40_000
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 0] = np.abs(d[:, 0]) * np.where(np.arange(n) % 2, -1, 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    o = v(np.zeros((n, 3), np.float32))
+    tm = torch.where(torch.arange(n, device=dev) % 3 == 0, 4.0, FLT_MAX)
+    t, tri, cnt = _rg_bit_equal(o, v(d), tm, tabs)
+    assert (tri[0::2] >= 0).mean() > 0.5 and (tri[1::2] >= 0).mean() > 0.5
+
+
+@pytest.mark.gpu
+def test_rg_frame_call_dispatches_only_its_outputs(dev):
+    """The frame's call, rg_trace with the view's tables and an [N]
+    t_max, dispatches its output allocations and the t_max view, and
+    nothing else: no .tolist(), no _local_scalar_dense, no copy to the
+    host."""
+    cfg = RenderConfig(nx=48, ny=32, ns=1, max_depth=2, textures=False,
+                       packet_threshold=1, bvh4=False, regroup=True)
+    scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, nu=96, nv=24,
+                                prims_per_leaf=32, device=dev)
+    view = wf.make_view(scene, cfg)
+    assert wf.mesh_tier(scene, cfg) == "heap-rg"
+    assert isinstance(view.packet, cb.HeapTables)
+    o, d = cam.generate_rays(torch.arange(cfg.num_pixels, device=dev), 0,
+                             cfg.nx, cfg.ny)
+    tm = torch.full((cfg.num_pixels,), FLT_MAX, device=dev)
+    call = lambda: crg.rg_trace(o, d, tm, view.packet, cfg.epsilon)
+    call()  # built and loaded
+    before = crg.LAUNCHES["nearest"]
+    with _op_recorder() as ops:
+        call()
+    assert crg.LAUNCHES["nearest"] == before + 1
+    assert sorted(ops.ops) == ["empty", "empty", "empty", "expand"]
 
 
 @pytest.mark.gpu

@@ -50,6 +50,7 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.spheres_ab",
             "tpu_pathtracer_torch.experiments.bvh_mx_ab",
             "tpu_pathtracer_torch.experiments.bvh_ab",
+            "tpu_pathtracer_torch.experiments.bvh_rg_ab",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
@@ -95,7 +96,8 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.bvh4_ab, "
             "tpu_pathtracer_torch.experiments.spheres_ab, "
             "tpu_pathtracer_torch.experiments.bvh_mx_ab, "
-            "tpu_pathtracer_torch.experiments.bvh_ab\n"
+            "tpu_pathtracer_torch.experiments.bvh_ab, "
+            "tpu_pathtracer_torch.experiments.bvh_rg_ab\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"
@@ -113,7 +115,7 @@ def test_import_builds_nothing():
                                    "multirow_probe", "gather_probe",
                                    "sphere_layout_probe",
                                    "shapecast_probe", "bvh_mx_ab",
-                                   "bvh_ab"])
+                                   "bvh_ab", "bvh_rg_ab"])
 def test_probes_exit_without_a_card(probe):
     """A probe measures the card and has no CPU mode: without a CUDA
     device it exits non-zero and prints nothing."""

@@ -2,7 +2,7 @@
 kernels timed in turns or in a CUDA graph, device times from the
 profiler, a first bounce's ray sets, the walk telemetry they print, and
 the A/Bs' command line and builds of a kernel's other sources
-(``bvh4_ab``, ``spheres_ab``, ``bvh_mx_ab``, ``bvh_ab``).
+(``bvh4_ab``, ``spheres_ab``, ``bvh_mx_ab``, ``bvh_ab``, ``bvh_rg_ab``).
 
 A probe needs a CUDA device: :func:`card` exits non-zero without one
 (the kernels have no CPU mode), and prints the ``nvidia-smi`` name and

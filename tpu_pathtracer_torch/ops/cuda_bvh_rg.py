@@ -13,9 +13,10 @@ So every accepted hit is exact, the per-ray minimum does not depend on
 the order of the tests, t equals the heap kernel's for the same winner,
 winners differ from it only where two slots give the same t, and the
 deferred commits can only add leaf visits. A ray's result and counters
-depend on its own walk alone, so the kernel (which groups a block's
-pairs by leaf and stages each leaf's triangles in shared memory once)
-and the plain version agree bit for bit, counters included.
+depend on its own walk alone, so the kernel (whose threads walk a ray
+each and whose warps test each ray's window as soon as it is full, its
+slots spread over several lanes and merged by shuffles) and the plain
+version agree bit for bit, counters included.
 
 The TPU kernel's ``regroup_dense`` threshold picks between its two leaf
 paths, which give the same t (``pallas_bvh_rg.py:639``); a per-ray walk
@@ -47,15 +48,17 @@ LAUNCHES = {"nearest": 0}
 # Leaf visits a ray records before its pairs are tested: csrc/bvh_rg.cu's
 # kWindow, which says why 2.
 WINDOW = 2
-_MAX_LEAVES = (1 << 25) - 1  # the kernel packs (leaf << 7 | ray) in
-# 32 bits, below its empty key
+_MAX_SLOTS = (1 << 31) - 1  # the kernel keeps a heap slot in an int
 _VISIT_CHUNK = 16384    # recorded visits a plain flush tests at once
 
 
 def _rg_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
-                 tabs: _cb.HeapTables, t_min: float, visits=None):
-    """(closest [N], tri [N] int32, counters [5, N] int32): the kernel's
-    rounds for all rays at once. ``visits`` as for ``cuda_bvh.HeapWalk``."""
+                 tabs: _cb.HeapTables, t_min: float, visits=None,
+                 windows=None):
+    """(closest [N], tri [N] int32, counters [5, N] int32): every ray's
+    windows, the k-th of all rays at once. ``visits`` as for
+    ``cuda_bvh.HeapWalk``; ``windows``, if given, gathers each round's
+    recorded pairs as (rays, leaves), two int64 tensors."""
     walk = _cb.HeapWalk(origin, direction, tmax, tabs, visits)
     n = walk.o.shape[0]
     dev = walk.o.device
@@ -85,6 +88,8 @@ def _rg_walk_ref(origin: V3, direction: V3, tmax: torch.Tensor,
         # flush: every recorded (ray, leaf) pair against the ray's
         # committed closest; per ray the minimum of (t, slot)
         ray_of, base_of = torch.cat(ray_of), torch.cat(base_of)
+        if windows is not None:
+            windows.append((ray_of, base_of // P))
         t_v, s_v = [], []
         for s in range(0, ray_of.numel(), _VISIT_CHUNK):
             r = ray_of[s:s + _VISIT_CHUNK]
@@ -132,9 +137,10 @@ def _launch(origin: V3, direction: V3, tmax: torch.Tensor,
     dev, n = _cb.check_walk_inputs(origin, direction, tmax, tabs, tabs.tri,
                                    "triangle")
     f32 = torch.float32
-    if tabs.first_leaf > _MAX_LEAVES:
-        raise ValueError(f"{tabs.first_leaf} leaves: the regrouped kernel "
-                         f"takes at most {_MAX_LEAVES}")
+    if tabs.first_leaf * tabs.prims_per_leaf > _MAX_SLOTS:
+        raise ValueError(f"{tabs.first_leaf} leaves of "
+                         f"{tabs.prims_per_leaf}: the regrouped kernel "
+                         f"numbers at most {_MAX_SLOTS} heap slots")
     cnt = torch.empty((5, n), dtype=torch.int32, device=dev)
     t_out = torch.empty((n,), dtype=f32, device=dev)
     tri_out = torch.empty((n,), dtype=torch.int32, device=dev)
