@@ -20,7 +20,9 @@ inputs, and the TPU micro-benchmarks (K17a-K20, ``experiments/
 tpu_micro.py``) on the TPU file's seeded inputs, the regrouped leaf
 phase and the 8-row packet probes (K21-K24) on theirs, and the sphere
 layout probe (K25a, K25b) and the shape-cast probe (K26) on theirs and,
-K25, on the headline's primary rays. It builds the CUDA
+K25, on the headline's primary rays; bench.py's four oracle gates against
+the port's NumPy oracle; and BASELINE config 5's 4K frame through the
+checkpoints, and tiles. It builds the CUDA
 kernels from ``tpu_pathtracer_torch/csrc`` first and holds each against
 its plain PyTorch version at the shapes its path gives it. Phases, one
 line each; any failure raises and exits non-zero:
@@ -172,10 +174,33 @@ line each; any failure raises and exits non-zero:
      features to K1's, 0 on a miss), timed in turns with K1; K26
      (``shapecast_probe.shapecast``), all 15 cases bit-equal to their plain
      versions alone and in one launch, each case's launch and the launch
-     of all 15 timed.
+     of all 15 timed;
+ 19. bench.py's four on-hardware oracle gates (``_oracle_gate``, :85) at
+     its shapes and bounds: spheres 96x64, 4 spp, depth 8 (rmse < 5e-3,
+     SSIM >= 0.99); staircase_mesh 96x64, 4 spp, depth 8; rocks_packet
+     (``rocks_zoo_scene(n_big=2, n_small=3, seed=9)``) and knot_packet
+     (``knot_zoo_scene(nu=48, nv=24)``) 64x48, 4 spp, depth 8, untextured,
+     ``packet_threshold=1`` (rmse < 1e-2, SSIM >= 0.97): each frame
+     rendered on the card through its tier's kernels (K1; K4/K4c; the
+     BVH4 tier K8/K9 for the rocks, the heap tier K5/K6 for the knot) and
+     held against ``tpu_pathtracer_torch.oracle`` of the same scene, read
+     to the host. The oracles run in four host processes started after
+     phase 2, beside phases 3-13 and 20 (the rocks' takes minutes);
+ 20. BASELINE config 5's frame, the staircase at 3840x2160, depth 64,
+     through ``utils.checkpoint.render_with_checkpoints`` with batch 1:
+     straight to 2 spp, and to 1 spp then resumed from its file to 2 spp,
+     bit-equal (image and sum buffer); a file whose fingerprint was
+     changed is refused; seconds a spp at 4K, Mpaths/s and the 1000 spp
+     extrapolation; K4/K4c's launches a 4K spp (``launches_config5_spp``
+     in their records). Then the staircase-toy's frame (1200x800, 2 spp,
+     depth 64) through ``parallel.tiles.render_image_tiled_regen`` in two
+     stripes of the card against one render, within 1e-6
+     (tests/test_parallel.py:52-60). The sample counts are cut from 1000
+     and 100 to 2. Phase 20 runs after phase 13 and before phase 19, which
+     waits for the last oracle; both run before phase 14's profiles.
 
-Each full-size run, and each run of phases 3b, 10c, 10d, 15, 16, 17 and 18's
-entry points, resets the launch counts just before it and reads them just after
+Each full-size run, and each run of phases 3b, 10c, 10d, 15-20's entry
+points, resets the launch counts just before it and reads them just after
 (the headline frame must launch no mx kernel, and no frame a probe's).
 Every kernel's record carries its bound: the larger of its FP32
 operations (counted from the source and this run's inputs, for the BVH
@@ -192,10 +217,12 @@ import concurrent.futures
 import contextlib
 import functools
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import typing
 from unittest import mock
@@ -225,7 +252,8 @@ from tpu_pathtracer_torch.experiments.common import (distinct,
                                                       graph_ms,
                                                       sphere_pairs)
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
-from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
+from tpu_pathtracer_torch.models.shapes import (knot_zoo_scene,
+                                                rocks_zoo_scene)
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
@@ -237,6 +265,7 @@ from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
+from tpu_pathtracer_torch.oracle import render_oracle, to_host
 from tpu_pathtracer_torch.utils import golden
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2380,6 +2409,168 @@ def dragon_path(dev):
         *probe_recs]
 
 
+# bench.py's four on-hardware oracle gates (``_oracle_gate``, :85): name,
+# bench.py lines, scene factory and its arguments, config, rmse below,
+# SSIM at least. Longest oracle first: the host renders them in this order.
+PACKET_GATE = dict(nx=64, ny=48, ns=4, max_depth=8, textures=False,
+                   packet_threshold=1)
+ORACLE_GATES = (
+    ("rocks_packet", "bench.py:280-285", rocks_zoo_scene,
+     dict(n_big=2, n_small=3, seed=9), PACKET_GATE, 1e-2, 0.97),
+    ("knot_packet", "bench.py:330-334", knot_zoo_scene,
+     dict(nu=48, nv=24), PACKET_GATE, 1e-2, 0.97),
+    ("staircase_mesh", "bench.py:202-205", procedural_staircase_scene, {},
+     dict(nx=96, ny=64, ns=4, max_depth=8), 1e-2, 0.97),
+    ("spheres", "bench.py:176-179", random_spheres_scene, {},
+     dict(nx=96, ny=64, ns=4, max_depth=8), RMSE_TOL, SSIM_MIN),
+)
+# the kernels each mesh tier launches (wavefront.mesh_tier)
+TIER_KERNELS = {"brute": {"cuda_tris.features", "cuda_tris.any_hit"},
+                "bvh4": {"cuda_bvh4.nearest", "cuda_bvh4.any_hit"},
+                "heap": {"cuda_bvh.nearest", "cuda_bvh.any_hit"}}
+CONFIG5 = dict(nx=3840, ny=2160, ns=2, max_depth=64)  # ns cut from 1000
+TILE_FRAME = dict(nx=1200, ny=800, ns=2, max_depth=64)  # ns cut from 100
+TILE_ATOL = 1e-6  # tests/test_parallel.py:52-60
+
+
+def oracle_job(scene, cam, cfg):
+    """(image, seconds) of the port's NumPy oracle, in a host process."""
+    t0 = time.perf_counter()
+    return render_oracle(scene, cam, cfg), time.perf_counter() - t0
+
+
+def start_oracle_gates(dev, pool):
+    """Builds each gate's scene on the card and starts the port's oracle
+    of that scene, read to the host, in ``pool``; the renders on the card
+    and the comparisons wait for phase 19. Returns the gates' state."""
+    gates = []
+    for name, where, fn, kw, c, tol, smin in ORACLE_GATES:
+        cfg = RenderConfig(**c)
+        scene, cam = fn(cfg.nx, cfg.ny, device=dev, **kw)
+        job = pool.apply_async(oracle_job,
+                               (to_host(scene), to_host(cam), cfg))
+        gates.append((name, where, cfg, scene, cam, tol, smin, job))
+    phase("oracle", f"the port's NumPy oracle of the {len(gates)} gates "
+          f"started in {len(gates)} host processes")
+    return gates
+
+
+def oracle_gate_phase(gates):
+    """Phase 19: bench.py's four oracle gates, each frame rendered on the
+    card through its tier's kernels (counts from 0 just before, read just
+    after) and held against the port's NumPy oracle of the same scene at
+    bench.py's bounds."""
+    t_phase = time.perf_counter()
+    for name, where, cfg, scene, cam, tol, smin, job in gates:
+        tier = wf.mesh_tier(scene, cfg) or "spheres"
+        cs.LAUNCHES = 0
+        reset_launches()
+        img = render_image_regen(scene, cam, cfg)
+        launches = {**({"cuda_spheres": cs.LAUNCHES} if cs.LAUNCHES
+                       else {}), **read_launches()}
+        expect = TIER_KERNELS.get(tier, {"cuda_spheres"})
+        if set(launches) != expect:
+            raise AssertionError(f"oracle gate {name} (tier {tier}) "
+                                 f"launched {launches}, not {expect}")
+        t0 = time.perf_counter()
+        ref, secs = job.get()
+        waited = time.perf_counter() - t0
+        r, s = golden.rmse(img, ref), golden.ssim(img, ref)
+        phase("oracle", f"{name} ({where}) {cfg.nx}x{cfg.ny} {cfg.ns} spp "
+              f"depth {cfg.max_depth}, tier {tier}: rmse {r:.3e} (bound < "
+              f"{tol:g}) ssim {s:.6f} (bound >= {smin}); kernel launches "
+              f"{launches}; oracle {secs:.1f} s in its host process "
+              f"(waited {waited:.1f} s)")
+        if not (np.isfinite(img).all() and img.shape == ref.shape
+                and r < tol and s >= smin):
+            raise AssertionError(f"oracle gate {name} FAILED: rmse {r:.3e} "
+                                 f"(tol {tol:g}) ssim {s:.6f} (min {smin})")
+    phase("oracle", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def config5_phase(dev, workdir):
+    """Phase 20: BASELINE config 5's frame (the staircase at 3840x2160,
+    depth 64) through ``render_with_checkpoints`` with batch 1, straight
+    to 2 spp (a), and to 1 spp then resumed from the file to 2 spp (b),
+    bit-equal; a file whose fingerprint was changed is refused. Then the
+    staircase-toy's frame tiled over two stripes of the card against one
+    render. Returns the K4/K4c launches of run (a)."""
+    from tpu_pathtracer_torch.parallel.tiles import render_image_tiled_regen
+    from tpu_pathtracer_torch.utils import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    cfg = RenderConfig(**CONFIG5)
+    scene, cam = procedural_staircase_scene(cfg.nx, cfg.ny, device=dev)
+    batches = []
+
+    def progress(done, total):
+        torch.cuda.synchronize()
+        batches.append(time.perf_counter())
+
+    path_a = os.path.join(workdir, "a.ckpt")
+    path_b = os.path.join(workdir, "b.ckpt")
+    reset_launches()
+    cs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    img_a = ck.render_with_checkpoints(scene, cam, cfg, path_a, batch=1,
+                                       progress=progress)
+    launches = read_launches()
+    if set(launches) != TIER_KERNELS["brute"] or cs.LAUNCHES:
+        raise AssertionError(f"config 5 launched {launches} (spheres "
+                             f"{cs.LAUNCHES}), not {TIER_KERNELS['brute']}")
+    spp_secs = np.diff([t0, *batches])
+    ck.render_with_checkpoints(scene, cam, cfg.replace(ns=1), path_b,
+                               batch=1)
+    # the same file, its fingerprint changed, must be refused
+    bad = os.path.join(workdir, "bad.ckpt")
+    acc, done, fp = ck.load_checkpoint(path_b)
+    ck.save_checkpoint(bad, acc, done, fp ^ 1)
+    try:
+        ck.render_with_checkpoints(scene, cam, cfg, bad, batch=1)
+    except ValueError as e:
+        if "fingerprint" not in str(e):
+            raise
+    else:
+        raise AssertionError("config 5 resumed a file of another "
+                             "fingerprint")
+    img_b = ck.render_with_checkpoints(scene, cam, cfg, path_b, batch=1)
+    sums_equal = np.array_equal(ck.load_checkpoint(path_a)[0],
+                                ck.load_checkpoint(path_b)[0])
+    if not (np.array_equal(img_a, img_b) and sums_equal):
+        raise AssertionError(f"config 5 resumed at 1 spp differs from the "
+                             f"straight run: max |diff| "
+                             f"{np.abs(img_a - img_b).max():.3e}")
+    if not (np.isfinite(img_a).all() and img_a.mean() > 0.01):
+        raise AssertionError(f"config 5: bad image, mean {img_a.mean()}")
+    spp = float(np.mean(spp_secs))
+    paths = cfg.num_pixels
+    phase("config5", f"{cfg.nx}x{cfg.ny} depth {cfg.max_depth}, batch 1 "
+          f"(ns cut from 1000 to {cfg.ns}): seconds a spp "
+          f"{', '.join(f'{x:.3f}' for x in spp_secs)} (host clock, each "
+          f"batch closed by its copy to the host and its checkpoint "
+          f"write), {paths / spp / 1e6:.3f} "
+          f"Mpaths/s; 1000 spp at that rate would take {1000 * spp:.0f} s "
+          f"(an extrapolation, not a run); kernel launches {launches} "
+          f"({ {k: v / cfg.ns for k, v in launches.items()} } a spp); "
+          f"stopped at 1 spp and resumed to 2: bit-equal to the straight "
+          f"run (image and sum buffer); a changed fingerprint refused; "
+          f"mean {img_a.mean():.5f}")
+
+    tcfg = RenderConfig(**TILE_FRAME)
+    tscene, tcam = procedural_staircase_scene(tcfg.nx, tcfg.ny, device=dev)
+    single = render_image_regen(tscene, tcam, tcfg)
+    tiled = render_image_tiled_regen(tscene, tcam, tcfg,
+                                     devices=[dev, dev])
+    diff = float(np.abs(tiled - single).max())
+    phase("config5", f"tiles: the staircase-toy {tcfg.nx}x{tcfg.ny} "
+          f"{tcfg.ns} spp depth {tcfg.max_depth} in 2 stripes of {dev} "
+          f"against one render: max |diff| {diff:.3e} (bound {TILE_ATOL})")
+    if not diff <= TILE_ATOL:
+        raise AssertionError(f"tiled render differs by {diff:.3e}")
+    phase("config5", f"phase 20 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2396,11 +2587,27 @@ def main():
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
     build_all()
-    headline_profile, kernels = spheres_path(dev)
-    stair_profile, stair_recs = staircase_path(dev)
-    config4_profile, config4_recs = staircase_hires_path(dev)
-    dragon_profiles, dragon_recs = dragon_path(dev)
-    kernels += [*stair_recs, *config4_recs, *dragon_recs]
+    # the oracle of phase 19's gates renders on the host (at a lower
+    # priority) beside phases 3-13 and 20; the rocks' takes minutes
+    pool = multiprocessing.get_context("spawn").Pool(
+        len(ORACLE_GATES), initializer=os.nice, initargs=(10,))
+    try:
+        with tempfile.TemporaryDirectory() as workdir:
+            gates = start_oracle_gates(dev, pool)
+            headline_profile, kernels = spheres_path(dev)
+            stair_profile, stair_recs = staircase_path(dev)
+            config4_profile, config4_recs = staircase_hires_path(dev)
+            dragon_profiles, dragon_recs = dragon_path(dev)
+            kernels += [*stair_recs, *config4_recs, *dragon_recs]
+            c5 = config5_phase(dev, workdir)
+            oracle_gate_phase(gates)
+    finally:
+        pool.terminate()
+        pool.join()
+    for rec in stair_recs:  # K4's and K4c's launches a 4K spp of config 5
+        mode = {"tris_hit_feat": "features",
+                "tris_anyhit_soa": "any_hit"}[rec["name"]]
+        rec["launches_config5_spp"] = c5[f"cuda_tris.{mode}"] / CONFIG5["ns"]
     # phase 14 after every timed frame: a profiler session slows the
     # host's later launches in the process
     for profile in (config4_profile, stair_profile, headline_profile,

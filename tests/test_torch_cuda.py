@@ -1428,3 +1428,23 @@ def test_shapecast_wrapper_refuses_what_the_kernel_does_not_take(dev):
         sc.shapecast(x.reshape(1024, 1))
     with pytest.raises(TypeError):
         sc.shapecast(x.double())
+
+
+@pytest.mark.gpu
+def test_spheres_oracle_gate_on_the_card(dev):
+    """bench.py's spheres oracle gate (``_oracle_gate``, :85) at 32x24,
+    2 spp: the render through the sphere kernel against the port's NumPy
+    oracle on the host, at the gate's bounds (rmse < 5e-3, SSIM >= 0.99);
+    the frame launched K1."""
+    from tpu_pathtracer_torch.oracle import render_oracle
+    from tpu_pathtracer_torch.utils import golden
+
+    cfg = RenderConfig(nx=32, ny=24, ns=2, max_depth=8)
+    scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device=dev)
+    before = cs.LAUNCHES
+    img = render_image_regen(scene, cam, cfg)
+    assert cs.LAUNCHES > before
+    ref = render_oracle(scene, cam, cfg)
+    assert np.isfinite(img).all() and img.shape == ref.shape
+    assert golden.rmse(img, ref) < 5e-3
+    assert golden.ssim(img, ref) >= 0.99

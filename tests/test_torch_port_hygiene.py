@@ -54,7 +54,13 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",
-            "tpu_pathtracer_torch.native"} <= set(mods)
+            "tpu_pathtracer_torch.native",
+            "tpu_pathtracer_torch.oracle",
+            "tpu_pathtracer_torch.utils.checkpoint",
+            "tpu_pathtracer_torch.utils.profiling",
+            "tpu_pathtracer_torch.parallel.tiles",
+            "tpu_pathtracer_torch.experiments.config5_full",
+            "tpu_pathtracer_torch.experiments.oracle_contention"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises
@@ -97,7 +103,13 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.spheres_ab, "
             "tpu_pathtracer_torch.experiments.bvh_mx_ab, "
             "tpu_pathtracer_torch.experiments.bvh_ab, "
-            "tpu_pathtracer_torch.experiments.bvh_rg_ab\n"
+            "tpu_pathtracer_torch.experiments.bvh_rg_ab, "
+            "tpu_pathtracer_torch.experiments.config5_full, "
+            "tpu_pathtracer_torch.experiments.oracle_contention, "
+            "tpu_pathtracer_torch.oracle, "
+            "tpu_pathtracer_torch.utils.checkpoint, "
+            "tpu_pathtracer_torch.utils.profiling, "
+            "tpu_pathtracer_torch.parallel.tiles\n"
             "from tpu_pathtracer_torch import native\n"
             "from tpu_pathtracer_torch.ops import _build\n"
             "assert _build._LOADED == {}\n"
@@ -115,7 +127,8 @@ def test_import_builds_nothing():
                                    "multirow_probe", "gather_probe",
                                    "sphere_layout_probe",
                                    "shapecast_probe", "bvh_mx_ab",
-                                   "bvh_ab", "bvh_rg_ab"])
+                                   "bvh_ab", "bvh_rg_ab",
+                                   "config5_full", "oracle_contention"])
 def test_probes_exit_without_a_card(probe):
     """A probe measures the card and has no CPU mode: without a CUDA
     device it exits non-zero and prints nothing."""

@@ -10,6 +10,8 @@ Examples:
   python -m tpu_pathtracer_torch --scene three-sphere --rmse
   python -m tpu_pathtracer_torch --scene staircase --nx 64 --ny 48 \
       --ns 2 --device cpu -o small.png
+  python -m tpu_pathtracer_torch --nx 64 --ny 48 --ns 2 --tiled \
+      --device cpu -o tiled.png
 
 Renders on the CUDA device (``--device``, default ``cuda``). Without a
 CUDA device it exits non-zero unless ``--device cpu`` asks for the CPU.
@@ -80,9 +82,11 @@ def build(args, device):
     return scene, cam, cfg
 
 
-def main(argv=None):
+def make_parser() -> argparse.ArgumentParser:
+    """The CLI's flags, with ``main.py``'s defaults (``main.py:71-81``)
+    and ``--device``."""
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--scene", default="spheres",
+    p.add_argument("--scene", default="staircase",
                    help="spheres | three-sphere | staircase | "
                         "staircase-hires | knot | dragon | rocks | "
                         "terrain | terrain-big | "
@@ -103,7 +107,8 @@ def main(argv=None):
                    help="regen = pixel-stationary regeneration wavefront "
                         "(fast); plain = batch wavefront (stats support)")
     p.add_argument("--tiled", action="store_true",
-                   help="shard image tiles across devices (slice 4)")
+                   help="render image stripes over every CUDA device "
+                        "(with --device cpu, over the CPU)")
     p.add_argument("--no-bvh", action="store_true")
     p.add_argument("--no-textures", action="store_true")
     p.add_argument("--no-roulette", action="store_true")
@@ -112,10 +117,11 @@ def main(argv=None):
                    help="compare against f{nx}-{ny}.ref")
     p.add_argument("--store-ref", action="store_true",
                    help="write f{nx}-{ny}.ref")
-    args = p.parse_args(argv)
-    if args.tiled:
-        raise SystemExit("--tiled is not ported yet: slice 4 of the port "
-                         "brings it")
+    return p
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
 
     if args.scene.startswith("zoo-") and args.scene[4:] not in _ZOO:
         raise SystemExit(f"unknown scene {args.scene!r}")
@@ -133,7 +139,15 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     stats = None
-    if args.engine == "regen" and not args.stats:
+    if args.tiled and args.engine == "regen" and not args.stats:
+        from tpu_pathtracer_torch.parallel.tiles import \
+            render_image_tiled_regen
+        img = render_image_tiled_regen(scene, cam, cfg)
+    elif args.tiled:
+        from tpu_pathtracer_torch.parallel.tiles import render_image_tiled
+        out = render_image_tiled(scene, cam, cfg, report_stats=args.stats)
+        img, stats = out if args.stats else (out, None)
+    elif args.engine == "regen" and not args.stats:
         from tpu_pathtracer_torch.engine.regen import render_image_regen
         img = render_image_regen(scene, cam, cfg)
     else:

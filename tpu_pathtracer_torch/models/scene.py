@@ -151,6 +151,22 @@ class Scene:
         return self.tex_atlas is not None
 
 
+def map_tensors(obj, fn):
+    """``obj`` (a scene, camera, mesh or table: dataclasses, named tuples
+    and tuples of tensors) with ``fn`` applied to each of its tensors."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(map_tensors(x, fn) for x in obj))
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: map_tensors(getattr(obj, f.name), fn)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return tuple(map_tensors(x, fn) for x in obj)
+    return obj
+
+
 def make_scene(materials: Materials,
                sphere_center=None, sphere_radius=None, sphere_mat=None,
                mesh=None,

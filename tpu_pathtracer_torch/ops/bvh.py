@@ -13,6 +13,8 @@ no-BVH all-triangles oracle (counterpart of ``tpu_pathtracer/ops/bvh.py``).
   * :func:`traverse` — the dual-node bitstack traversal of the reference's
     ``hitBvh`` (kernels.cu:148–224), one ray at a time: the plain version
     of the heap kernel ``csrc/bvh.cu`` (``ops/cuda_bvh.py``).
+  * :func:`traverse_single_node` — the reference's single-node stackless
+    variant (kernels.cu:227–294), on no render path.
 
 Meshes the JAX package gives SAH BVH4 tables get them here too
 (``ops/bvh4.py``).
@@ -324,6 +326,110 @@ def traverse(mesh: MeshData, origin: torch.Tensor, direction: torch.Tensor,
     return TraceResult(t=t, tri_id=tri, u=u, v=v,
                        nodes_both=int(cnt[0].sum(dtype=torch.int64)),
                        nodes_single=int(cnt[1].sum(dtype=torch.int64)))
+
+
+def traverse_single_node(mesh: MeshData, origin: torch.Tensor,
+                         direction: torch.Tensor, t_min, t_max,
+                         is_shadow: bool = False) -> TraceResult:
+    """The reference's single-node stackless walk (kernels.cu:227–294),
+    the compile-time alternative to its dual-node ``hitBvh`` that nothing
+    selects: one box test a step, children ordered by the sign of the
+    ray's direction along the node's split axis, a down/up walk in place
+    of the bitstack. A plain PyTorch copy of the JAX package's
+    ``traverse_single_node``, all rays a step at a time; it is on no
+    render path.
+
+    Hits are traversal-order-independent, so t/tri_id/u/v equal
+    :func:`traverse`'s; every down-step box test is counted into
+    ``nodes_single`` (``nodes_both`` is 0: the walk never fetches two
+    nodes). With ``is_shadow`` a ray stops at its first hit, whose t it
+    keeps. The split axis is re-derived as the axis of largest
+    child-centre separation (the builders split on it; any consistent
+    choice keeps the walk correct).
+    """
+    n = origin.shape[0]
+    P = mesh.prims_per_leaf
+    first_leaf = mesh.first_leaf
+    dev = origin.device
+    inv_dir = 1.0 / direction
+    neg = inv_dir < 0.0
+    t_min = torch.as_tensor(t_min, dtype=torch.float32,
+                            device=dev).expand(n)
+    closest = torch.as_tensor(t_max, dtype=torch.float32,
+                              device=dev).expand(n).clone()
+
+    # per-internal-node split axis from child-centre separation
+    centers = (mesh.bvh_min + mesh.bvh_max) * 0.5          # [Nn,3]
+    li = torch.arange(first_leaf, device=dev) * 2
+    sep = (centers[li.clamp(max=2 * first_leaf - 2)]
+           - centers[(li + 1).clamp(max=2 * first_leaf - 1)]).abs()
+    axis = sep.argmax(-1)                                  # [first_leaf]
+    # near child bit per (node, ray): 1 when the ray travels negative
+    # along the split axis (the left child holds the lower coordinates)
+    dir_neg = direction < 0.0                              # [N,3]
+
+    def near_bit(p):
+        ax = axis[p.clamp(max=first_leaf - 1)]
+        return dir_neg.gather(1, ax[:, None])[:, 0].to(torch.int64)
+
+    idx = torch.ones(n, dtype=torch.int64, device=dev)
+    down = torch.ones(n, dtype=torch.int64, device=dev)
+    tri_id = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    uu = torch.zeros(n, device=dev)
+    vv = torch.zeros(n, device=dev)
+    nsg = 0
+    while bool((idx > 0).any()):
+        active = idx > 0
+        going_down = active & (down > 0)
+        going_up = active & (down == 0)
+
+        # ---- down: test this node's box (the single fetch a step)
+        ii = torch.where(going_down, idx, 1)
+        bhit = _cb.slab_entry(mesh.bvh_min[ii], mesh.bvh_max[ii], origin,
+                              inv_dir, neg, closest)
+        hit = going_down & (bhit < closest)
+        is_leaf = idx >= first_leaf
+        desc = hit & ~is_leaf
+        visit = hit & is_leaf
+
+        # leaf triangle tests
+        base = torch.where(visit, (idx - first_leaf) * P, 0)
+        hit_any = torch.zeros(n, dtype=torch.bool, device=dev)
+        for p in range(P):
+            ti = base + p
+            tt, tu, tv = triangles_hit(mesh.v0[ti], mesh.v1[ti],
+                                       mesh.v2[ti], origin, direction,
+                                       t_min, closest)
+            won = visit & (tt < closest)
+            closest = torch.where(won, tt, closest)
+            tri_id = torch.where(won, ti, tri_id)
+            uu = torch.where(won, tu, uu)
+            vv = torch.where(won, tv, vv)
+            hit_any = hit_any | won
+
+        # ---- up: near child -> far sibling (down); far -> parent (up)
+        parent = (idx >> 1).clamp(min=1)
+        was_near = (idx & 1) == near_bit(parent)
+        up_to_sib = going_up & was_near & (idx > 1)
+        up_to_par = going_up & ~was_near & (idx > 1)
+        up_done = going_up & (idx <= 1)
+
+        # ---- advance
+        child = idx * 2 + near_bit(torch.where(desc, idx, 1))
+        new_idx = torch.where(
+            desc, child, torch.where(
+                up_to_sib, idx ^ 1, torch.where(
+                    up_to_par, parent, torch.where(up_done, 0, idx))))
+        # a box miss or a processed leaf turns the lane "up" at the same
+        # node; descending or moving to the far sibling goes down
+        down = torch.where(desc | up_to_sib, 1,
+                           torch.where(going_down & ~desc, 0, down))
+        if is_shadow:
+            new_idx = torch.where(hit_any, 0, new_idx)
+        idx = new_idx
+        nsg += int(going_down.sum())
+    return TraceResult(t=closest, tri_id=tri_id.to(torch.int32), u=uu,
+                       v=vv, nodes_both=0, nodes_single=nsg)
 
 
 BRUTE_CHUNK = 2048  # triangles per pass (bounds the [N, chunk] temporaries)
