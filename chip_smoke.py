@@ -21,8 +21,11 @@ tpu_micro.py``) on the TPU file's seeded inputs, the regrouped leaf
 phase and the 8-row packet probes (K21-K24) on theirs, and the sphere
 layout probe (K25a, K25b) and the shape-cast probe (K26) on theirs and,
 K25, on the headline's primary rays; bench.py's four oracle gates against
-the port's NumPy oracle; and BASELINE config 5's 4K frame through the
-checkpoints, and tiles. It builds the CUDA
+the port's NumPy oracle; BASELINE config 5's 4K frame through the
+checkpoints, and tiles; and the port's bench
+(``tpu_pathtracer_torch/bench.py``): bench.py's four zoo frames the
+phases above do not render, its stats pass, config 2 and its JSON line.
+It builds the CUDA
 kernels from ``tpu_pathtracer_torch/csrc`` first and holds each against
 its plain PyTorch version at the shapes its path gives it. Phases, one
 line each; any failure raises and exits non-zero:
@@ -51,17 +54,19 @@ line each; any failure raises and exits non-zero:
      times in turns with K1 and K1c;
   4. spheres end to end, small: 96x64, 4 spp, max depth 8, kernel vs
      plain: rmse < 5e-3, SSIM >= 0.99;
-  5. spheres end to end, full size, through the kernel: seconds, Mpaths/s,
-     and the 128x128 center crop against the committed TPU-rendered
-     golden assets/bench_spheres_100spp.ref: rmse < 5e-3, SSIM >= 0.99;
+  5. spheres end to end, full size, through the kernel: the bench's
+     headline frame (``bench.run_frame``: a 1 spp warm-up, one render
+     timed by CUDA events, the 128x128 center crop against the committed
+     TPU-rendered golden assets/bench_spheres_100spp.ref at rmse < 5e-3,
+     SSIM >= 0.99): seconds, Mpaths/s, regen iterations, launches;
   6. triangles, kernel vs plain at the staircase's shapes (primary,
      second-bounce and NEE shadow rays), all three modes, on all 960,000
      lanes and on the middle 32,768 (the lane pool): idx equal on every
      lane, t, u, v, features and occlusion bit-equal; times as in phase 3
      at both shapes;
   7. staircase end to end, small, kernel vs plain, as phase 4;
-  8. staircase end to end, full size, as phase 5 against
-     assets/bench_staircase_toy_100spp.ref;
+  8. staircase end to end, full size, as phase 5: the bench's
+     staircase-toy frame against assets/bench_staircase_toy_100spp.ref;
   9. BVH4 (K8 nearest, K9 any-hit) vs plain on staircase-hires: 131,072
      primary rays from across the 1200x800 frame, the same lanes'
      second-bounce rays and their first bounce's NEE shadow rays (lanes
@@ -114,11 +119,13 @@ line each; any failure raises and exits non-zero:
      timed in turns;
  11. small: staircase-hires 96x64, 4 spp, depth 8, kernels vs plain, and
      with bvh4=False (through K5/K6) against the BVH4 render;
- 12. config 4: staircase-hires 1200x800, 2 spp gated against
-     assets/bench_staircase_hires_2spp.ref, then 100 spp depth 64 timed:
-     seconds, Mpaths/s, regen iterations, launches of each kernel, mean;
- 13. dragon: the 872k knot 512x512, 4 spp, depth 50, untextured, timed
-     and gated against assets/bench_dragon_4spp.ref; then the same frame
+ 12. config 4: the bench's staircase-hires frame, 1200x800 at 2 spp,
+     as phase 5 against assets/bench_staircase_hires_2spp.ref, then 100
+     spp depth 64 on the warm frame (``bench.render_timed``): seconds,
+     Mpaths/s, regen iterations, launches of each kernel, mean;
+ 13. dragon: the bench's dragon frame, the 872k knot 512x512, 4 spp,
+     depth 50, untextured, as phase 5 against
+     assets/bench_dragon_4spp.ref; then the same frame
      under mx_leaf, regroup, fast_math and packet_packs=2 with
      packet_split, each timed, its launches read (the variant's kernels
      ran, the default heap kernel it replaces did not, and no frame
@@ -176,8 +183,9 @@ line each; any failure raises and exits non-zero:
      versions alone and in one launch, each case's launch and the launch
      of all 15 timed;
  19. bench.py's four on-hardware oracle gates (``_oracle_gate``, :85) at
-     its shapes and bounds: spheres 96x64, 4 spp, depth 8 (rmse < 5e-3,
-     SSIM >= 0.99); staircase_mesh 96x64, 4 spp, depth 8; rocks_packet
+     its shapes and bounds, from the bench's table (``bench.ORACLE_GATES``,
+     each rendered and checked by ``bench.finish_oracle_gate``): spheres
+     96x64, 4 spp, depth 8 (rmse < 5e-3, SSIM >= 0.99); staircase_mesh 96x64, 4 spp, depth 8; rocks_packet
      (``rocks_zoo_scene(n_big=2, n_small=3, seed=9)``) and knot_packet
      (``knot_zoo_scene(nu=48, nv=24)``) 64x48, 4 spp, depth 8, untextured,
      ``packet_threshold=1`` (rmse < 1e-2, SSIM >= 0.97): each frame
@@ -196,10 +204,27 @@ line each; any failure raises and exits non-zero:
      depth 64) through ``parallel.tiles.render_image_tiled_regen`` in two
      stripes of the card against one render, within 1e-6
      (tests/test_parallel.py:52-60). The sample counts are cut from 1000
-     and 100 to 2. Phase 20 runs after phase 13 and before phase 19, which
-     waits for the last oracle; both run before phase 14's profiles.
+     and 100 to 2. Phase 20 runs after phase 13;
+ 21. the port's bench (``tpu_pathtracer_torch/bench.py``): bench.py's four
+     frames no phase above renders, through the bench's frame entries
+     (``bench.run_frame``: a 1 spp warm-up, one timed render, the crop
+     gate at rmse < 5e-3, SSIM >= 0.99) at full size: knot-102k (16 spp)
+     and terrain-168k (8 spp) on the f32 BVH4 tier, terrain-big-668k (4
+     spp) on the quant BVH4 tier, rocks-845k (4 spp) on the heap tier,
+     each 512x512, depth 50, untextured; each frame's tier and launch set
+     checked, its seconds and launches of each kernel printed (K8/K9's
+     and K5/K6's records carry them as ``launches_<frame>``); the stats
+     pass on the headline (``bench.path_stats``, 300x200, 4 spp), its
+     regen Stats equal to the plain engine's (``render_image(...,
+     report_stats=True)``), and rays a path; config 2 (10 spp) on the
+     warm headline (K1's ``launches_config2``); then the bench's JSON line
+     (``bench.bench_line``) over phase 21's readings and phases 5, 8, 12
+     and 13's, its numbers finite and positive (its keys are held to
+     bench.py's by tests/test_torch_bench.py). Phase 21 runs
+     after phase 20 and before phase 19, which waits for the last
+     oracle; all three run before phase 14's profiles.
 
-Each full-size run, and each run of phases 3b, 10c, 10d, 15-20's entry
+Each full-size run, and each run of phases 3b, 10c, 10d, 15-21's entry
 points, resets the launch counts just before it and reads them just after
 (the headline frame must launch no mx kernel, and no frame a probe's).
 Every kernel's record carries its bound: the larger of its FP32
@@ -230,12 +255,13 @@ from unittest import mock
 import numpy as np
 import torch
 
-from tpu_pathtracer_torch import native
+from tpu_pathtracer_torch import bench, native
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import (_pool_size,
                                                render_image_regen,
                                                render_regen)
+from tpu_pathtracer_torch.engine.render import render_image
 from tpu_pathtracer_torch.experiments import dma_probe as dm
 from tpu_pathtracer_torch.experiments import dual_probe as dp
 from tpu_pathtracer_torch.experiments import gather_probe as gp
@@ -252,8 +278,6 @@ from tpu_pathtracer_torch.experiments.common import (distinct,
                                                       graph_ms,
                                                       sphere_pairs)
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
-from tpu_pathtracer_torch.models.shapes import (knot_zoo_scene,
-                                                rocks_zoo_scene)
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
@@ -265,25 +289,12 @@ from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
-from tpu_pathtracer_torch.oracle import render_oracle, to_host
 from tpu_pathtracer_torch.utils import golden
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
-HEADLINE = dict(nx=1200, ny=800, ns=100, max_depth=50)
-STAIRCASE = dict(nx=1200, ny=800, ns=100, max_depth=64)
-CONFIG4 = dict(nx=1200, ny=800, ns=100, max_depth=64)
-DRAGON = dict(nx=512, ny=512, ns=4, max_depth=50, textures=False)
 SMALL = dict(nx=96, ny=64, ns=4, max_depth=8)
-HIRES = dict(prims_per_leaf=64, sub=20)          # bench.py:305
-DRAGON_MESH = dict(nu=1664, nv=262)              # main.py:47
 BVH_RAYS = 131_072
 POOL = 1 << 15  # the regen engine's lane pool off the packet path
-ASSETS = os.path.join(ROOT, "assets")
-GOLDEN = os.path.join(ASSETS, "bench_spheres_100spp.ref")
-STAIR_GOLDEN = os.path.join(ASSETS, "bench_staircase_toy_100spp.ref")
-HIRES_GOLDEN = os.path.join(ASSETS, "bench_staircase_hires_2spp.ref")
-DRAGON_GOLDEN = os.path.join(ASSETS, "bench_dragon_4spp.ref")
-RMSE_TOL, SSIM_MIN = 5e-3, 0.99  # the oracle-gate bounds of bench.py
+RMSE_TOL, SSIM_MIN = bench.RMSE_TOL, bench.SSIM_MIN  # the crop gate's
 T_RTOL = 2.0 ** -22              # 2 ulp: -fmad=false makes t bit-equal
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W)
 FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
@@ -386,6 +397,11 @@ DRAGON_KNOBS = (  # (setting, bound against the default dragon frame)
 # under it; doubling the rmse takes about four times the departures,
 # which phase 10 bounds at 10x the reading.
 MX_FRAME_RMSE = 2e-3
+# bench.py's readings, for the bench line phase 21 prints: the timed
+# renders' seconds of phases 5, 8, 12, 13 and 21 by the bench's frame
+# names (tpu_pathtracer_torch/bench.py FRAMES), config 2's and config 4's,
+# and rays a path
+BENCH_READINGS = {}
 
 
 def phase(name, msg):
@@ -453,32 +469,50 @@ def ties_within_ulp(origin, direction, tab, ik, ip, lanes, t_min, t_max):
     return True
 
 
-def render_timed(fn):
-    """(result, seconds by CUDA events, host wall seconds) of ``fn``."""
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    w0 = time.perf_counter()
-    a.record()
-    out = fn()
-    b.record()
-    b.synchronize()
-    return out, a.elapsed_time(b) / 1e3, time.perf_counter() - w0
+# the kernels each tier launches (bench.tier, from wavefront.mesh_tier)
+TIER_KERNELS = {"spheres": {"cuda_spheres"},
+                "brute": {"cuda_tris.features", "cuda_tris.any_hit"},
+                "bvh4": {"cuda_bvh4.nearest", "cuda_bvh4.any_hit"},
+                "quant-bvh4": {"cuda_bvh4.nearest", "cuda_bvh4.any_hit"},
+                "heap": {"cuda_bvh.nearest", "cuda_bvh.any_hit"}}
+# K13-K26: on no frame's path
+PROBE_MODULES = (ia, lm, dm, dp, um, rp, lr, mr, gp, slp, scp)
 
 
-def gate_crop(tag, img, path):
-    """The 128x128 center crop of ``img`` against a committed golden."""
-    ny, nx = img.shape[:2]
-    if not np.isfinite(img).all():
-        raise AssertionError(f"{tag}: non-finite pixels")
-    cy, cx = ny // 2, nx // 2
-    crop = np.ascontiguousarray(img[cy - 64:cy + 64, cx - 64:cx + 64])
-    ref = golden.load_reference(path)
-    r, s = golden.rmse(crop, ref), golden.ssim(crop, ref)
-    if not (r < RMSE_TOL and s >= SSIM_MIN):
-        raise AssertionError(f"{tag} crop vs golden: rmse {r:.3e} "
-                             f"ssim {s:.5f}")
-    return r, s
+def checked(tag, expect, fn, *args):
+    """``fn(*args)``, a call of the bench that renders on the card and
+    returns its ``Timed`` (itself or as ``.timed``), with the launch
+    counts of every frame and probe kernel set to 0 just before it and
+    read just after: the kernels its timed render launched, and those the
+    whole call launched, must be ``expect``."""
+    bench.reset_launches()
+    bench.reset_launches(PROBE_MODULES)
+    out = fn(*args)
+    ran = {**bench.read_launches(), **bench.read_launches(PROBE_MODULES)}
+    timed = getattr(out, "timed", out)
+    if set(ran) != set(expect) or set(timed.launches) != set(expect):
+        raise AssertionError(f"{tag}: launched {ran} (timed render "
+                             f"{timed.launches}), not {sorted(expect)}")
+    return out
+
+
+def frame_run(where, tag, name, built, expect, cfg=None):
+    """The bench's frame ``name`` through ``bench.run_frame`` (a 1 spp
+    warm-up, the timed render, the crop gate against its TPU golden) on
+    the scene ``built``, under ``cfg`` if given, its launch set checked;
+    prints its line under phase ``where``. Returns the bench's
+    FrameRun."""
+    run = checked(tag, expect, bench.run_frame, bench.FRAMES[name], built,
+                  cfg)
+    t, cfg, spp = run.timed, run.cfg, run.frame.spp
+    phase(where, f"{tag} {cfg.nx}x{cfg.ny} {spp} spp depth "
+          f"{cfg.max_depth}: {t.seconds:.3f} s (CUDA events; host wall "
+          f"{t.wall:.3f} s), {cfg.num_pixels * spp / t.seconds / 1e6:.3f} "
+          f"Mpaths/s, {t.iters} regen iterations "
+          f"({t.seconds / t.iters * 1e3:.2f} ms each), kernel launches "
+          f"{t.launches}, mean {t.image.mean():.4f}; crop vs TPU golden "
+          f"rmse {run.rmse:.3e} ssim {run.ssim:.6f}")
+    return run
 
 
 def small_renders(tag, scene, cam, cfg, patches):
@@ -943,8 +977,8 @@ def mx_path(sets, view, eps):
 def spheres_path(dev):
     """Phases 3-5 and 3b. Returns the headline's profile (phase 14, to run
     after config 4's frame) and the JSON records of K1, K2 and K3."""
-    cfg = RenderConfig(**HEADLINE)
-    scene, cam = random_spheres_scene(cfg.nx, cfg.ny, device=dev)
+    built = bench.build_frame(bench.FRAMES["headline"], dev)
+    cfg, scene, cam = built.cfg, built.scene, built.cam
     view = wf.make_view(scene, cfg)
     pix = torch.arange(cfg.num_pixels, device=dev)
     o1, d1 = cam.generate_rays(pix, 0, cfg.nx, cfg.ny)
@@ -970,29 +1004,13 @@ def spheres_path(dev):
     sscene, scam = random_spheres_scene(scfg.nx, scfg.ny, device=dev)
     small_renders("spheres", sscene, scam, scfg, plain_spheres())
 
-    render_image_regen(scene, cam, cfg, ns=1)  # warm-up
-    cs.LAUNCHES = 0
-    for key in cs.MX_LAUNCHES:
-        cs.MX_LAUNCHES[key] = 0
-    reset_launches()
-    img, secs, wall = render_timed(lambda: render_image_regen(scene, cam,
-                                                              cfg))
-    launches = cs.LAUNCHES
-    if launches <= 0:
-        raise AssertionError("the headline render launched no sphere kernel")
-    if sum(cs.MX_LAUNCHES.values()) or read_launches():
-        raise AssertionError(f"the headline render launched the mx kernel "
-                             f"{cs.MX_LAUNCHES} or {read_launches()}")
-    if img.shape != (cfg.ny, cfg.nx, 3):
-        raise AssertionError(f"bad image: shape {img.shape}")
-    r5, s5 = gate_crop("headline", img, GOLDEN)
-    paths = cfg.num_pixels * cfg.ns
-    phase("headline", f"{cfg.nx}x{cfg.ny} {cfg.ns} spp depth "
-          f"{cfg.max_depth}: {secs:.3f} s (CUDA events; host wall "
-          f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, "
-          f"{launches} kernel launches = regen iterations, mean "
-          f"{img.mean():.4f}; crop vs TPU golden rmse {r5:.3e} "
-          f"ssim {s5:.6f}")
+    # K1 alone: no mx sphere kernel, no triangle or probe kernel
+    run = frame_run("headline", "headline", "headline", built,
+                    TIER_KERNELS["spheres"])
+    launches = run.timed.launches["cuda_spheres"]
+    if run.timed.image.shape != (cfg.ny, cfg.nx, 3):
+        raise AssertionError(f"bad image: shape {run.timed.image.shape}")
+    BENCH_READINGS["headline"] = run.timed.seconds
     k1_rec = record("spheres_hit_feat", "spheres.cu",
                     OPS + "pallas_spheres.py:73", launches, max(err1, err2),
                     ms, plain_ms, bnd)
@@ -1023,8 +1041,8 @@ def staircase_path(dev):
     after the last full-size frame but the dragon's, as config 4's does)
     and the kernel's JSON records (features mode, the nearest hit of the
     path, and any-hit, its shadow rays)."""
-    cfg = RenderConfig(**STAIRCASE)
-    scene, cam = procedural_staircase_scene(cfg.nx, cfg.ny, device=dev)
+    built = bench.build_frame(bench.FRAMES["staircase"], dev)
+    cfg, scene, cam = built.cfg, built.scene, built.cam
     view = wf.make_view(scene, cfg)
     pix = torch.arange(cfg.num_pixels, device=dev)
     o1, d1 = cam.generate_rays(pix, 0, cfg.nx, cfg.ny)
@@ -1040,27 +1058,10 @@ def staircase_path(dev):
     sscene, scam = procedural_staircase_scene(scfg.nx, scfg.ny, device=dev)
     small_renders("staircase", sscene, scam, scfg, plain)
 
-    render_regen(scene, cam, cfg, ns=1)  # warm-up
-    reset_launches()
-    (fb, iters), secs, wall = render_timed(
-        lambda: render_regen(scene, cam, cfg, return_iters=True))
-    launches = dict(ct.LAUNCHES)
-    if launches["features"] <= 0 or launches["any_hit"] <= 0:
-        raise AssertionError(f"the staircase render launched the nearest "
-                             f"and any-hit kernels {launches} times")
-    others = set(read_launches()) - {"cuda_tris.features",
-                                     "cuda_tris.any_hit"}
-    if others:
-        raise AssertionError(f"the staircase render launched {others}")
-    img = fb.cpu().numpy().reshape(cfg.ny, cfg.nx, 3)
-    r8, s8 = gate_crop("staircase", img, STAIR_GOLDEN)
-    paths = cfg.num_pixels * cfg.ns
-    phase("staircase", f"{cfg.nx}x{cfg.ny} {cfg.ns} spp depth "
-          f"{cfg.max_depth}: {secs:.3f} s (CUDA events; host wall "
-          f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, {iters} "
-          f"regen iterations ({secs / iters * 1e3:.2f} ms each), kernel "
-          f"launches {launches}, mean {img.mean():.4f}; crop vs TPU golden "
-          f"rmse {r8:.3e} ssim {s8:.6f}")
+    run = frame_run("staircase", "staircase", "staircase", built,
+                    TIER_KERNELS["brute"])
+    launches = {k.split(".")[1]: v for k, v in run.timed.launches.items()}
+    BENCH_READINGS["staircase"] = run.timed.seconds
     # profiled later: a profiler session slows the host's launches of the
     # frames that follow it in the process (PERF.md)
     profile = functools.partial(profile_frame, "staircase-toy", scene, cam,
@@ -1085,8 +1086,14 @@ def profile_frame(tag, scene, cam, cfg, itemize=None):
             2 * _pool_size(one, cfg.num_pixels, scene))
     rows = dict(pixel_offset=(cfg.num_pixels - n) // 2, num_pixels=n)
     render_regen(scene, cam, one, **rows)  # warm-up
-    (_, iters), secs, _ = render_timed(
-        lambda: render_regen(scene, cam, one, return_iters=True, **rows))
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    _, iters = render_regen(scene, cam, one, return_iters=True, **rows)
+    b.record()
+    b.synchronize()
+    secs = a.elapsed_time(b) / 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         render_regen(scene, cam, one, **rows)
@@ -1406,12 +1413,13 @@ def graph_record(name, source, replaces, launches, check, graph, pool,
 def staircase_hires_path(dev):
     """Phases 9, 11 and 12. Returns config 4's profile (phase 14, to run
     after the timed frames) and the JSON records of K8 and K9."""
-    cfg = RenderConfig(**CONFIG4)
-    t0 = time.perf_counter()
-    scene, cam = procedural_staircase_scene(cfg.nx, cfg.ny, device=dev,
-                                            **HIRES)
+    frame = bench.FRAMES["staircase_hires"]
+    built = bench.build_frame(frame, dev)
+    scene, cam = built.scene, built.cam
+    more, spp = frame.more
+    cfg = built.cfg.replace(ns=spp)  # config 4
     b4 = scene.mesh.bvh4
-    phase("scene", f"staircase-hires built in {time.perf_counter() - t0:.1f}"
+    phase("scene", f"staircase-hires built in {built.build_s:.1f}"
           f" s: {scene.mesh.num_tris} heap slots, tier "
           f"{wf.mesh_tier(scene, cfg)}, BVH4 {b4.n_nodes} nodes, "
           f"{b4.n_clusters} clusters of {b4.width}, stack_cap "
@@ -1431,7 +1439,7 @@ def staircase_hires_path(dev):
 
     scfg = RenderConfig(**SMALL)
     sscene, scam = procedural_staircase_scene(scfg.nx, scfg.ny, device=dev,
-                                              **HIRES)
+                                              **frame.scene_kwargs)
     img4 = small_renders("staircase-hires", sscene, scam, scfg,
                          kern.plain())
     for key in cb.LAUNCHES:
@@ -1447,29 +1455,23 @@ def staircase_hires_path(dev):
           f"{dict(cb.LAUNCHES)}) vs BVH4: rmse {r:.3e} ssim {s:.6f} max "
           f"|diff| {np.abs(img_h - img4).max():.3e}")
 
-    # config 4: the 2 spp golden gate (also the warm-up), then 100 spp
-    fb2 = render_regen(scene, cam, cfg, ns=2)
-    img2 = fb2.cpu().numpy().reshape(cfg.ny, cfg.nx, 3)
-    r2, s2 = gate_crop("staircase-hires 2 spp", img2, HIRES_GOLDEN)
-    phase("config4", f"{cfg.nx}x{cfg.ny} 2 spp: crop vs TPU golden rmse "
-          f"{r2:.3e} ssim {s2:.6f}, mean {img2.mean():.4f}")
-    reset_launches()
-    (fb, iters), secs, wall = render_timed(
-        lambda: render_regen(scene, cam, cfg, return_iters=True))
-    ran = read_launches()
-    if set(ran) != {"cuda_bvh4.nearest", "cuda_bvh4.any_hit"}:
-        raise AssertionError(f"config 4 launched {ran}: the BVH4 kernels "
-                             "alone should run")
-    launches = dict(cb4.LAUNCHES)
-    img = fb.cpu().numpy().reshape(cfg.ny, cfg.nx, 3)
-    if not np.isfinite(img).all() or img.mean() <= 0:
+    # config 4: the bench's staircase-hires frame (2 spp, timed and
+    # gated), then 100 spp on the warm frame
+    run = frame_run("config4", "staircase-hires", "staircase_hires", built,
+                    TIER_KERNELS["bvh4"])
+    BENCH_READINGS["staircase_hires"] = run.timed.seconds
+    t = checked("config 4", TIER_KERNELS["bvh4"], bench.render_timed, scene,
+                cam, cfg)
+    launches = {k.split(".")[1]: v for k, v in t.launches.items()}
+    if not np.isfinite(t.image).all() or t.image.mean() <= 0:
         raise AssertionError("config 4: non-finite or black image")
+    BENCH_READINGS[more] = t.seconds
     paths = cfg.num_pixels * cfg.ns
     phase("config4", f"{cfg.nx}x{cfg.ny} {cfg.ns} spp depth "
-          f"{cfg.max_depth}: {secs:.3f} s (CUDA events; host wall "
-          f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, {iters} "
-          f"regen iterations ({secs / iters * 1e3:.2f} ms each), kernel "
-          f"launches {launches}, mean {img.mean():.4f}")
+          f"{cfg.max_depth}: {t.seconds:.3f} s (CUDA events; host wall "
+          f"{t.wall:.3f} s), {paths / t.seconds / 1e6:.3f} Mpaths/s, "
+          f"{t.iters} regen iterations ({t.seconds / t.iters * 1e3:.2f} ms "
+          f"each), kernel launches {launches}, mean {t.image.mean():.4f}")
     # profiled later: a profiler session slows the host's launches of the
     # frames timed after it
     profile = functools.partial(profile_frame, "config 4", scene, cam, cfg,
@@ -1481,25 +1483,6 @@ def staircase_hires_path(dev):
         graph_record("bvh4_occluded", "bvh4.cu", "pallas_bvh4.py:598",
                      launches["any_hit"], checks["NEE shadows"], graph,
                      "pool NEE shadows")]
-
-
-TRI_MODULES = (cb4, cb, ct, cmx, crg, cmr)
-PROBE_MODULES = (ia, lm, dm, dp, um, rp, lr, mr, gp, slp, scp)  # K13-K26:
-# on no frame's path
-
-
-def reset_launches(mods=TRI_MODULES + PROBE_MODULES):
-    for mod in mods:
-        for key in mod.LAUNCHES:
-            mod.LAUNCHES[key] = 0
-
-
-def read_launches(mods=TRI_MODULES + PROBE_MODULES):
-    """{"module.mode": launches} of every triangle or probe kernel that
-    ran."""
-    return {f"{mod.__name__.rsplit('.', 1)[1]}.{key}": count
-            for mod in mods for key, count in mod.LAUNCHES.items()
-            if count}
 
 
 def near_accept_bound(tab64, o, d, t_min, t_hi):
@@ -1862,7 +1845,7 @@ def walk_probe_phase(tabs, rays, eps):
     o, d, tm = rays["primary"]
     n = o.x.shape[0]
     torch.cuda.synchronize()
-    reset_launches((ia, dp))
+    bench.reset_launches((ia, dp))
     k13 = ia.measure(o, d, tm, tabs, eps, rounds=2)
     k16 = dp.measure(o, d, tabs, rounds=2)
     launches = {**{f"iter_ablate.{k}": v for k, v in k13["launches"].items()},
@@ -1935,7 +1918,7 @@ def leaf_probe_phase(dev):
     one = lm.probe_inputs(1, dev)
     blocks = dm.probe_blocks(device=dev)
     torch.cuda.synchronize()
-    reset_launches((lm, dm))
+    bench.reset_launches((lm, dm))
     k14 = lm.measure(one, rounds=1)
     k15 = dm.measure(blocks, rounds=1)
     launches = {**{f"leafmt_probe.{k}": v for k, v in k14["launches"].items()},
@@ -2029,7 +2012,7 @@ def micro_phase(dev):
     t_phase = time.perf_counter()
     inp = um.probe_inputs(dev)
     torch.cuda.synchronize()
-    reset_launches((um,))
+    bench.reset_launches((um,))
     r = um.measure(inp, rounds=1)
     launches = {f"tpu_micro.{k}": v for k, v in r["launches"].items()}
     if min(launches.values()) <= 0:
@@ -2105,12 +2088,12 @@ def packet8_phase(dev):
     gp_rays, gp_tabs = gp.probe_inputs(device=dev)
     torch.cuda.synchronize()
     mods = (rp, lr, mr, gp)
-    reset_launches(mods)
+    bench.reset_launches(mods)
     k21 = rp.measure(rg_in, rounds=1)
     k22 = lr.measure(lr_rays, lr_blocks, rounds=1)
     k23 = mr.measure(ntab, mr_rays, rounds=1)
     k24 = gp.measure(gp_rays, gp_tabs, rounds=1)
-    launches = read_launches(mods)
+    launches = bench.read_launches(mods)
     want = {f"{m.__name__.rsplit('.', 1)[1]}.{k}" for m in mods
             for k in m.LAUNCHES}
     if set(launches) != want:
@@ -2195,10 +2178,10 @@ def layout_phase(dev):
     x = scp.probe_x(dev)
     torch.cuda.synchronize()
     mods = (slp, scp)
-    reset_launches(mods)
+    bench.reset_launches(mods)
     k25 = slp.measure(sets, rounds=2)
     k26 = scp.measure(x)
-    launches = read_launches(mods)
+    launches = bench.read_launches(mods)
     want = {f"{m.__name__.rsplit('.', 1)[1]}.{k}" for m in mods
             for k in m.LAUNCHES}
     if set(launches) != want:
@@ -2252,31 +2235,6 @@ def layout_phase(dev):
     return recs
 
 
-def dragon_frame(tag, scene, cam, cfg, expect):
-    """Phase 13's frame under ``cfg``: a 1 spp warm-up, then the frame
-    timed, with the launch counts set to 0 just before it and read just
-    after; the kernels that ran must be ``expect``. Returns (image,
-    launches)."""
-    render_regen(scene, cam, cfg, ns=1)  # warm-up
-    reset_launches()
-    (fb, iters), secs, wall = render_timed(
-        lambda: render_regen(scene, cam, cfg, return_iters=True))
-    launches = read_launches()
-    if set(launches) != set(expect):
-        raise AssertionError(f"{tag}: launched {launches}, expected "
-                             f"{sorted(expect)}")
-    img = fb.cpu().numpy().reshape(cfg.ny, cfg.nx, 3)
-    r, s = gate_crop(tag, img, DRAGON_GOLDEN)
-    paths = cfg.num_pixels * cfg.ns
-    phase("dragon", f"{tag} {cfg.nx}x{cfg.ny} {cfg.ns} spp depth "
-          f"{cfg.max_depth}: {secs:.3f} s (CUDA events; host wall "
-          f"{wall:.3f} s), {paths / secs / 1e6:.3f} Mpaths/s, {iters} "
-          f"regen iterations, kernel launches {launches}, mean "
-          f"{img.mean():.4f}; crop vs TPU golden rmse {r:.3e} "
-          f"ssim {s:.6f}")
-    return img, launches
-
-
 def mx_frame_checks(scene, cam, cfg, base, mx_img):
     """mx_leaf against the default frame beyond phase 13's first frame:
     the same comparison on two more 4-sample windows of the frame (sample
@@ -2308,13 +2266,12 @@ def dragon_path(dev):
     records of K5, K6, the heap tier's variants (K10, K10b, K11, K5/K6
     fast_math), the packet walk (K12a, K12b) and the walk probes (K13,
     K16)."""
-    cfg = RenderConfig(**DRAGON)
-    t0 = time.perf_counter()
-    scene, cam = knot_zoo_scene(cfg.nx, cfg.ny, device=dev, **DRAGON_MESH)
+    built = bench.build_frame(bench.FRAMES["dragon"], dev)
+    cfg, scene, cam = built.cfg, built.scene, built.cam
     if wf.mesh_tier(scene, cfg) != "heap":
         raise AssertionError("the dragon-class knot left the heap tier")
     phase("scene", f"dragon-class knot built in "
-          f"{time.perf_counter() - t0:.1f} s: {scene.mesh.num_tris} heap "
+          f"{built.build_s:.1f} s: {scene.mesh.num_tris} heap "
           f"slots, first_leaf {scene.mesh.first_leaf}, "
           f"{scene.mesh.prims_per_leaf} a leaf, tier heap")
     tabs = cb.heap_tables(scene.mesh)
@@ -2337,8 +2294,9 @@ def dragon_path(dev):
     mr_recs = mr_phase(tabs, rays, cfg.epsilon, (bnd, bnd_a))
     probe_recs = walk_probe_phase(tabs, rays, cfg.epsilon)
 
-    base, launches = dragon_frame("dragon", scene, cam, cfg,
-                                  {"cuda_bvh.nearest", "cuda_bvh.any_hit"})
+    run = frame_run("dragon", "dragon", "dragon", built, TIER_KERNELS["heap"])
+    base, launches = run.timed.image, run.timed.launches
+    BENCH_READINGS["dragon"] = run.timed.seconds
     knob_launches, knob_imgs = {}, {}
     for knobs, bound_text in DRAGON_KNOBS:
         kcfg = cfg.replace(**knobs)
@@ -2348,8 +2306,9 @@ def dragon_path(dev):
         expect = route.get(wf.mesh_tier(scene, kcfg), (
             {"cuda_bvh.nearest_fast_math", "cuda_bvh.any_hit_fast_math"}
             if kcfg.fast_math else {"cuda_bvh.nearest", "cuda_bvh.any_hit"}))
-        img, knob_launches[name] = dragon_frame(f"dragon {name}", scene,
-                                                cam, kcfg, expect)
+        t = frame_run("dragon", f"dragon {name}", "dragon", built, expect,
+                      kcfg).timed
+        img, knob_launches[name] = t.image, t.launches
         knob_imgs[name] = img
         r, s = golden.rmse(img, base), golden.ssim(img, base)
         ok = {"packet_packs=2, packet_split=True":
@@ -2409,47 +2368,16 @@ def dragon_path(dev):
         *probe_recs]
 
 
-# bench.py's four on-hardware oracle gates (``_oracle_gate``, :85): name,
-# bench.py lines, scene factory and its arguments, config, rmse below,
-# SSIM at least. Longest oracle first: the host renders them in this order.
-PACKET_GATE = dict(nx=64, ny=48, ns=4, max_depth=8, textures=False,
-                   packet_threshold=1)
-ORACLE_GATES = (
-    ("rocks_packet", "bench.py:280-285", rocks_zoo_scene,
-     dict(n_big=2, n_small=3, seed=9), PACKET_GATE, 1e-2, 0.97),
-    ("knot_packet", "bench.py:330-334", knot_zoo_scene,
-     dict(nu=48, nv=24), PACKET_GATE, 1e-2, 0.97),
-    ("staircase_mesh", "bench.py:202-205", procedural_staircase_scene, {},
-     dict(nx=96, ny=64, ns=4, max_depth=8), 1e-2, 0.97),
-    ("spheres", "bench.py:176-179", random_spheres_scene, {},
-     dict(nx=96, ny=64, ns=4, max_depth=8), RMSE_TOL, SSIM_MIN),
-)
-# the kernels each mesh tier launches (wavefront.mesh_tier)
-TIER_KERNELS = {"brute": {"cuda_tris.features", "cuda_tris.any_hit"},
-                "bvh4": {"cuda_bvh4.nearest", "cuda_bvh4.any_hit"},
-                "heap": {"cuda_bvh.nearest", "cuda_bvh.any_hit"}}
 CONFIG5 = dict(nx=3840, ny=2160, ns=2, max_depth=64)  # ns cut from 1000
 TILE_FRAME = dict(nx=1200, ny=800, ns=2, max_depth=64)  # ns cut from 100
 TILE_ATOL = 1e-6  # tests/test_parallel.py:52-60
 
 
-def oracle_job(scene, cam, cfg):
-    """(image, seconds) of the port's NumPy oracle, in a host process."""
-    t0 = time.perf_counter()
-    return render_oracle(scene, cam, cfg), time.perf_counter() - t0
-
-
 def start_oracle_gates(dev, pool):
-    """Builds each gate's scene on the card and starts the port's oracle
-    of that scene, read to the host, in ``pool``; the renders on the card
-    and the comparisons wait for phase 19. Returns the gates' state."""
-    gates = []
-    for name, where, fn, kw, c, tol, smin in ORACLE_GATES:
-        cfg = RenderConfig(**c)
-        scene, cam = fn(cfg.nx, cfg.ny, device=dev, **kw)
-        job = pool.apply_async(oracle_job,
-                               (to_host(scene), to_host(cam), cfg))
-        gates.append((name, where, cfg, scene, cam, tol, smin, job))
+    """Starts the port's oracle of bench.py's four gates (the bench's
+    ``ORACLE_GATES``) in ``pool``; the renders on the card and the
+    comparisons wait for phase 19."""
+    gates = bench.start_oracle_gates(dev, pool)
     phase("oracle", f"the port's NumPy oracle of the {len(gates)} gates "
           f"started in {len(gates)} host processes")
     return gates
@@ -2459,33 +2387,101 @@ def oracle_gate_phase(gates):
     """Phase 19: bench.py's four oracle gates, each frame rendered on the
     card through its tier's kernels (counts from 0 just before, read just
     after) and held against the port's NumPy oracle of the same scene at
-    bench.py's bounds."""
+    bench.py's bounds (``bench.check_oracle_gate``)."""
     t_phase = time.perf_counter()
-    for name, where, cfg, scene, cam, tol, smin, job in gates:
-        tier = wf.mesh_tier(scene, cfg) or "spheres"
-        cs.LAUNCHES = 0
-        reset_launches()
-        img = render_image_regen(scene, cam, cfg)
-        launches = {**({"cuda_spheres": cs.LAUNCHES} if cs.LAUNCHES
-                       else {}), **read_launches()}
-        expect = TIER_KERNELS.get(tier, {"cuda_spheres"})
-        if set(launches) != expect:
-            raise AssertionError(f"oracle gate {name} (tier {tier}) "
-                                 f"launched {launches}, not {expect}")
-        t0 = time.perf_counter()
-        ref, secs = job.get()
-        waited = time.perf_counter() - t0
-        r, s = golden.rmse(img, ref), golden.ssim(img, ref)
-        phase("oracle", f"{name} ({where}) {cfg.nx}x{cfg.ny} {cfg.ns} spp "
-              f"depth {cfg.max_depth}, tier {tier}: rmse {r:.3e} (bound < "
-              f"{tol:g}) ssim {s:.6f} (bound >= {smin}); kernel launches "
-              f"{launches}; oracle {secs:.1f} s in its host process "
-              f"(waited {waited:.1f} s)")
-        if not (np.isfinite(img).all() and img.shape == ref.shape
-                and r < tol and s >= smin):
-            raise AssertionError(f"oracle gate {name} FAILED: rmse {r:.3e} "
-                                 f"(tol {tol:g}) ssim {s:.6f} (min {smin})")
+    for p in gates:
+        g, cfg, tier = p.gate, p.cfg, bench.tier(p.scene, p.cfg)
+        run = checked(f"oracle gate {g.name} (tier {tier})",
+                      TIER_KERNELS[tier], bench.finish_oracle_gate, p)
+        phase("oracle", f"{g.name} ({g.where}) {cfg.nx}x{cfg.ny} {cfg.ns} "
+              f"spp depth {cfg.max_depth}, tier {tier}: rmse {run.rmse:.3e} "
+              f"(bound < {g.rmse_tol:g}) ssim {run.ssim:.6f} (bound >= "
+              f"{g.ssim_min}); kernel launches {run.timed.launches}; oracle "
+              f"{run.oracle_s:.1f} s in its host process (waited "
+              f"{run.waited_s:.1f} s)")
     phase("oracle", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 21: bench.py's frames that no earlier phase renders, and the tier
+# each takes (knot and terrain the f32 BVH4 tier, terrain-big the quant
+# BVH4 tier, the rock pile the heap)
+ZOO_TIERS = {"knot": "bvh4", "terrain": "bvh4", "terrain_big": "quant-bvh4",
+             "rocks": "heap"}
+
+
+def bench_phase(dev, smi):
+    """Phase 21: bench.py's four zoo frames through the bench's frame
+    entries (``bench.run_frame``: a 1 spp warm-up, the timed render, the
+    crop gate), each at full size with its tier and its launch set
+    checked; the stats pass on the headline (``bench.path_stats``), its
+    regen Stats equal to the plain engine's; config 2 on the warm
+    headline; and the bench's JSON line over this phase's readings and
+    phases 5, 8, 12 and 13's. Returns the zoo frames' launches of each
+    kernel and config 2's."""
+    t_phase = time.perf_counter()
+    zoo = {}
+    for name, route in ZOO_TIERS.items():
+        frame = bench.FRAMES[name]
+        built = bench.build_frame(frame, dev)
+        run = frame_run("bench", frame.label, name, built,
+                        TIER_KERNELS[route])
+        if run.tier != route:
+            raise AssertionError(f"{frame.label}: tier {run.tier}, not "
+                                 f"{route}")
+        b4 = run.scene.mesh.bvh4
+        shape = (f"BVH4 {b4.n_nodes} nodes, stack_cap {b4.stack_cap}"
+                 if b4 is not None else
+                 f"first_leaf {run.scene.mesh.first_leaf}")
+        phase("bench", f"{frame.label} ({frame.crop}): tier {run.tier} "
+              f"({run.scene.mesh.num_tris} heap slots, {shape}), scene "
+              f"built in {run.build_s:.1f} s, "
+              f"{run.timed.seconds / frame.spp * 1e3:.1f} ms/spp")
+        BENCH_READINGS[name] = run.timed.seconds
+        zoo[name] = run.timed.launches
+
+    frame = bench.FRAMES["headline"]
+    built = bench.build_frame(frame, dev)
+    cfg, scene, cam = built.cfg, built.scene, built.cam
+    scfg, regen = bench.path_stats(scene, cam, cfg)
+    _, plain = render_image(scene, cam, scfg.replace(ns=4),
+                            report_stats=True)
+    if regen != plain:
+        raise AssertionError("the headline's stats pass: regen Stats differ "
+                             "from the plain engine's: " + str(
+                                 {k: (a, b) for k, a, b in
+                                  zip(regen._fields, regen, plain) if a != b}))
+    rpp = bench.rays_per_path(regen)
+    BENCH_READINGS["rays_per_path"] = rpp
+    phase("bench", f"headline stats pass {scfg.nx}x{scfg.ny} 4 spp depth "
+          f"{scfg.max_depth}: regen Stats equal the plain engine's (primary "
+          f"{regen.primary}, secondary {regen.secondary}, shadows "
+          f"{regen.shadows}, roulette {regen.roulette_kill}, exceeded max "
+          f"bounce {regen.exceed_max_bounce}); {rpp:.4f} rays a path")
+
+    more, spp = frame.more
+    t2 = checked("config 2", TIER_KERNELS["spheres"], bench.render_timed,
+                 scene, cam, cfg, spp)
+    if not (np.isfinite(t2.image).all() and t2.image.mean() > 0.01):
+        raise AssertionError(f"config 2: bad image, mean {t2.image.mean()}")
+    BENCH_READINGS[more] = t2.seconds
+    paths = cfg.num_pixels * spp
+    phase("bench", f"config 2: {cfg.nx}x{cfg.ny} {spp} spp "
+          f"depth {cfg.max_depth} on the warm headline: {t2.seconds:.3f} s "
+          f"(CUDA events; host wall {t2.wall:.3f} s), "
+          f"{paths / t2.seconds / 1e6:.3f} Mpaths/s, {t2.iters} regen "
+          f"iterations, kernel launches {t2.launches}, mean "
+          f"{t2.image.mean():.4f} (no golden)")
+
+    # its keys are bench.py's (tests/test_torch_bench.py); here its numbers
+    line = bench.bench_line({**BENCH_READINGS, "device": smi})
+    numbers = [v for k, v in (*line.items(), *line["extra"].items())
+               if isinstance(v, float)]
+    if not all(np.isfinite(v) and v > 0 for v in numbers):
+        raise AssertionError(f"bench line: {line}")
+    phase("bench", f"bench.py's line over phases 5, 8, 12, 13 and 21 "
+          f"(each frame timed once): {json.dumps(line)}")
+    phase("bench", f"phase 21 in {time.perf_counter() - t_phase:.1f} s")
+    return zoo, t2.launches
 
 
 def config5_phase(dev, workdir):
@@ -2509,15 +2505,16 @@ def config5_phase(dev, workdir):
 
     path_a = os.path.join(workdir, "a.ckpt")
     path_b = os.path.join(workdir, "b.ckpt")
-    reset_launches()
-    cs.LAUNCHES = 0
+    bench.reset_launches()
+    bench.reset_launches(PROBE_MODULES)
     t0 = time.perf_counter()
     img_a = ck.render_with_checkpoints(scene, cam, cfg, path_a, batch=1,
                                        progress=progress)
-    launches = read_launches()
-    if set(launches) != TIER_KERNELS["brute"] or cs.LAUNCHES:
-        raise AssertionError(f"config 5 launched {launches} (spheres "
-                             f"{cs.LAUNCHES}), not {TIER_KERNELS['brute']}")
+    launches = {**bench.read_launches(),
+                **bench.read_launches(PROBE_MODULES)}
+    if set(launches) != TIER_KERNELS["brute"]:
+        raise AssertionError(f"config 5 launched {launches}, not "
+                             f"{TIER_KERNELS['brute']}")
     spp_secs = np.diff([t0, *batches])
     ck.render_with_checkpoints(scene, cam, cfg.replace(ns=1), path_b,
                                batch=1)
@@ -2590,7 +2587,7 @@ def main():
     # the oracle of phase 19's gates renders on the host (at a lower
     # priority) beside phases 3-13 and 20; the rocks' takes minutes
     pool = multiprocessing.get_context("spawn").Pool(
-        len(ORACLE_GATES), initializer=os.nice, initargs=(10,))
+        len(bench.ORACLE_GATES), initializer=os.nice, initargs=(10,))
     try:
         with tempfile.TemporaryDirectory() as workdir:
             gates = start_oracle_gates(dev, pool)
@@ -2600,6 +2597,7 @@ def main():
             dragon_profiles, dragon_recs = dragon_path(dev)
             kernels += [*stair_recs, *config4_recs, *dragon_recs]
             c5 = config5_phase(dev, workdir)
+            zoo, c2 = bench_phase(dev, smi)
             oracle_gate_phase(gates)
     finally:
         pool.terminate()
@@ -2608,6 +2606,19 @@ def main():
         mode = {"tris_hit_feat": "features",
                 "tris_anyhit_soa": "any_hit"}[rec["name"]]
         rec["launches_config5_spp"] = c5[f"cuda_tris.{mode}"] / CONFIG5["ns"]
+    # phase 21's frames: K1's in config 2, K8/K9's in the knot and the two
+    # terrains, K5/K6's in the rock pile
+    zoo_modes = {"spheres_hit_feat": ("cuda_spheres", ("config2",)),
+                 "bvh4_trace": ("cuda_bvh4.nearest",
+                                ("knot", "terrain", "terrain_big")),
+                 "bvh4_occluded": ("cuda_bvh4.any_hit",
+                                   ("knot", "terrain", "terrain_big")),
+                 "heap_trace": ("cuda_bvh.nearest", ("rocks",)),
+                 "heap_occluded": ("cuda_bvh.any_hit", ("rocks",))}
+    for rec in kernels:
+        key, frames = zoo_modes.get(rec["name"], (None, ()))
+        for name in frames:
+            rec[f"launches_{name}"] = ({**zoo, "config2": c2}[name])[key]
     # phase 14 after every timed frame: a profiler session slows the
     # host's later launches in the process
     for profile in (config4_profile, stair_profile, headline_profile,

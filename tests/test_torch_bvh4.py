@@ -32,6 +32,7 @@ from tpu_pathtracer_torch.ops import cuda_bvh4 as cb4
 from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh4_cases
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_MIN = 1e-3
 

@@ -30,6 +30,7 @@ from test_torch_bvh_mx import assert_hits_match_jax
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh_mr as cmr
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
+from torch_threads import one_torch_thread  # noqa: F401
 
 _MR_PATH = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "experiments", "pallas_bvh_mr.py")

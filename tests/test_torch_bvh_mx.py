@@ -50,6 +50,7 @@ from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh_mx_cases
+from torch_threads import one_torch_thread  # noqa: F401
 
 OFFSET = 30.0  # moves the soup off the origin, so G is recentred
 # (JAX block row, G column group, port column) of every used G entry

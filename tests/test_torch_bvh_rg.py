@@ -45,6 +45,7 @@ from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh_rg as crg
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import rg_cases
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the cases whose leaf width build_packet_rg refuses
 JAX_REFUSES = ("tie_w5", "tie_w33", "soup_w33")

@@ -9,6 +9,7 @@ import torch
 
 from tpu_pathtracer.camera import make_camera as jmake
 from tpu_pathtracer_torch.camera import Camera, make_camera as tmake
+from torch_threads import one_torch_thread  # noqa: F401
 
 CAMERAS = {
     # (lookfrom, lookat, vup, vfov, aspect, aperture, focus_dist)

@@ -23,6 +23,7 @@ from tpu_pathtracer_torch.models import scene as tsc
 from tpu_pathtracer_torch.models import spheres as tspheres
 from tpu_pathtracer_torch.ops import bvh as tbvh
 from tpu_pathtracer_torch.utils import checkpoint as ck
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_checkpoint_roundtrip(tmp_path):

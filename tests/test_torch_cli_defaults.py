@@ -8,6 +8,7 @@ import pytest
 
 import main as jmain
 from tpu_pathtracer_torch import __main__ as cli
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 class _Parsed(Exception):

@@ -25,6 +25,7 @@ from tpu_pathtracer.ops.pallas_bvh import (build_packet_mesh,
                                            packet_occluded, packet_trace)
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 import heap_cases
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_MIN = heap_cases.T_MIN
 

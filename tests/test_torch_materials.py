@@ -13,6 +13,7 @@ from tpu_pathtracer.ops.v3 import V3 as JV3
 from tpu_pathtracer_torch.models import scene as tsc
 from tpu_pathtracer_torch.ops import materials as tm
 from tpu_pathtracer_torch.ops.v3 import V3
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 2048
 # sin/cos/log/exp/pow differ between XLA's and PyTorch's CPU kernels by a

@@ -27,6 +27,7 @@ from tpu_pathtracer_torch.models import obj as tobj
 from tpu_pathtracer_torch.models.scene import MeshData, Scene
 from tpu_pathtracer_torch.ops import bvh as tbvh
 from tpu_pathtracer_torch.ops import texture as ttex
+from torch_threads import one_torch_thread  # noqa: F401
 
 _MESH_ARRAYS = ("v0", "v1", "v2", "tex_coords", "mesh_id", "bvh_min",
                 "bvh_max", "bounds_min", "bounds_max")

@@ -45,6 +45,7 @@ from test_torch_probes_walk import _kernel_defs
 from tpu_pathtracer_torch.experiments import gather_probe as gp
 from tpu_pathtracer_torch.experiments import leafround_probe as lr
 from tpu_pathtracer_torch.experiments import multirow_probe as mr
+from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 5          # node steps of K23 and K24
 ROUNDS = 3         # leaf rounds of K22

@@ -18,6 +18,7 @@ from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.models import mesh as tmesh
 from tpu_pathtracer_torch.models import spheres as tspheres
 from tpu_pathtracer_torch.oracle import render_oracle
+from torch_threads import one_torch_thread  # noqa: F401
 
 # name: (JAX factory, port factory or None, factory kwargs, config)
 SCENES = {

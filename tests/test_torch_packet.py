@@ -50,6 +50,7 @@ from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops import cuda_bvh_mx as cmx
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 from tpu_pathtracer_torch.utils.golden import rmse, ssim
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_heap_walk_matches_jax_kernels():

@@ -14,6 +14,7 @@ import pytest
 import tpu_pathtracer_torch
 from tpu_pathtracer.config import RenderConfig as JConfig
 from tpu_pathtracer_torch.config import RenderConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -60,7 +61,8 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.utils.profiling",
             "tpu_pathtracer_torch.parallel.tiles",
             "tpu_pathtracer_torch.experiments.config5_full",
-            "tpu_pathtracer_torch.experiments.oracle_contention"} <= set(mods)
+            "tpu_pathtracer_torch.experiments.oracle_contention",
+            "tpu_pathtracer_torch.bench"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises

@@ -35,6 +35,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tpu_pathtracer_torch.experiments import dma_probe as dm
 from tpu_pathtracer_torch.experiments import leafmt_probe as lm
+from torch_threads import one_torch_thread  # noqa: F401
 
 EXP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "experiments")

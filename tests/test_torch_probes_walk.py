@@ -53,6 +53,7 @@ from tpu_pathtracer_torch.experiments import iter_ablate as ia
 from tpu_pathtracer_torch.models import shapes as tshapes
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXP = os.path.join(ROOT, "experiments")

@@ -9,6 +9,7 @@ from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine.regen import render_image_regen
 from tpu_pathtracer_torch.models.spheres import three_sphere_scene
 from tpu_pathtracer_torch.utils import profiling
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_profiling_measure_reports_rays():

@@ -37,6 +37,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from tpu_pathtracer_torch.experiments import regroup_probe as rp
+from torch_threads import one_torch_thread  # noqa: F401
 
 EXP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "experiments")

@@ -28,6 +28,7 @@ from tpu_pathtracer_torch.models import mesh as tmesh
 from tpu_pathtracer_torch.models import spheres as tspheres
 from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.utils import golden
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(

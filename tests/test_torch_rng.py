@@ -9,6 +9,7 @@ import torch
 
 from tpu_pathtracer.ops import rng as jr
 from tpu_pathtracer_torch.ops import rng as tr
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 4096
 

@@ -15,6 +15,7 @@ from tpu_pathtracer.models import shapes as jshapes
 from tpu_pathtracer_torch.models import presets as tpresets
 from tpu_pathtracer_torch.models import shapes as tshapes
 from tpu_pathtracer_torch.models.scene import MeshData, Scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 MESHES = {
     "torus": ("torus_mesh", dict(nu=8, nv=6)),

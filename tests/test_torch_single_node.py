@@ -11,6 +11,7 @@ from tpu_pathtracer.ops import bvh as jbvh
 from tpu_pathtracer.ops.vec import FLT_MAX
 from test_bvh import _random_rays, _random_tris
 from tpu_pathtracer_torch.ops import bvh as tbvh
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs():

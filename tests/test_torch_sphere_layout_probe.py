@@ -40,6 +40,7 @@ from tpu_pathtracer.models.spheres import random_spheres_scene as j_scene
 from tpu_pathtracer_torch.experiments import sphere_layout_probe as sl
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops.v3 import V3
+from torch_threads import one_torch_thread  # noqa: F401
 
 EXP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "experiments")

@@ -26,6 +26,7 @@ from sphere_cases import case as _case
 from sphere_cases import rays as _rays
 from sphere_cases import spheres as _spheres
 from sphere_cases import tv3 as _tv3
+from torch_threads import one_torch_thread  # noqa: F401
 # t: the JAX kernel and the plain version evaluate the same oc-form
 # expressions, but XLA may contract a*b+c into an FMA on the CPU where
 # PyTorch does not. Bound: the JAX test's own rtol 1e-5

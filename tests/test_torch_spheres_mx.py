@@ -31,6 +31,7 @@ from tpu_pathtracer.ops.pallas_spheres import (spheres_anyhit_soa as j_any,
                                                spheres_hit_feat as j_feat)
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops.v3 import V3
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_MIN = 1e-3
 AGREE = 0.999    # tests/test_fast_math.py:55

@@ -24,6 +24,7 @@ from tpu_pathtracer_torch.engine.render import render_image
 from tpu_pathtracer_torch.models import mesh as tmesh
 from tpu_pathtracer_torch.ops import cuda_tris as ct
 from tpu_pathtracer_torch.utils import golden
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the JAX package's own bounds for the staircase against the oracle

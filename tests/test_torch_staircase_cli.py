@@ -16,6 +16,7 @@ from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine.regen import render_image_regen
 from tpu_pathtracer_torch.engine.render import render_image
 from tpu_pathtracer_torch.models import mesh as tmesh
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ENV = {**os.environ, "PYTHONPATH": os.pathsep.join(
     filter(None, [ROOT, os.environ.get("PYTHONPATH")]))}

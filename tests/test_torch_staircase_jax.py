@@ -22,6 +22,7 @@ from tpu_pathtracer_torch.engine.regen import render_image_regen
 from tpu_pathtracer_torch.engine.render import render_image
 from tpu_pathtracer_torch.models import mesh as tmesh
 from tpu_pathtracer_torch.utils import golden
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("engine", ["regen", "plain"])

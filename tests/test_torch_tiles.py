@@ -15,6 +15,7 @@ from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.spheres import three_sphere_scene
 from tpu_pathtracer_torch.parallel import tiles
 from tpu_pathtracer_torch.utils import checkpoint as ck
+from torch_threads import one_torch_thread  # noqa: F401
 
 EIGHT = ["cpu"] * 8
 

@@ -38,6 +38,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from tpu_pathtracer_torch.experiments import tpu_micro as um
+from torch_threads import one_torch_thread  # noqa: F401
 
 EXP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "experiments")

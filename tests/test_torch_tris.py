@@ -28,6 +28,7 @@ from tri_cases import CASES, T_MIN
 from tri_cases import case as _case
 from tri_cases import prep as _prep
 from tri_cases import rays as _rays
+from torch_threads import one_torch_thread  # noqa: F401
 
 # t, u, v: the JAX kernel and the plain version evaluate the same
 # expressions in the same order, but XLA may contract a*b+c into an FMA
