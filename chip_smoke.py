@@ -222,9 +222,27 @@ line each; any failure raises and exits non-zero:
      and 13's, its numbers finite and positive (its keys are held to
      bench.py's by tests/test_torch_bench.py). Phase 21 runs
      after phase 20 and before phase 19, which waits for the last
-     oracle; all three run before phase 14's profiles.
+     oracle; all three run before phase 14's profiles;
+ 22. the twelve decision experiments (``tpu_pathtracer_torch/
+     experiments``: pool_probe, crossover, knot_tier_ab, terrain_big_ab,
+     dragon_bvh4_ab, width_e2e_ab, width_e2e, width_sweep, sah_vs_median,
+     sah_vs_median_stairs, zoo_table, converged_oracle), each function
+     once at its script's scenes and resolutions, 1 spp and one timed
+     render an arm (the converged oracle at 8 spp against the port's
+     oracle, rendered in phase 19's host processes): each arm's tier and
+     its timed render's launch set checked against ``TIER_KERNELS``, the
+     whole call's too; the images at the three lane pools and at both
+     packet widths bit-equal; the arms on other tiers or builders of one
+     scene (crossover's brute and BVH4, the knot's BVH4 and heap, the
+     terrain-big and dragon quant BVH4 and heap, median and SAH) within
+     rmse 1e-5; knot_tier_ab's means equal to 6 digits; the converged
+     oracle at rmse < 5e-3, SSIM >= 0.99; seconds, regen iterations and
+     launches of each arm printed (the records of K1, K4/K4c, K8/K9 and
+     K5/K6 carry each experiment's launches as ``launches_<module>``).
+     Phase 22 runs after phase 21 and before phase 19, beside the rock
+     pile's oracle.
 
-Each full-size run, and each run of phases 3b, 10c, 10d, 15-21's entry
+Each full-size run, and each run of phases 3b, 10c, 10d, 15-22's entry
 points, resets the launch counts just before it and reads them just after
 (the headline frame must launch no mx kernel, and no frame a probe's).
 Every kernel's record carries its bound: the larger of its FP32
@@ -238,6 +256,7 @@ the last is the kernels' JSON record; the last line is
 exits non-zero and prints no result. Imports nothing of JAX.
 """
 
+import collections
 import concurrent.futures
 import contextlib
 import functools
@@ -262,17 +281,30 @@ from tpu_pathtracer_torch.engine.regen import (_pool_size,
                                                render_image_regen,
                                                render_regen)
 from tpu_pathtracer_torch.engine.render import render_image
+from tpu_pathtracer_torch.experiments import converged_oracle as cvo
+from tpu_pathtracer_torch.experiments import crossover as co
 from tpu_pathtracer_torch.experiments import dma_probe as dm
+from tpu_pathtracer_torch.experiments import dragon_bvh4_ab as db
 from tpu_pathtracer_torch.experiments import dual_probe as dp
 from tpu_pathtracer_torch.experiments import gather_probe as gp
 from tpu_pathtracer_torch.experiments import iter_ablate as ia
+from tpu_pathtracer_torch.experiments import knot_tier_ab as kt
 from tpu_pathtracer_torch.experiments import leafmt_probe as lm
 from tpu_pathtracer_torch.experiments import leafround_probe as lr
 from tpu_pathtracer_torch.experiments import multirow_probe as mr
+from tpu_pathtracer_torch.experiments import pool_probe as pp
 from tpu_pathtracer_torch.experiments import regroup_probe as rp
+from tpu_pathtracer_torch.experiments import sah_vs_median as sm
+from tpu_pathtracer_torch.experiments import sah_vs_median_stairs as sms
 from tpu_pathtracer_torch.experiments import shapecast_probe as scp
 from tpu_pathtracer_torch.experiments import sphere_layout_probe as slp
+from tpu_pathtracer_torch.experiments import terrain_big_ab as tb
 from tpu_pathtracer_torch.experiments import tpu_micro as um
+from tpu_pathtracer_torch.experiments import width_e2e as we
+from tpu_pathtracer_torch.experiments import width_e2e_ab as wab
+from tpu_pathtracer_torch.experiments import width_sweep as ws
+from tpu_pathtracer_torch.experiments import zoo_table as zt
+from tpu_pathtracer_torch.experiments.arms import Reading
 from tpu_pathtracer_torch.experiments.common import (distinct,
                                                       first_bounce,
                                                       graph_ms,
@@ -2484,6 +2516,169 @@ def bench_phase(dev, smi):
     return zoo, t2.launches
 
 
+# phase 22: the decision experiments, each once at its script's full scene
+# and resolution, the timed spp cut to 1 and one timed render an arm (the
+# scripts take 2-64 spp, best of up to 3), the converged oracle at 8 spp
+# (its script: 100); each arm's tier in the order the module runs them
+# (tests/test_torch_experiments_e2e.py holds them to the JAX package's
+# dispatch at small sizes)
+CONVERGED_SPP = 8
+DECIDE = (
+    ("pool_probe", lambda d: pp.measure(d, spp=1), ("bvh4",) * 3),
+    ("crossover", lambda d: co.measure(d, 1), ("brute", "bvh4")),
+    ("knot_tier_ab", lambda d: kt.measure(
+        d, config=dict(kt.CONFIG, ns=1), reps=1), ("bvh4", "heap", "bvh4")),
+    ("terrain_big_ab", lambda d: tb.measure(d, 1, reps=1),
+     ("quant-bvh4", "heap", "quant-bvh4")),
+    ("dragon_bvh4_ab", lambda d: db.measure(
+        d, config=dict(db.CONFIG, ns=1), reps=1), ("heap", "quant-bvh4")),
+    ("width_e2e_ab", lambda d: wab.measure(d, 1, reps=1),
+     ("bvh4", "bvh4", "heap", "heap")),
+    ("width_e2e", lambda d: we.measure(d, cases={
+        k: c._replace(ns=1) for k, c in we.CASES.items()}),
+     ("bvh4", "bvh4", "bvh4", "bvh4", "heap", "heap")),
+    ("width_sweep", lambda d: ws.measure(d, "stairs", 1), ("bvh4",) * 3),
+    ("sah_vs_median", lambda d: sm.measure(d, 1), ("bvh4", "bvh4")),
+    ("sah_vs_median_stairs", lambda d: sms.measure_stairs(d, 1),
+     ("bvh4", "bvh4")),
+    ("zoo_table", lambda d: zt.measure(d, 1), ("bvh4",) * 4),
+)
+# Arms that run other kernels (another tier or builder) on one scene
+# compute one function; they differ where a ray meets two triangles at
+# the same t (a shared edge: each walk keeps the first it tests) and the
+# path then leaves from the other triangle. On the knot, the torus and
+# the terrains the bound is tests/test_bvh4.py:329's. On the staircase a
+# builder changes which of a step's two faces a ray meeting their edge
+# takes, and their normals differ: one NVIDIA H100 80GB HBM3 (700 W)
+# read rmse 6.6e-4, max |diff| 0.5 at 1 spp between the median and SAH
+# scenes, so those are held to the crop gate, as phase 12 holds the
+# staircase's heap and BVH4 renders.
+DECIDE_RMSE = 1e-5
+
+
+def readings(out, where=""):
+    """(label, ``arms.Reading``) of each arm in a decision experiment's
+    result, in order; a label joins the result's keys down to the arm."""
+    if isinstance(out, Reading):
+        return [(where or out.name, out)]
+    if isinstance(out, dict):
+        return [r for k, v in out.items()
+                for r in readings(v, f"{where} {k}".strip())]
+    if isinstance(out, (tuple, list)):
+        return [r for x in out for r in readings(x, where)]
+    return []
+
+
+def decide_agree(tag, a, b, problems, bound="rmse"):
+    """Two arms' images against each other at ``bound``: "exact"
+    (bit-equal), "rmse" (rmse < DECIDE_RMSE) or "gate" (the crop gate's
+    rmse < 5e-3 and SSIM >= 0.99); prints the reading, records a
+    failure."""
+    d = float(np.abs(a.image - b.image).max())
+    r, s = golden.rmse(a.image, b.image), golden.ssim(a.image, b.image)
+    ok = {"exact": d == 0.0, "rmse": r < DECIDE_RMSE,
+          "gate": r < RMSE_TOL and s >= SSIM_MIN}[bound]
+    text = {"exact": "bit-equal", "rmse": f"rmse < {DECIDE_RMSE:g}",
+            "gate": f"rmse < {RMSE_TOL:g}, SSIM >= {SSIM_MIN}"}[bound]
+    phase("decide", f"{tag}: {a.name} vs {b.name}: max |diff| {d:.3e} "
+          f"(a sample), rmse {r:.3e}, ssim {s:.6f} (bound: {text})")
+    if not ok:
+        problems.append(f"{tag}: {a.name} vs {b.name} max |diff| {d:.3e} "
+                        f"rmse {r:.3e} ssim {s:.6f} (bound: {text})")
+
+
+def decide_one(dev, name, fn, tiers, problems):
+    """One decision experiment, ``fn(dev)``, with the counts of every
+    frame and probe kernel set to 0 just before it and read just after:
+    its arms' tiers must be ``tiers``, each arm's timed render must launch
+    its tier's kernels (``TIER_KERNELS``) and the call no probe kernel;
+    prints each arm and checks the invariants its script asserts or
+    prints, adding a failure to ``problems``. Returns the launches of
+    each kernel in its arms' timed renders."""
+    bench.reset_launches()
+    bench.reset_launches(PROBE_MODULES)
+    t0 = time.perf_counter()
+    out = fn(dev)
+    secs = time.perf_counter() - t0
+    # each timed render sets the frame kernels' counts to 0 before it: what
+    # they hold now is the last one's; the probes' counts cover the call
+    last = bench.read_launches()
+    probes = bench.read_launches(PROBE_MODULES)
+    labelled = readings(out)
+    arms = [r for _, r in labelled]
+    got = tuple(r.tier for r in arms)
+    want = set().union(*(TIER_KERNELS[t] for t in tiers))
+    if got != tiers or probes or not set(last) <= want:
+        raise AssertionError(f"{name}: tiers {got}, not {tiers}; probes "
+                             f"launched {probes}, the last render {last}")
+    ran = collections.Counter()
+    for label, r in labelled:
+        ran.update(r.launches)
+        if set(r.launches) != TIER_KERNELS[r.tier]:
+            raise AssertionError(f"{name} {label}: launched {r.launches}, "
+                                 f"not {sorted(TIER_KERNELS[r.tier])}")
+        phase("decide", f"{name} {label} {r.cfg.nx}x{r.cfg.ny} {r.spp} spp "
+              f"depth {r.cfg.max_depth}: tier {r.tier}, {r.seconds:.3f} s "
+              f"(CUDA events; host wall {r.wall:.3f} s), {r.iters} regen "
+              f"iterations, kernel launches {r.launches}, mean "
+              f"{r.mean:.6f}")
+    if name == "pool_probe":
+        for b in arms[1:]:
+            decide_agree(name, arms[0], b, problems, "exact")
+    elif name == "width_e2e_ab":
+        for sname, pair in out.items():
+            decide_agree(f"{name} {sname}", *pair.values(), problems,
+                         "exact")
+    elif name in ("crossover", "knot_tier_ab", "terrain_big_ab"):
+        for b in arms[1:]:
+            decide_agree(name, arms[0], b, problems)
+        if name == "terrain_big_ab":
+            phase("decide", f"{name}: built in {out[0]:.1f} s, BVH4 tables "
+                  f"{out[1]}")
+    elif name == "dragon_bvh4_ab":
+        decide_agree(name, *arms, problems)
+        phase("decide", f"{name}: forced quant tables {out.tables}, "
+              f"attached in {out.attach_s:.1f} s; max |heap - bvh4q| of "
+              f"the sample sums {out.max_diff:.3e}")
+    elif name in ("sah_vs_median", "sah_vs_median_stairs"):
+        decide_agree(name, *arms, problems,
+                     "gate" if name.endswith("stairs") else "rmse")
+        phase("decide", f"{name}: scenes built in {out.builds} s; speedup "
+              f"sah vs median {out.speedup:.3f}x")
+    elif name == "converged_oracle":
+        for cname, c in out.items():
+            phase("decide", f"{name} {cname}: rmse {c.rmse:.3e} (bound < "
+                  f"{cvo.RMSE_TOL:g}) ssim {c.ssim:.6f} (bound >= "
+                  f"{cvo.SSIM_MIN}); oracle {c.oracle_s:.1f} s in its host "
+                  f"process (waited {c.waited_s:.1f} s)")
+    if not all(np.isfinite(r.image).all() and r.mean > 0 for r in arms):
+        problems.append(f"{name}: a non-finite or black image")
+    phase("decide", f"{name} in {secs:.1f} s; launches of its timed "
+          f"renders {dict(ran)}")
+    return dict(ran)
+
+
+def decision_phase(dev, converged):
+    """Phase 22: the twelve decision experiments (``tpu_pathtracer_torch/
+    experiments``), each function once at its script's scenes and
+    resolutions through ``decide_one``: each arm's tier and launch set,
+    the invariants the scripts assert or print (the same image at every
+    lane pool and packet width; the tiers' and builders' arms within
+    DECIDE_RMSE; knot_tier_ab's means), and the converged oracle
+    (``converged``, started in phase 19's pool) inside its bounds.
+    Returns each experiment's launches of each kernel."""
+    t_phase = time.perf_counter()
+    problems = []
+    launches = {name: decide_one(dev, name, fn, tiers, problems)
+                for name, fn, tiers in (*DECIDE, (
+                    "converged_oracle", lambda d: cvo.finish(converged),
+                    ("spheres", "spheres")))}
+    if problems:
+        raise AssertionError("phase 22: " + "; ".join(problems))
+    phase("decide", f"phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def config5_phase(dev, workdir):
     """Phase 20: BASELINE config 5's frame (the staircase at 3840x2160,
     depth 64) through ``render_with_checkpoints`` with batch 1, straight
@@ -2591,6 +2786,7 @@ def main():
     try:
         with tempfile.TemporaryDirectory() as workdir:
             gates = start_oracle_gates(dev, pool)
+            converged = cvo.start(dev, pool, spp=CONVERGED_SPP)
             headline_profile, kernels = spheres_path(dev)
             stair_profile, stair_recs = staircase_path(dev)
             config4_profile, config4_recs = staircase_hires_path(dev)
@@ -2598,6 +2794,7 @@ def main():
             kernels += [*stair_recs, *config4_recs, *dragon_recs]
             c5 = config5_phase(dev, workdir)
             zoo, c2 = bench_phase(dev, smi)
+            decided = decision_phase(dev, converged)
             oracle_gate_phase(gates)
     finally:
         pool.terminate()
@@ -2619,6 +2816,18 @@ def main():
         key, frames = zoo_modes.get(rec["name"], (None, ()))
         for name in frames:
             rec[f"launches_{name}"] = ({**zoo, "config2": c2}[name])[key]
+    # phase 22's experiments: each one's launches of each kernel it ran
+    modes = {"spheres_hit_feat": "cuda_spheres",
+             "tris_hit_feat": "cuda_tris.features",
+             "tris_anyhit_soa": "cuda_tris.any_hit",
+             "bvh4_trace": "cuda_bvh4.nearest",
+             "bvh4_occluded": "cuda_bvh4.any_hit",
+             "heap_trace": "cuda_bvh.nearest",
+             "heap_occluded": "cuda_bvh.any_hit"}
+    for rec in kernels:
+        for name, ran in decided.items():
+            if ran.get(modes.get(rec["name"])):
+                rec[f"launches_{name}"] = ran[modes[rec["name"]]]
     # phase 14 after every timed frame: a profiler session slows the
     # host's later launches in the process
     for profile in (config4_profile, stair_profile, headline_profile,

@@ -62,6 +62,19 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.parallel.tiles",
             "tpu_pathtracer_torch.experiments.config5_full",
             "tpu_pathtracer_torch.experiments.oracle_contention",
+            "tpu_pathtracer_torch.experiments.arms",
+            "tpu_pathtracer_torch.experiments.pool_probe",
+            "tpu_pathtracer_torch.experiments.crossover",
+            "tpu_pathtracer_torch.experiments.knot_tier_ab",
+            "tpu_pathtracer_torch.experiments.terrain_big_ab",
+            "tpu_pathtracer_torch.experiments.dragon_bvh4_ab",
+            "tpu_pathtracer_torch.experiments.width_e2e_ab",
+            "tpu_pathtracer_torch.experiments.width_e2e",
+            "tpu_pathtracer_torch.experiments.width_sweep",
+            "tpu_pathtracer_torch.experiments.sah_vs_median",
+            "tpu_pathtracer_torch.experiments.sah_vs_median_stairs",
+            "tpu_pathtracer_torch.experiments.zoo_table",
+            "tpu_pathtracer_torch.experiments.converged_oracle",
             "tpu_pathtracer_torch.bench"} <= set(mods)
     code = (
         "import sys, importlib\n"
@@ -108,6 +121,19 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.bvh_rg_ab, "
             "tpu_pathtracer_torch.experiments.config5_full, "
             "tpu_pathtracer_torch.experiments.oracle_contention, "
+            "tpu_pathtracer_torch.experiments.arms, "
+            "tpu_pathtracer_torch.experiments.pool_probe, "
+            "tpu_pathtracer_torch.experiments.crossover, "
+            "tpu_pathtracer_torch.experiments.knot_tier_ab, "
+            "tpu_pathtracer_torch.experiments.terrain_big_ab, "
+            "tpu_pathtracer_torch.experiments.dragon_bvh4_ab, "
+            "tpu_pathtracer_torch.experiments.width_e2e_ab, "
+            "tpu_pathtracer_torch.experiments.width_e2e, "
+            "tpu_pathtracer_torch.experiments.width_sweep, "
+            "tpu_pathtracer_torch.experiments.sah_vs_median, "
+            "tpu_pathtracer_torch.experiments.sah_vs_median_stairs, "
+            "tpu_pathtracer_torch.experiments.zoo_table, "
+            "tpu_pathtracer_torch.experiments.converged_oracle, "
             "tpu_pathtracer_torch.oracle, "
             "tpu_pathtracer_torch.utils.checkpoint, "
             "tpu_pathtracer_torch.utils.profiling, "
@@ -130,7 +156,13 @@ def test_import_builds_nothing():
                                    "sphere_layout_probe",
                                    "shapecast_probe", "bvh_mx_ab",
                                    "bvh_ab", "bvh_rg_ab",
-                                   "config5_full", "oracle_contention"])
+                                   "config5_full", "oracle_contention",
+                                   "pool_probe", "crossover",
+                                   "knot_tier_ab", "terrain_big_ab",
+                                   "dragon_bvh4_ab", "width_e2e_ab",
+                                   "width_e2e", "width_sweep",
+                                   "sah_vs_median", "sah_vs_median_stairs",
+                                   "zoo_table", "converged_oracle"])
 def test_probes_exit_without_a_card(probe):
     """A probe measures the card and has no CPU mode: without a CUDA
     device it exits non-zero and prints nothing."""

@@ -272,13 +272,16 @@ class Timed(NamedTuple):
 
 
 def render_timed(scene, cam, cfg: RenderConfig,
-                 ns: Optional[int] = None) -> Timed:
-    """A 1 spp warm-up of the frame, then one timed render of ``ns``
-    samples (``cfg.ns`` by default), its launch counts set to 0 just
-    before it and read just after (bench.py:109-140, in one call)."""
+                 ns: Optional[int] = None, s0: int = 0,
+                 warm: bool = True) -> Timed:
+    """A 1 spp warm-up of the frame (unless ``warm`` is False), then one
+    timed render of ``ns`` samples (``cfg.ns`` by default) from sample
+    ``s0``, its launch counts set to 0 just before it and read just after
+    (bench.py:109-140, in one call)."""
     ns = cfg.ns if ns is None else ns
     dev = cam.device
-    render_regen(scene, cam, cfg, ns=1, normalize=False)
+    if warm:
+        render_regen(scene, cam, cfg, ns=1, normalize=False)
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.synchronize(dev)
@@ -288,8 +291,8 @@ def render_timed(scene, cam, cfg: RenderConfig,
     w0 = time.perf_counter()
     if on_card:
         a.record()
-    fb, iters = render_regen(scene, cam, cfg, ns=ns, normalize=False,
-                             return_iters=True)
+    fb, iters = render_regen(scene, cam, cfg, ns=ns, s0=s0,
+                             normalize=False, return_iters=True)
     if on_card:
         b.record()
         b.synchronize()
