@@ -49,6 +49,7 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.shapecast_probe",
             "tpu_pathtracer_torch.experiments.bvh4_ab",
             "tpu_pathtracer_torch.experiments.spheres_ab",
+            "tpu_pathtracer_torch.experiments.spheres_mx_ab",
             "tpu_pathtracer_torch.experiments.bvh_mx_ab",
             "tpu_pathtracer_torch.experiments.bvh_ab",
             "tpu_pathtracer_torch.experiments.bvh_rg_ab",
@@ -116,6 +117,7 @@ def test_import_builds_nothing():
             "tpu_pathtracer_torch.experiments.shapecast_probe, "
             "tpu_pathtracer_torch.experiments.bvh4_ab, "
             "tpu_pathtracer_torch.experiments.spheres_ab, "
+            "tpu_pathtracer_torch.experiments.spheres_mx_ab, "
             "tpu_pathtracer_torch.experiments.bvh_mx_ab, "
             "tpu_pathtracer_torch.experiments.bvh_ab, "
             "tpu_pathtracer_torch.experiments.bvh_rg_ab, "
@@ -154,7 +156,8 @@ def test_import_builds_nothing():
                                    "regroup_probe", "leafround_probe",
                                    "multirow_probe", "gather_probe",
                                    "sphere_layout_probe",
-                                   "shapecast_probe", "bvh_mx_ab",
+                                   "shapecast_probe", "spheres_mx_ab",
+                                   "bvh_mx_ab",
                                    "bvh_ab", "bvh_rg_ab",
                                    "config5_full", "oracle_contention",
                                    "pool_probe", "crossover",

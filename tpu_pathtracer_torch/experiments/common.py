@@ -1,8 +1,9 @@
 """What the probes share on the card: the card's line, CUDA-event times,
 kernels timed in turns or in a CUDA graph, device times from the
 profiler, a first bounce's ray sets, the walk telemetry they print, and
-the A/Bs' command line and builds of a kernel's other sources
-(``bvh4_ab``, ``spheres_ab``, ``bvh_mx_ab``, ``bvh_ab``, ``bvh_rg_ab``).
+the A/Bs' command line, builds of a kernel's other sources (``bvh4_ab``,
+``spheres_ab``, ``spheres_mx_ab``, ``bvh_mx_ab``, ``bvh_ab``,
+``bvh_rg_ab``), their timing rounds and their SASS's counts.
 
 A probe needs a CUDA device: :func:`card` exits non-zero without one
 (the kernels have no CPU mode), and prints the ``nvidia-smi`` name and
@@ -251,9 +252,65 @@ def build(name: str, text: str, out: Path | None):
     if out is not None:
         out.mkdir(parents=True, exist_ok=True)
         (out / f"{name}.ptxas.txt").write_text(log)
-        dump = Path(_build.nvcc()).parent / "cuobjdump"
-        sass = subprocess.run([str(dump), "-sass", str(lib)],
-                              capture_output=True, text=True)
-        (out / f"{name}.sass").write_text(sass.stdout + sass.stderr)
+        (out / f"{name}.sass").write_text(sass_dump(lib))
     return lib, [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
+
+
+def graph_rounds(names: List, cells: List, call: Callable,
+                 rounds: int) -> Dict:
+    """{(name, cell): median ms} of ``call(name, cell)``, each timed by
+    :func:`graph_ms` in ``rounds`` rounds, the names in order in even
+    rounds and in reverse in odd ones, every cell of a name in a row."""
+    times: Dict = {}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            for cell in cells:
+                times.setdefault((name, cell), []).append(
+                    graph_ms(lambda: call(name, cell)))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def sass_dump(lib: Path) -> str:
+    """``cuobjdump -sass`` of a built library (the toolkit's beside
+    ``nvcc``); raises if it fails."""
+    dump = Path(_build.nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(dump), "-sass", str(lib)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"cuobjdump failed on {lib}:\n{proc.stderr}")
+    return proc.stdout
+
+
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def sass_functions(text: str) -> Dict[str, List[tuple]]:
+    """{mangled name: [(address, instruction), ...]} of a
+    ``cuobjdump -sass`` dump, the instruction with its predicate."""
+    out: Dict[str, List[tuple]] = {}
+    name = None
+    for line in text.splitlines():
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = _SASS_LINE.search(line)
+        if name and m:
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def opcode(ins: str) -> str:
+    """The opcode of a SASS instruction, its predicate dropped."""
+    return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+
+
+def sass_counts(text: str, ops=("HMMA", "LDSM")) -> Dict[str, tuple]:
+    """{mangled name: (instructions, then the count of each of ``ops``
+    by opcode prefix)} of a ``cuobjdump -sass`` dump."""
+    return {name: (len(code), *(sum(opcode(i).startswith(op)
+                                    for _, i in code) for op in ops))
+            for name, code in sass_functions(text).items()}

@@ -39,7 +39,6 @@ hit on even lanes and at half of it on odd ones.
 from __future__ import annotations
 
 import ctypes
-import statistics
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -54,7 +53,8 @@ from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import render_regen
 from tpu_pathtracer_torch.experiments.common import (ab_sources, build,
                                                       card, first_bounce,
-                                                      graph_ms, sphere_pairs)
+                                                      graph_rounds,
+                                                      sphere_pairs)
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
@@ -199,26 +199,18 @@ def main(argv=None) -> None:
         print(f"[check] {name}: bit-equal to the plain version on "
               f"{len(sets)} sets in all three modes", flush=True)
 
-    times = {}
     order = list(fns)
     cells = [(s, m) for s in sets for m in MODES] + [("pool primary",
                                                       "frame's call")]
-    for r in range(ROUNDS):
-        for name in order if r % 2 == 0 else order[::-1]:
-            for sname, mode in cells:
-                fn = lambda: call(name, sname, mode,
-                                  frame=mode == "frame's call")
-                times.setdefault((name, sname, mode), []).append(
-                    graph_ms(fn))
-    base = order[0]
-    for sname, mode in cells:
-        row = []
-        b = statistics.median(times[base, sname, mode])
-        for name in order:
-            ms = statistics.median(times[name, sname, mode])
-            row.append(f"{name} {ms:.4f} ({b / ms:.2f}x)")
-        print(f"[time] {sname} {mode}, ms a call in a CUDA graph, median "
-              f"of {ROUNDS}: " + "; ".join(row), flush=True)
+    times = graph_rounds(
+        order, cells, lambda name, cell: call(
+            name, *cell, frame=cell[1] == "frame's call"), ROUNDS)
+    for cell in cells:
+        b = times[order[0], cell]
+        row = [f"{name} {times[name, cell]:.4f} "
+               f"({b / times[name, cell]:.2f}x)" for name in order]
+        print(f"[time] {cell[0]} {cell[1]}, ms a call in a CUDA graph, "
+              f"median of {ROUNDS}: " + "; ".join(row), flush=True)
 
     imgs, secs = {}, {name: [] for name in order}
     for name in order + order[::-1]:

@@ -22,7 +22,11 @@ from a 2-term bf16 split of each operand summed in three passes (see
 ``mx_products``); the roots, the validity test and the winner rules are
 the ones above. The expanded |oc|² cancels for origins near a sphere, so
 its winners depart from the exact form's on grazing and self-epsilon
-lanes: it is a measured decision record, on no render path.
+lanes: it is a measured decision record, on no render path. The kernel
+sums the nine products on the tensor cores, in their order and rounding:
+it is held to the plain version by a bound (``mx_product_bound``,
+``mx_pair_error``, ``mx_nearest_departures``, ``mx_anyhit_departures``),
+not bit for bit.
 """
 
 from __future__ import annotations
@@ -42,12 +46,24 @@ from tpu_pathtracer_torch.ops.vec import FLT_MAX
 LAUNCHES = 0
 # Launches of the mx kernel (csrc/spheres_mx.cu), per mode.
 MX_LAUNCHES = {"features": 0, "any_hit": 0}
+# Launches of its products mode (``spheres_mx_products``), a check's.
+MX_PRODUCT_LAUNCHES = 0
 
 _NEAREST, _FEATURES, _ANY_HIT = 0, 1, 2  # csrc/spheres.cu Mode
 # csrc/spheres_mx.cu Mode (it has no t/idx-only mode: the JAX package's
-# spheres_hit_soa takes no mx)
+# spheres_hit_soa takes no mx; _MX_PRODUCTS writes c·d and o·c)
+_MX_PRODUCTS = 3
 _MX_MODE_NAMES = {_FEATURES: "features", _ANY_HIT: "any_hit"}
 S_CHUNK = 512  # spheres per pass of the plain version (bounds [N, chunk])
+MX_CHUNK = 32  # csrc/spheres_mx.cu kChunk: the mx table's rows pad to it
+MX_RAYS = 8  # csrc/spheres_mx.cu kRays: the rays of a warp's tile
+# The bound on each of the kernel's split products against the plain
+# version's: MX_ULPS × 2⁻²⁴ × the sum of the magnitudes of its nine
+# products. The plain order rounds 8 times to nearest (each within 2⁻²⁴
+# of a partial sum, which is at most that sum) and the tensor core adds
+# the nine in its own order and rounding, which may truncate.
+MX_ULPS = 32
+_U = 2.0 ** -24
 
 
 def sphere_table(centers: V3, radii: torch.Tensor) -> torch.Tensor:
@@ -82,6 +98,27 @@ def mx_sphere_table(centers: V3, radii: torch.Tensor) -> torch.Tensor:
     ccq = cx * cx + cy * cy + cz * cz - r2
     return torch.cat([hi, ccq[:, None], lo, torch.zeros_like(ccq)[:, None]],
                      dim=1)
+
+
+def mx_operands(centers: V3, radii: torch.Tensor) -> torch.Tensor:
+    """[S_pad, 5] int32 rows of the mx kernel (csrc/spheres_mx.cu), S_pad =
+    S rounded up to ``MX_CHUNK``: a sphere's column of the mma's B operand,
+    (ch1 ch2 ch3 cl1 cl2 cl3 ch2 ch3) as 8 bf16 in 4 words (the first in
+    the low half of the first word), then the bits of its f32 ccq =
+    |c|² − r²·sign(r), both from :func:`mx_sphere_table`. The padding
+    slots have B = 0 and ccq = +inf: c = +inf, never valid."""
+    tab = mx_sphere_table(centers, radii)
+    s = tab.shape[0]
+    s_pad = -(-s // MX_CHUNK) * MX_CHUNK
+    ch, cl = tab[:, 0:3], tab[:, 4:7]
+    col = torch.cat([ch, cl, ch[:, 1:3]], dim=1).to(torch.bfloat16)
+    ccq = torch.full((s_pad,), float("inf"), dtype=torch.float32,
+                     device=tab.device)
+    ccq[:s] = tab[:, 3]
+    out = torch.zeros((s_pad, 5), dtype=torch.int32, device=tab.device)
+    out[:s, :4] = col.contiguous().view(torch.int32)
+    out[:, 4] = ccq.view(torch.int32)
+    return out
 
 
 def _tmax_vector(t_max, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -122,25 +159,203 @@ def _root_ts(b, c, t_min, tmax):
     return torch.where(valid, ts0, FLT_MAX)
 
 
-def mx_products(origin: V3, direction: V3, tab: torch.Tensor):
+def _ray(x: torch.Tensor, lanes: bool) -> torch.Tensor:
+    """A ray quantity against a chunk's columns ([N, 1]) or, ``lanes``,
+    against one sphere a lane ([N])."""
+    return x if lanes else x[:, None]
+
+
+def _mx_passes(origin: V3, direction: V3, tab: torch.Tensor, lanes: bool,
+               fn):
+    """``fn(hi, lo, ch, cl)`` for the ray parts of d and of o (each a
+    tuple of 3 from ``split2``, shaped by :func:`_ray`) against the
+    centre parts of ``tab``."""
+    ch, cl = tab[:, 0:3], tab[:, 4:7]
+    out = []
+    for v in (direction, origin):
+        hi, lo = zip(*(split2(comp) for comp in v))
+        out.append(fn(tuple(_ray(x, lanes) for x in hi),
+                      tuple(_ray(x, lanes) for x in lo), ch, cl))
+    return out
+
+
+def mx_products(origin: V3, direction: V3, tab: torch.Tensor,
+                lanes: bool = False):
     """(cd, oc), each [N, C]: d·c and o·c of each ray against the centres
     of the mx table chunk ``tab`` [C, 8], as ``pallas_spheres._bc_mxu``
     takes them on the matrix unit: each operand split into bf16 hi and lo
     (``split2``), and three passes, P(hi, hi) + P(hi, lo), then + P(lo, hi)
     (ray part first; lo·lo is dropped), each pass
     P(x, y) = (x0·y0 + x1·y1) + x2·y2. A product of two bf16 values is
-    exact in f32, so this order fixes every rounding."""
-    ch, cl = tab[:, 0:3], tab[:, 4:7]
-
+    exact in f32, so this order fixes every rounding. ``lanes``: ``tab``
+    is [N, 8], one sphere a lane, and each is [N]."""
     def p(a, cc):
-        return (a[0][:, None] * cc[:, 0] + a[1][:, None] * cc[:, 1]) \
-            + a[2][:, None] * cc[:, 2]
+        return (a[0] * cc[:, 0] + a[1] * cc[:, 1]) + a[2] * cc[:, 2]
 
-    out = []
-    for v in (direction, origin):
-        hi, lo = zip(*(split2(comp) for comp in v))
-        out.append(p(hi, ch) + p(hi, cl) + p(lo, ch))
+    return _mx_passes(origin, direction, tab, lanes,
+                      lambda hi, lo, ch, cl: p(hi, ch) + p(hi, cl)
+                      + p(lo, ch))
+
+
+def mx_product_bound(origin: V3, direction: V3, tab: torch.Tensor,
+                     lanes: bool = False):
+    """(e_cd, e_oc), float64 and shaped as :func:`mx_products`: how far
+    the kernel's c·d and o·c may each lie from the plain version's,
+    ``MX_ULPS`` × 2⁻²⁴ × the sum of the magnitudes of its nine products."""
+    f64 = torch.float64
+
+    def mag(a, cc):
+        return sum(a[k].to(f64).abs() * cc[:, k].to(f64).abs()
+                   for k in range(3))
+
+    return [MX_ULPS * _U * s for s in _mx_passes(
+        origin, direction, tab, lanes,
+        lambda hi, lo, ch, cl: mag(hi, ch) + mag(hi, cl) + mag(lo, ch))]
+
+
+def mx_pair_error(origin: V3, direction: V3, tab: torch.Tensor,
+                  t_min: float, tmax: torch.Tensor, lanes: bool = False):
+    """The plain version's outcome of each (ray, sphere) pair and the
+    kernel's bound around it: (ts0, valid, dt, flip), shaped as
+    :func:`mx_products` (``tmax`` [N]). ts0 and valid are the plain
+    version's candidate t and validity (``_mx_sphere_ts``); the kernel's
+    c·d and o·c lie within :func:`mx_product_bound` of the plain ones, and
+    float64 carries that, with each f32 rounding of both forms (2⁻²⁴ of
+    the plain value and of the bound, doubled), through b = o·d − c·d,
+    c = (|o|² − 2·o·c) + ccq, disc = b·b − c, √disc and the roots: dt
+    bounds the distance of the kernel's candidate t from ts0, and flip
+    marks a pair whose validity or root the bound can change (disc within
+    its error of 0, or the near root, ts0 within dt of t_min, or ts0
+    within dt of t_max). dt is +inf where disc is not clear of 0."""
+    f64 = torch.float64
+    o1, o2, o3 = origin
+    d1, d2, d3 = direction
+    od = _ray(d1 * o1 + d2 * o2 + d3 * o3, lanes)
+    oo = _ray(o1 * o1 + o2 * o2 + o3 * o3, lanes)
+    cd, oc = mx_products(origin, direction, tab, lanes)
+    e_cd, e_oc = mx_product_bound(origin, direction, tab, lanes)
+    ccq = tab[:, 3]
+    b = od - cd
+    x = oo - 2.0 * oc
+    c = x + ccq
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t1 = -b - sq
+    ts0 = torch.where(t1 > t_min, t1, -b + sq)
+    tm = _ray(tmax, lanes)
+    valid = (disc > 0.0) & (ts0 > t_min) & (ts0 < tm)
+
+    a = lambda v: v.to(f64).abs()
+    r = 1.0 + 4.0 * _U  # a rounding of each form, and margin
+    db = e_cd * r + 4.0 * _U * a(b)
+    dx = 2.0 * e_oc * r + 4.0 * _U * a(x)
+    dc = dx * r + 4.0 * _U * a(c)
+    dbb = db * (2.0 * a(b) + db) * r + 4.0 * _U * a(b) ** 2
+    dd = (dbb + dc) * r + 4.0 * _U * a(disc)
+    sq64 = sq.to(f64)
+    dsq = dd / sq64.clamp_min(1e-300) * r + 4.0 * _U * sq64
+    dt = (db + dsq) * r + 4.0 * _U * (a(b) + sq64)
+    live = disc.to(f64) > dd
+    near = lambda v, w: (v.to(f64) - w).abs() <= dt
+    flip = (a(disc) <= dd) | (live & (near(t1, t_min) | near(ts0, t_min)
+                                      | near(ts0, tm.to(f64))))
+    return ts0, valid, torch.where(live, dt, torch.inf), flip
+
+
+def _lane_rows(centers: V3, radii: torch.Tensor, idx: torch.Tensor):
+    """The mx table's row of sphere ``idx`` (clamped at 0) for each lane."""
+    return mx_sphere_table(centers, radii)[idx.clamp_min(0).long()]
+
+
+def mx_nearest_departures(origin: V3, direction: V3, centers: V3,
+                          radii: torch.Tensor, t_min: float, t_max, kern,
+                          plain) -> dict:
+    """Hold the kernel's nearest hits ``kern`` = (t, idx, features) to the
+    plain version's ``plain`` on the same rays, by the bound: where the
+    winners agree, t lies within the pair's dt (or its root may flip) and
+    the features are equal; each lane whose winner differs is one the
+    bound can flip (the plain or the kernel's winner's validity or root,
+    or the two winners' plain t within the sum of their dt). A miss has
+    t = FLT_MAX and zero features. Raises AssertionError otherwise;
+    returns the counts (lanes, hits, differing winners, those explained
+    by a flip and by a near tie, agreeing lanes whose root may flip, the
+    largest |t − t_plain| on the other agreeing hits and its bound)."""
+    tk, ik, fk = kern
+    tp, ip, fp = plain
+    n = ik.numel()
+    tmax = _tmax_vector(t_max, n, origin.x)
+    fk, fp = torch.stack(list(fk)), torch.stack(list(fp))
+    miss = ik < 0
+    if not (bool((tk[miss] == FLT_MAX).all())
+            and bool((fk[:, miss] == 0).all())):
+        raise AssertionError("a miss lane has t != FLT_MAX or features")
+    same = ik == ip
+    hit = same & ~miss
+    if not torch.equal(fk[:, hit], fp[:, hit]):
+        raise AssertionError("features differ where the winners agree")
+    _, _, dt, flip = mx_pair_error(origin, direction,
+                                   _lane_rows(centers, radii, ik), t_min,
+                                   tmax, lanes=True)
+    gap = (tk.double() - tp.double()).abs()
+    far = hit & ~flip & (gap > dt)
+    if bool(far.any()):
+        j = int(far.nonzero()[0])
+        raise AssertionError(f"t leaves the plain version's beyond the "
+                             f"bound on {int(far.sum())} lanes (lane {j}: "
+                             f"{gap[j].item():.3e} > {dt[j].item():.3e})")
+    ok = hit & ~flip
+    out = dict(lanes=n, hits=int(hit.sum()), differ=0, by_flip=0, by_tie=0,
+               root_flips=int((hit & flip).sum()),
+               t_err=gap[ok].max().item() if bool(ok.any()) else 0.0,
+               t_bound=dt[ok].max().item() if bool(ok.any()) else 0.0)
+    dep = (~same).nonzero().flatten()
+    if dep.numel():
+        sub = lambda v: V3(*(c[dep] for c in v))
+        o, d, tm = sub(origin), sub(direction), tmax[dep]
+        ts_k, _, dt_k, flip_k = mx_pair_error(
+            o, d, _lane_rows(centers, radii, ik[dep]), t_min, tm, lanes=True)
+        _, _, dt_p, flip_p = mx_pair_error(
+            o, d, _lane_rows(centers, radii, ip[dep]), t_min, tm, lanes=True)
+        flip_k = flip_k & (ik[dep] >= 0)
+        flip_p = flip_p & (ip[dep] >= 0)
+        tie = ((ik[dep] >= 0) & (ip[dep] >= 0)
+               & torch.isfinite(dt_k + dt_p)
+               & ((ts_k.double() - tp[dep].double()).abs() <= dt_k + dt_p))
+        if not bool((flip_k | flip_p | tie).all()):
+            raise AssertionError(
+                f"the winner departs from the plain version's on "
+                f"{int((~(flip_k | flip_p | tie)).sum())} lanes the bound "
+                f"cannot flip")
+        out.update(differ=dep.numel(), by_flip=int((flip_k | flip_p).sum()),
+                   by_tie=int((tie & ~(flip_k | flip_p)).sum()))
     return out
+
+
+def mx_anyhit_departures(origin: V3, direction: V3, centers: V3,
+                         radii: torch.Tensor, t_min: float, t_max, occ,
+                         occ_plain) -> dict:
+    """Hold the kernel's occlusion ``occ`` to the plain version's by the
+    bound: a lane the kernel calls occluded and the plain version not has
+    a sphere whose validity the bound can flip; a lane the plain version
+    calls occluded and the kernel not has every plain-valid sphere so.
+    Raises AssertionError otherwise; returns the counts (lanes, occluded,
+    differing lanes)."""
+    n = occ.numel()
+    tmax = _tmax_vector(t_max, n, origin.x)
+    dep = (occ != occ_plain).nonzero().flatten()
+    tab = mx_sphere_table(centers, radii)
+    for a in range(0, dep.numel(), S_CHUNK):
+        lanes = dep[a:a + S_CHUNK]
+        sub = lambda v: V3(*(c[lanes] for c in v))
+        _, valid, _, flip = mx_pair_error(sub(origin), sub(direction), tab,
+                                          t_min, tmax[lanes])
+        extra = occ[lanes]  # occluded by the kernel alone
+        ok = torch.where(extra, flip.any(dim=1), (flip | ~valid).all(dim=1))
+        if not bool(ok.all()):
+            raise AssertionError(
+                f"occlusion departs from the plain version's on "
+                f"{int((~ok).sum())} lanes the bound cannot flip")
+    return dict(lanes=n, occluded=int(occ.sum()), differ=dep.numel())
 
 
 def _mx_sphere_ts(origin: V3, direction: V3, tab: torch.Tensor,
@@ -272,11 +487,17 @@ def _check(name: str, a: torch.Tensor, device, dtype, shape) -> None:
 
 def _check_table(tab: torch.Tensor, radii: torch.Tensor, dev,
                  mx: bool = False) -> None:
-    """Raise unless ``tab`` is the [S, 4] (``mx``: [S, 8]) float32 table
-    on ``dev`` for the S spheres of ``radii``, contiguous and 16-byte
-    aligned (float4)."""
-    _check("spheres", tab, dev, torch.float32,
-           (radii.shape[0], 8 if mx else 4))
+    """Raise unless ``tab`` is the [S, 4] float32 table on ``dev`` for the
+    S spheres of ``radii``, contiguous and 16-byte aligned (float4); for
+    ``mx``, the [S_pad, 5] int32 table of :func:`mx_operands`."""
+    if mx:
+        shape = (-(-radii.shape[0] // MX_CHUNK) * MX_CHUNK, 5)
+        if tuple(tab.shape) != shape:
+            raise ValueError(f"mx sphere table has shape {tuple(tab.shape)},"
+                             f" expected {shape}")
+        _check("spheres", tab, dev, torch.int32, shape)
+        return
+    _check("spheres", tab, dev, torch.float32, (radii.shape[0], 4))
     if tab.data_ptr() % 16:
         raise ValueError("sphere table must be 16-byte aligned (float4)")
 
@@ -289,7 +510,7 @@ def _launch(mode: int, origin: V3, direction: V3, centers: V3,
     the kernel's prebuilt table of the spheres, else built here. A float
     ``t_max`` goes to csrc/spheres.cu as one value, not as an [N]
     tensor."""
-    global LAUNCHES
+    global LAUNCHES, MX_PRODUCT_LAUNCHES
     dev = origin.x.device
     n = origin.x.shape[0]
     f32 = torch.float32
@@ -297,15 +518,17 @@ def _launch(mode: int, origin: V3, direction: V3, centers: V3,
                        (*origin, *direction)):
         _check(name, a, dev, f32, (n,))
     tmax, tmax_all = None, 0.0
-    if mx or isinstance(t_max, torch.Tensor):
+    if mode == _MX_PRODUCTS:
+        pass  # no t_max
+    elif mx or isinstance(t_max, torch.Tensor):
         tmax = _tmax_vector(t_max, n, origin.x)
         _check("t_max", tmax, dev, f32, (n,))
     else:
         tmax_all = float(t_max)
     if tab is None:
-        tab = (mx_sphere_table if mx else sphere_table)(centers, radii)
+        tab = (mx_operands if mx else sphere_table)(centers, radii)
     _check_table(tab, radii, dev, mx)
-    s = tab.shape[0]
+    s = radii.shape[0]
     n_c = 0
     if feat is not None:
         n_c = feat.shape[1]
@@ -315,6 +538,9 @@ def _launch(mode: int, origin: V3, direction: V3, centers: V3,
     t_out = idx_out = f_out = occ_out = None
     if mode == _ANY_HIT:
         occ_out = torch.empty((n,), dtype=torch.bool, device=dev)
+    elif mode == _MX_PRODUCTS:
+        t_out = torch.empty((n, s), dtype=f32, device=dev)
+        f_out = torch.empty((n, s), dtype=f32, device=dev)
     else:
         t_out = torch.empty((n,), dtype=f32, device=dev)
         idx_out = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -331,12 +557,16 @@ def _launch(mode: int, origin: V3, direction: V3, centers: V3,
         if rc != 0:
             raise RuntimeError(f"spheres{' mx' if mx else ''} kernel launch "
                                f"failed: CUDA error {rc}")
-        if mx:
+        if mode == _MX_PRODUCTS:
+            MX_PRODUCT_LAUNCHES += 1
+        elif mx:
             MX_LAUNCHES[_MX_MODE_NAMES[mode]] += 1
         else:
             LAUNCHES += 1
     if mode == _ANY_HIT:
         return occ_out
+    if mode == _MX_PRODUCTS:
+        return t_out, f_out
     if mode == _FEATURES:
         return t_out, idx_out, tuple(f_out.unbind(0))
     return t_out, idx_out
@@ -398,6 +628,23 @@ def spheres_hit_soa(origin: V3, direction: V3, centers: V3,
                        t_max, tab=tab)
     _cpu_table(tab, radii, origin)
     return _spheres_hit_ref(origin, direction, centers, radii, t_min, t_max)
+
+
+def spheres_mx_products(origin: V3, direction: V3, centers: V3,
+                        radii: torch.Tensor, *,
+                        tab: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cd, oc), each [N, S]: the mx layout's two split products of every
+    ray against every sphere, on a CUDA device as the kernel's tensor
+    cores sum them (its products mode; ``tab`` as for ``mx=True``), on the
+    CPU by :func:`mx_products`. For the checks of
+    :func:`mx_product_bound`; no frame takes it."""
+    if _on_cuda(origin):
+        return _launch(_MX_PRODUCTS, origin, direction, centers, radii, 0.0,
+                       None, mx=True, tab=tab)
+    _cpu_table(tab, radii, origin, mx=True)
+    return tuple(mx_products(origin, direction,
+                             mx_sphere_table(centers, radii)))
 
 
 def spheres_anyhit_soa(origin: V3, direction: V3, centers: V3,
