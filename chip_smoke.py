@@ -113,13 +113,20 @@ line each; any failure raises and exits non-zero:
      relative where the winners agree; winners, hits and occlusion equal
      except on lanes with a triangle whose exact u, v, u+v, t or |a| lies
      within 2^-20 of an accept bound, counted);
- 10c. the packet walk on the same primary and NEE lanes: K12a
-     (``mr_trace``) and K12b (``mr_occluded``), counts from 0; t, winners,
-     features, occlusion and per-packet counters bit-equal to the plain
-     walk; t and occlusion equal to K5's and K6's, winners but exact
-     ties; times in turns with K5 and K6; steps and leaf visits per
-     packet beside K5's per ray; the bound is K5's and K6's (the same
-     function on the same lanes), the packet walk's own work beside it;
+ 10c. the packet walk on the same primary and NEE lanes and on the
+     pool's two sets (196,608 lanes): K12a (``mr_trace``) and K12b
+     (``mr_occluded``), counts from 0; t, winners, features, occlusion
+     and per-packet counters bit-equal to the plain walk; t and
+     occlusion equal to K5's and K6's, winners but exact ties; each
+     mode's device time a call in a CUDA graph at both shapes, in turns
+     with K5 and K6 (MR_ROUNDS rounds); the per-packet distribution of
+     node rounds, leaf rounds and leaf visits (mean, median, p99, max;
+     the widest 1% of the packets' share of the leaf visits) beside K5's
+     steps and leaf visits per ray; the bound is K5's and K6's (the same
+     function on the same lanes), the packet walk's own work beside it,
+     and the issue-rate floor of the build's own SASS (a slot, a node
+     round, a merge: ``bvh_mr_ab.mr_sass`` on its ``cuobjdump -sass``)
+     for the run's rounds;
  10d. the walk probes on the same primary lanes, counts from 0: K13
      (``iter_ablate.ablate_trace``, modes full, nomt, noleaf; acc and
      per-ray counters bit-equal to the plain walk, the counters equal
@@ -292,6 +299,7 @@ from tpu_pathtracer_torch.engine.regen import (_pool_size,
                                                render_image_regen,
                                                render_regen)
 from tpu_pathtracer_torch.engine.render import render_image
+from tpu_pathtracer_torch.experiments import bvh_mr_ab as mr_ab
 from tpu_pathtracer_torch.experiments import converged_oracle as cvo
 from tpu_pathtracer_torch.experiments import crossover as co
 from tpu_pathtracer_torch.experiments import dma_probe as dm
@@ -321,6 +329,7 @@ from tpu_pathtracer_torch.experiments.arms import Reading
 from tpu_pathtracer_torch.experiments.common import (distinct,
                                                       first_bounce,
                                                       graph_ms,
+                                                      graph_rounds,
                                                       sphere_pairs)
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
@@ -419,6 +428,7 @@ HEAP_SASS = {"nearest": (68, 117, 146 * 16), "any_hit": (71, 112, 62 * 32),
 # window's 32 lanes) and the visit's record
 RG_SASS = {"nearest": (72, 108, 70 * 32 + 16)}
 MX_POOL = 3 << 16  # the dragon frame's lane pool (engine/regen.py)
+MR_ROUNDS = 3  # phase 10c's rounds of K12a/K12b and K5/K6 in turns
 FAST_DELTA = 2.0 ** -20  # fast_math: the bound on t and on accept flips
 # K10 against the exact K5: the share of the hits whose winner may
 # differ (2048-lane patches of the dragon's tessellation on the CPU read
@@ -1612,13 +1622,14 @@ def graph_phase(tag, kern, sets, checks, eps, sass, fast_math=False):
 
 
 def graph_record(name, source, replaces, launches, check, graph, pool,
-                 lanes=BVH_RAYS):
-    """A BVH kernel's JSON record (K5, K6, K8, K9, K10, K10b, K11): times
-    and bound on its phase's set (``check``), the device time a call in a
-    CUDA graph and the issue-rate floor on each of the mode's sets
-    (``graph_ms``, ``floor_ms``) and, at the frame's own shape (``pool``:
-    the set's name, ``lanes`` lanes), its time, bound and floor."""
-    rec = record(name, source, OPS + replaces, launches, *check)
+                 lanes=BVH_RAYS, where=OPS):
+    """A BVH kernel's JSON record (K5, K6, K8, K9, K10, K10b, K11, K12a,
+    K12b): times and bound on its phase's set (``check``), the device time
+    a call in a CUDA graph and the issue-rate floor on each of the mode's
+    sets (``graph_ms``, ``floor_ms``) and, at the frame's own shape
+    (``pool``: the set's name, ``lanes`` lanes), its time, bound and
+    floor. ``replaces`` is the TPU kernel's file:line under ``where``."""
+    rec = record(name, source, where + replaces, launches, *check)
     mine = {k: v for k, v in graph.items()
             if ("NEE" in k) == ("NEE" in pool)}
     ms, bnd, floor = graph[pool]
@@ -1941,38 +1952,59 @@ def heap_variants_phase(scene, cam, cfg, tabs, rays, heap_pool,
     return out, mx_graph, rg_graph, fm_graph
 
 
-def mr_phase(tabs, rays, eps, bounds):
+def mr_sass():
+    """({mode: (slot, node round, merge)}, W): the warp instructions of
+    csrc/bvh_mr.cu's split walk in this run's build (its ``cuobjdump
+    -sass``, counted by ``bvh_mr_ab.mr_sass``: a slot test, a node
+    round's loads, slab tests and votes, a leaf round's merge by a warp)
+    and the source's warps a packet. Raises if the build holds another
+    form."""
+    return (mr_ab.mr_sass(common.sass_dump(_build.library_path("bvh_mr"))),
+            mr_ab.warps_per_packet(
+                (_build.CSRC_DIR / "bvh_mr.cu").read_text()))
+
+
+def mr_phase(tabs, sets, eps, checks):
     """Phase 10c: the packet walk, K12a (nearest) on the primary rays and
-    K12b (any-hit) on their NEE shadow rays, the launch counts set to 0
-    just before and read just after; each against its plain version (t,
-    winners, features, occlusion and the per-packet counters bit-equal),
-    against K5 / K6 (t and occlusion equal, winners equal but on exact
-    ties) and in turns with them. The function is K5's / K6's on the same
-    lanes, so the bound is theirs (``bounds``: phase 10's (K5, K6)
-    bounds, from the per-ray work and distinct rows their walks need).
-    The packet walk's own work is printed beside it: 32 lanes x the
-    packets' node rounds (two slab tests) and leaf slots, and the
-    distinct rows it reads. Returns the JSON records of K12a and K12b."""
-    o1, d1, t1 = rays["primary"]
-    shadow = rays["NEE shadows"]
+    K12b (any-hit) on their NEE shadow rays, at 131,072 lanes and at the
+    dragon's 196,608-lane pool (``sets``: name: (origin, direction,
+    t_max), NEE sets in any-hit), the launch counts set to 0 just before
+    and read just after; each against its plain version (t, winners,
+    features, occlusion and the per-packet counters bit-equal), against
+    K5 / K6 (t and occlusion equal, winners equal but on exact ties). The
+    function is K5's / K6's on the same lanes, so the bound is theirs
+    (``checks``: phase 10's compare_bvh_* results on the same sets, from
+    the per-ray work and distinct rows their walks need). Beside it: the
+    packet walk's own work (32 lanes x the packets' node rounds, two slab
+    tests each, and leaf slots, and the distinct rows it reads), its
+    issue-rate floor (``mr_sass``: the build's SASS a slot, a node round
+    and a leaf round's merge, for this run's rounds and visits), the
+    per-packet distribution of node rounds, leaf rounds and leaf visits,
+    and each mode's device time a call in a CUDA graph, in turns with K5
+    / K6: the kernel's launch (``cuda_bvh_mr._launch``; K12a without the
+    winner's features, which K5's call does not compute either). Returns
+    the JSON records of K12a and K12b."""
     torch.cuda.synchronize()
     for key in cmr.LAUNCHES:
         cmr.LAUNCHES[key] = 0
-    near_k, cnt_k = cmr.mr_trace(o1, d1, t1, tabs, eps)
-    occ_k, ocnt_k = cmr.mr_occluded(*shadow, tabs, eps)
+    got = {name: (cmr.mr_occluded if "NEE" in name else cmr.mr_trace)(
+        o, d, tm, tabs, eps) for name, (o, d, tm) in sets.items()}
     torch.cuda.synchronize()
     launches = dict(cmr.LAUNCHES)
     if min(launches.values()) <= 0:
         raise AssertionError(f"the packet-walk path launched {launches}")
-    recs = []
-    for any_hit, (o, d, tm) in ((False, (o1, d1, t1)), (True, shadow)):
-        tag = f"mr dragon {'NEE shadows' if any_hit else 'primary'}"
+    sass, W = mr_sass()
+    P = tabs.prims_per_leaf
+    calls, info = {}, {}
+    for name, (o, d, tm) in sets.items():
+        any_hit = "NEE" in name
+        tag = f"mr dragon {name}"
         n = o.x.shape[0]
         visits = {"nodes": [], "leaves": []}
-        t_p, i_p, occ_p, c_p = cmr._mr_walk_ref(o, d, tm, tabs, eps, any_hit,
-                                                visits)
+        t_p, i_p, occ_p, c_p, rounds, leaf_rounds = mr_ab.packet_walk(
+            o, d, tm, tabs, eps, any_hit, visits)
         if any_hit:
-            cnt = ocnt_k
+            occ_k, cnt = got[name]
             occ6, cnt6 = cb.heap_occluded(o, d, tm, tabs, eps)
             if not (torch.equal(occ_k, occ_p) and torch.equal(cnt, c_p)):
                 raise AssertionError(f"{tag}: K12b differs from its plain "
@@ -1986,11 +2018,14 @@ def mr_phase(tabs, rays, eps, bounds):
                     f"({int(occ_k.sum())} occluded of "
                     f"{int((tm > 0).sum())} shadow rays)")
             err = 0.0
-            k12 = lambda: cmr.mr_occluded(o, d, tm, tabs, eps)
-            k5 = lambda: cb.heap_occluded(o, d, tm, tabs, eps)
-            plain = lambda: cmr._mr_occluded_ref(o, d, tm, tabs, eps)
+            calls[name] = (lambda o=o, d=d, tm=tm: cmr._launch(
+                cmr._ANY_HIT, o, d, tm, tabs, eps), lambda o=o, d=d, tm=tm:
+                cb.heap_occluded(o, d, tm, tabs, eps),
+                lambda o=o, d=d, tm=tm: cmr._mr_occluded_ref(o, d, tm, tabs,
+                                                             eps))
         else:
-            cnt, (t_k, i_k) = cnt_k, near_k[:2]
+            near_k, cnt = got[name]
+            t_k, i_k = near_k[:2]
             p_out = cb.winner_features(o, d, t_p, i_p, tabs.tri_feat)
             if not (all(torch.equal(a, b) for a, b in zip(near_k, p_out))
                     and torch.equal(cnt, c_p)):
@@ -2008,44 +2043,63 @@ def mr_phase(tabs, rays, eps, bounds):
                     f"walk's; t equal to K5's, winners but {ties} exact "
                     f"ties; hits {int((i_k >= 0).sum())}")
             err = (t_k - t_p).abs().max().item()
-            k12 = lambda: cmr.mr_trace(o, d, tm, tabs, eps)
-            k5 = lambda: cb.heap_trace(o, d, tm, tabs, eps)
-            plain = lambda: cmr._mr_trace_ref(o, d, tm, tabs, eps)
-        turns = [cuda_ms(f) for f in (k5, k12, k12, k5)]
-        plain_ms = cuda_ms(plain, reps=2)
-        rounds = sum(v.numel() for v in visits["nodes"]) // 2
+            calls[name] = (lambda o=o, d=d, tm=tm: cmr._launch(
+                cmr._NEAREST, o, d, tm, tabs, eps), lambda o=o, d=d, tm=tm:
+                cb.heap_trace(o, d, tm, tabs, eps),
+                lambda o=o, d=d, tm=tm: cmr._mr_trace_ref(o, d, tm, tabs,
+                                                          eps))
+        n_rounds = int(rounds.sum())
         leaves = int(cnt[2].sum(dtype=torch.int64))
-        slots = tabs.prims_per_leaf
-        flops = 3 * n + cmr.LANES * (rounds * 2 * SLAB_FLOPS
-                                     + leaves * slots * MT_FLOPS)
+        flops = 3 * n + cmr.LANES * (n_rounds * 2 * SLAB_FLOPS
+                                     + leaves * P * MT_FLOPS)
         nodes, leaves_read = distinct(visits["nodes"]), distinct(
             visits["leaves"])
         walk = bound(flops, n * (28 + (1 if any_hit else 8))
                      + cnt.numel() * 4 + nodes * HEAP_NODE
-                     + leaves_read * slots * TRI_ROW_BYTES)
-        bnd = bounds[any_hit]
-        pk = cnt.double()
-        warp = lambda c: c.view(-1, cmr.LANES).max(dim=1).values.double(
-            ).mean().item() if n % cmr.LANES == 0 else float("nan")
-        s6 = (cnt6[0] + cnt6[1]).double()
+                     + leaves_read * P * TRI_ROW_BYTES)
+        mode = "any_hit" if any_hit else "nearest"
+        floor, ins = mr_ab.issue_floor(sass[mode], P, W, rounds,
+                                       leaf_rounds, cnt[2])
+        info[name] = (err, what, walk, floor, ins, cnt, rounds, leaf_rounds,
+                      cnt6, nodes, leaves_read)
+    times = graph_rounds(["K12", "K5"], list(sets), lambda who, name:
+                         calls[name][who == "K5"](), MR_ROUNDS)
+    graph, recs = {}, []
+    for name in sets:
+        err, what, walk, floor, ins, cnt, rounds, leaf_rounds, cnt6, \
+            nodes, leaves_read = info[name]
+        any_hit = "NEE" in name
         heap, kern = ("K6", "K12b") if any_hit else ("K5", "K12a")
-        phase("kernel", f"{tag}: {n} rays in {cnt.shape[1]} packets: "
-              f"{what}; per packet {(pk[0] + pk[1]).mean().item():.1f} node "
-              f"rounds entering a child ({rounds / cnt.shape[1]:.1f} in "
-              f"all), {pk[2].mean().item():.1f} leaf visits; {heap} per ray "
-              f"{s6.mean().item():.1f} steps entering a child (warp max "
-              f"{warp(cnt6[0] + cnt6[1]):.1f}), "
-              f"{cnt6[2].double().mean().item():.1f} leaf visits (warp max "
-              f"{warp(cnt6[2]):.1f}); read {nodes} distinct node rows, "
-              f"{leaves_read} leaves; in turns {heap} {turns[0]:.3f}, {kern} "
-              f"{turns[1]:.3f}, {turns[2]:.3f}, {heap} {turns[3]:.3f} ms "
-              f"(plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms by "
-              f"{bnd[1]}, {heap}'s; the packet walk's own work "
-              f"{walk[0]:.4f} ms by {walk[1]})")
-        recs.append(record("mr_occluded" if any_hit else "mr_trace",
-                           "bvh_mr.cu", "experiments/pallas_bvh_mr.py:214",
-                           launches["any_hit" if any_hit else "nearest"],
-                           err, (turns[1] + turns[2]) / 2, plain_ms, bnd))
+        bnd = checks[name][3]
+        ms, ms5 = times["K12", name], times["K5", name]
+        graph[name] = (ms, bnd, floor)
+        s6 = (cnt6[0] + cnt6[1]).double()
+        phase("kernel", f"mr dragon {name}: {sets[name][0].x.shape[0]} "
+              f"rays in {cnt.shape[1]} packets: {what}; "
+              + mr_ab.describe(cnt, rounds, leaf_rounds)
+              + f"; {heap} per ray {s6.mean().item():.1f} steps entering a "
+              f"child, {cnt6[2].double().mean().item():.1f} leaf visits; "
+              f"read {nodes} distinct node rows, {leaves_read} leaves; "
+              f"device time a call in a CUDA graph, median of {MR_ROUNDS} "
+              f"in turns: {kern} {ms:.4f} ms, {heap} {ms5:.4f} ms; bound "
+              f"{bnd[0]:.4f} ms by {bnd[1]} ({heap}'s), the packet walk's "
+              f"own work {walk[0]:.4f} ms by {walk[1]}, issue-rate floor "
+              f"{floor:.4f} ms ({ins} warp instructions: SASS (slot, node "
+              f"round, merge) {sass['any_hit' if any_hit else 'nearest']}, "
+              f"{W} warps a packet)")
+    for name in ("primary", "NEE shadows"):
+        any_hit = "NEE" in name
+        plain_ms = cuda_ms(calls[name][2], reps=2)
+        rec = graph_record(
+            "mr_occluded" if any_hit else "mr_trace", "bvh_mr.cu",
+            "experiments/pallas_bvh_mr.py:214",
+            launches["any_hit" if any_hit else "nearest"],
+            (info[name][0], graph[name][0], plain_ms, checks[name][3]),
+            graph, f"pool {name}", MX_POOL, where="")
+        # K5's / K6's device time a call in the same turns
+        rec["heap_graph_ms"] = {k: times["K5", k] for k in sets
+                                if ("NEE" in k) == any_hit}
+        recs.append(rec)
     return recs
 
 
@@ -2497,7 +2551,6 @@ def dragon_path(dev):
     kern = BvhKernels("heap", tabs)
     tag = "heap dragon"
     res, rays = bvh_kernel_phase(tag, scene, cam, cfg, kern)
-    bnd, bnd_a = res["primary"][3], res["NEE shadows"][3]
     # K5/K6 at the frame's shape: the dragon's lane pool
     pool = pool_sets(scene, cam, cfg, kern, MX_POOL)
     res["pool primary"] = compare_bvh_nearest(
@@ -2510,7 +2563,9 @@ def dragon_path(dev):
                                     **pool}, res, cfg.epsilon, HEAP_SASS)
     variants, mx_graph, rg_graph, fm_graph = heap_variants_phase(
         scene, cam, cfg, tabs, rays, pool, res)
-    mr_recs = mr_phase(tabs, rays, cfg.epsilon, (bnd, bnd_a))
+    mr_recs = mr_phase(tabs, {"primary": rays["primary"],
+                              "NEE shadows": rays["NEE shadows"], **pool},
+                       cfg.epsilon, res)
     probe_recs = walk_probe_phase(tabs, rays, cfg.epsilon)
 
     run = frame_run("dragon", "dragon", "dragon", built, TIER_KERNELS["heap"])

@@ -52,6 +52,7 @@ from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh4_cases
 import bvh_mx_cases
 import heap_cases
+import mr_cases
 import rg_cases
 import sphere_cases
 import tri_cases
@@ -944,12 +945,16 @@ def test_mx_frame_call_dispatches_only_its_outputs(dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ppl", [16, 64])
+@pytest.mark.parametrize("ppl", [5, 8, 16, 64, 128])
 def test_mr_kernel_bit_equal(dev, ppl):
     """K12a and K12b against their plain packet walks: t, winners,
     occlusion and the per-packet counters bit-equal; t and occlusion also
     equal to the heap walk's (K5, K6). n is no multiple of 32, so the last
-    packet has padding lanes."""
+    packet has padding lanes, and its 1,251 packets are no multiple of a
+    block's packets at any kWarpsPerPacket below 8 (at 8, csrc/bvh_mr.cu's
+    setting, a block is one packet). Leaf widths
+    that are no multiple of a packet's warps (5) and wider than a stage of
+    64 slots (128, staged in two chunks a leaf)."""
     mesh, o, d, tm = _bvh_inputs(dev, n=40_003, seed=6, ppl=ppl)
     tabs = cb.heap_tables(mesh)
     before = dict(cmr.LAUNCHES)
@@ -971,6 +976,59 @@ def test_mr_kernel_bit_equal(dev, ppl):
     assert not ok[::7].any() and (k[1][::7] == -1).all()
     assert cmr.LAUNCHES["nearest"] == before["nearest"] + 2
     assert cmr.LAUNCHES["any_hit"] == before["any_hit"] + 2
+
+
+@pytest.mark.gpu
+def test_mr_kernel_inert_and_dead_lanes(dev):
+    """Lanes at t_max 0 (inert) and -1 (dead) among live ones: bit-equal
+    to the plain walks, and such a lane has no winner, keeps its t_max
+    and is not occluded."""
+    mesh, o, d, tm = _bvh_inputs(dev, n=20_011, seed=9, ppl=64)
+    lane = torch.arange(tm.shape[0], device=dev)
+    tm = torch.where(lane % 5 == 0, 0.0, tm).contiguous()
+    tabs = cb.heap_tables(mesh)
+    (k, ck) = cmr.mr_trace(o, d, tm, tabs, T_MIN)
+    (p, cp) = cmr._mr_trace_ref(o, d, tm, tabs, T_MIN)
+    ok, cko = cmr.mr_occluded(o, d, tm, tabs, T_MIN)
+    op, cpo = cmr._mr_occluded_ref(o, d, tm, tabs, T_MIN)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(ck, cp) and torch.equal(ok, op)
+    assert torch.equal(cko, cpo)
+    off = tm <= 0
+    assert (k[1][off] == -1).all() and torch.equal(k[0][off], tm[off])
+    assert not ok[off].any() and ok[~off].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", mr_cases.CASES)
+def test_mr_merge_cases_bit_equal(dev, name):
+    """tests/mr_cases.py on the card: K12a and K12b against their plain
+    walks (t, winners, features, occlusion, per-packet counters
+    bit-equal) and each case's own check: an equal t in a later-queued
+    leaf loses though its heap slot is lower, of two equal-t slots in
+    different warps the lower wins, the any-hit packet retires in its
+    first leaf round, and a one-leaf tree is walked."""
+    c = mr_cases.case(name)
+    tabs = cb.heap_tables(mr_cases.port_mesh(c, dev))
+    v = lambda a: V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k]))
+                       .to(dev) for k in range(3)))
+    o, d = v(c.o), v(c.d)
+    tm = torch.from_numpy(c.t_max).to(dev)
+    before = dict(cmr.LAUNCHES)
+    (k, ck) = cmr.mr_trace(o, d, tm, tabs, T_MIN)
+    (p, cp) = cmr._mr_trace_ref(o, d, tm, tabs, T_MIN)
+    ok, cko = cmr.mr_occluded(o, d, tm, tabs, T_MIN)
+    op, cpo = cmr._mr_occluded_ref(o, d, tm, tabs, T_MIN)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert torch.equal(ck, cp) and torch.equal(ok, op)
+    assert torch.equal(cko, cpo)
+    c.check(*(a.cpu().numpy() for a in (k[0], k[1], ok, ck, cko)))
+    assert cmr.LAUNCHES["nearest"] == before["nearest"] + 1
+    assert cmr.LAUNCHES["any_hit"] == before["any_hit"] + 1
 
 
 @pytest.mark.gpu

@@ -53,6 +53,7 @@ def test_every_module_imports_without_jax():
             "tpu_pathtracer_torch.experiments.bvh_mx_ab",
             "tpu_pathtracer_torch.experiments.bvh_ab",
             "tpu_pathtracer_torch.experiments.bvh_rg_ab",
+            "tpu_pathtracer_torch.experiments.bvh_mr_ab",
             "tpu_pathtracer_torch.ops.bvh4",
             "tpu_pathtracer_torch.models.shapes",
             "tpu_pathtracer_torch.models.presets",

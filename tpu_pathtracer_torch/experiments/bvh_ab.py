@@ -118,9 +118,9 @@ def outputs(any_hit: bool, got):
     return (occ, cnt) if any_hit else (t, tri, cnt)
 
 
-def ray_sets(scene, cam, cfg):
-    """name: (any_hit, origin, direction, t_max): phase 10's sets, the
-    pool's, and the frame's at iteration FULL and in its tail."""
+def fixed_sets(scene, cam, cfg):
+    """name: (any_hit, origin, direction, t_max): phase 10's sets and the
+    pool's."""
     dev = cam.device
     view = wf.make_view(scene, cfg)
     fmax = lambda n: torch.full((n,), FLT_MAX, device=dev)
@@ -136,6 +136,13 @@ def ray_sets(scene, cam, cfg):
             "bounce-2": (False, o2, d2, t2), "NEE": (True, *shadow),
             "pool primary": (False, op, dp, fmax(POOL)),
             "pool NEE": (True, *shadow_p)}
+    return sets
+
+
+def ray_sets(scene, cam, cfg):
+    """name: (any_hit, origin, direction, t_max): phase 10's sets, the
+    pool's, and the frame's at iteration FULL and in its tail."""
+    sets = fixed_sets(scene, cam, cfg)
     # the rays of the frame's iterations, as the engine hands them over
     seen = {False: [], True: []}
     real = {False: cb.heap_trace, True: cb.heap_occluded}

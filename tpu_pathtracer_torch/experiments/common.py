@@ -3,7 +3,7 @@ kernels timed in turns or in a CUDA graph, device times from the
 profiler, a first bounce's ray sets, the walk telemetry they print, and
 the A/Bs' command line, builds of a kernel's other sources (``bvh4_ab``,
 ``spheres_ab``, ``spheres_mx_ab``, ``bvh_mx_ab``, ``bvh_ab``,
-``bvh_rg_ab``), their timing rounds and their SASS's counts.
+``bvh_rg_ab``, ``bvh_mr_ab``), their timing rounds and their SASS's counts.
 
 A probe needs a CUDA device: :func:`card` exits non-zero without one
 (the kernels have no CPU mode), and prints the ``nvidia-smi`` name and
@@ -301,6 +301,13 @@ def sass_functions(text: str) -> Dict[str, List[tuple]]:
         if name and m:
             out[name].append((int(m.group(1), 16), m.group(2)))
     return out
+
+
+def branch_target(ins: str) -> int | None:
+    """The address a SASS branch jumps to, or None for another
+    instruction."""
+    m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)$", ins)
+    return int(m.group(1), 16) if m else None
 
 
 def opcode(ins: str) -> str:

@@ -49,7 +49,8 @@ import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine import wavefront as wf
-from tpu_pathtracer_torch.experiments.common import (ab_sources, build,
+from tpu_pathtracer_torch.experiments.common import (ab_sources,
+                                                      branch_target, build,
                                                       card, first_bounce,
                                                       graph_rounds, opcode,
                                                       sass_counts,
@@ -78,35 +79,29 @@ def load(lib: Path):
     return fn
 
 
-def _target(ins: str) -> int | None:
-    """The address a branch jumps to, or None for another instruction."""
-    m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)$", ins)
-    return int(m.group(1), 16) if m else None
-
-
 def _sphere_loop(code, addr, hmma):
     """(the loop, its roots' branch, the slots' instructions, each slot's
     fast path) of one kernel's code (``step_sass``)."""
     first, last = addr[hmma[0]], addr[hmma[-1]]
     back = next(k for k in range(hmma[-1], len(code))
-                if (_target(code[k][1]) or first + 1) <= first)
-    head = addr.index(_target(code[back][1]))
+                if (branch_target(code[k][1]) or first + 1) <= first)
+    head = addr.index(branch_target(code[back][1]))
     loop = code[head:back + 1]
     fork = next(k for k, (a, i) in enumerate(loop)
-                if a > last and (_target(i) or 0) > a)
-    end = _target(loop[fork][1])
+                if a > last and (branch_target(i) or 0) > a)
+    end = branch_target(loop[fork][1])
     region = [(a, i) for a, i in loop if loop[fork][0] < a < end]
     bodies, fast = 0, []
     for k, (a, i) in enumerate(region):
         if not opcode(i).startswith("MUFU.RSQ"):
             continue
         skip = next(j for j in range(k, -1, -1)
-                    if (_target(region[j][1]) or 0) > a)
-        stop = _target(region[skip][1])
+                    if (branch_target(region[j][1]) or 0) > a)
+        stop = branch_target(region[skip][1])
         body = sum(region[skip][0] < b < stop for b, _ in region)
         slow = next(j for j in range(k, len(region))
-                    if (_target(region[j][1]) or 0) > region[j][0])
-        n_slow = sum(region[slow][0] < b < _target(region[slow][1])
+                    if (branch_target(region[j][1]) or 0) > region[j][0])
+        n_slow = sum(region[slow][0] < b < branch_target(region[slow][1])
                      for b, _ in region)
         bodies += body
         fast.append(body - n_slow)

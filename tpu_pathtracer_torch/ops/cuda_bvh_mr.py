@@ -4,9 +4,10 @@ version (counterpart of ``experiments/pallas_bvh_mr.py``: ``_kernel_mr``
 through ``packet_trace_mr`` and ``packet_occluded_mr``, the JAX package's
 measured-negative multirow decision record; no config reaches it).
 
-A packet is 32 consecutive rays (a warp on the card) that share one walk
-over the implicit heap: one node index, one uint32 bitstack and a queue of
-up to ``QUEUE`` leaves. In a node round every lane slab-tests both
+A packet is 32 consecutive rays (on the card the lanes of its warps:
+one walks, all test its leaf rounds) that share one walk over the
+implicit heap: one node index, one uint32 bitstack and a queue of up to
+``QUEUE`` leaves. In a node round every lane slab-tests both
 children of the packet's node against its own closest t; the packet
 enters a child if some lane does, the nearer first by the lanes' vote
 (right if more lanes that enter both find it strictly nearer than find
@@ -58,7 +59,7 @@ from tpu_pathtracer_torch.ops.v3 import V3
 LAUNCHES = {"nearest": 0, "any_hit": 0}
 
 COUNTERS = ("nodes_both", "nodes_single", "leaf_visits")
-LANES = 32   # rays a packet: a warp
+LANES = 32   # rays a packet: a warp's lanes
 QUEUE = 4    # queued leaves a packet (pallas_bvh_mr.py:56); csrc kQueue
 RETIRED = -1e30  # closest of an any-hit lane after its hit
 _NEAREST, _ANY_HIT = 0, 1  # csrc/bvh_mr.cu Mode
