@@ -20,7 +20,7 @@ inputs, and the TPU micro-benchmarks (K17a-K20, ``experiments/
 tpu_micro.py``) on the TPU file's seeded inputs, the regrouped leaf
 phase and the 8-row packet probes (K21-K24) on theirs, and the sphere
 layout probe (K25a, K25b) and the shape-cast probe (K26) on theirs and,
-K25, on the headline's primary rays; bench.py's four oracle gates against
+K25, on the headline's rays; bench.py's four oracle gates against
 the port's NumPy oracle; BASELINE config 5's 4K frame through the
 checkpoints, and tiles; and the port's bench
 (``tpu_pathtracer_torch/bench.py``): bench.py's four zoo frames the
@@ -127,14 +127,17 @@ line each; any failure raises and exits non-zero:
      and the issue-rate floor of the build's own SASS (a slot, a node
      round, a merge: ``bvh_mr_ab.mr_sass`` on its ``cuobjdump -sass``)
      for the run's rounds;
- 10d. the walk probes on the same primary lanes, counts from 0: K13
-     (``iter_ablate.ablate_trace``, modes full, nomt, noleaf; acc and
-     per-ray counters bit-equal to the plain walk, the counters equal
-     across modes) timed in turns with K5, and the split of its time into
-     node walk (noleaf), leaf-row fetch (nomt - noleaf) and leaf
-     arithmetic (full - nomt); K16 (``dual_probe.dual_steps`` at R = 1, 2,
-     4 rays a thread; step counts bit-equal to the plain node phase)
-     timed in turns;
+ 10d. the walk probes on the same primary lanes and the dragon's
+     196,608-lane pool, counts from 0: K13 (``iter_ablate.ablate_trace``,
+     modes full, nomt, noleaf, walked as K5 walks; acc and per-ray
+     counters bit-equal to the plain walk, the counters equal across
+     modes) with no culling and at K5's hit t, each mode's device time a
+     call in a CUDA graph in turns with K5, beside its bound and the
+     issue-rate floor of the build's SASS (``iter_ablate.mode_sass``;
+     each mode must keep its leaf round's shuffles, K13_SHFL), and the
+     split of its time into node walk (noleaf), leaf-row fetch (nomt -
+     noleaf) and leaf arithmetic (full - nomt); K16 (``dual_probe.dual_steps`` at R = 1, 2, 4 rays a thread;
+     step counts bit-equal to the plain node phase) timed in turns;
  11. small: staircase-hires 96x64, 4 spp, depth 8, kernels vs plain, and
      with bvh4=False (through K5/K6) against the BVH4 render;
  12. config 4: the bench's staircase-hires frame, 1200x800 at 2 spp,
@@ -194,9 +197,13 @@ line each; any failure raises and exits non-zero:
  18. the sphere layout and shape-cast probes, counts from 0: K25a
      (``sphere_layout_probe.spheres_sb``, the sphere table in constant
      memory) and K25b (``spheres_sbf``, + the feature fetch) on the TPU
-     file's 16,384 rays and on the headline's 960,000 primary rays of
-     sample 0, each bit-equal to its plain version and to K1 (t, idx; K25b's
-     features to K1's, 0 on a miss), timed in turns with K1; K26
+     file's 16,384 rays and on the headline's 960,000 and 32,768-lane
+     pool primary rays of sample 0 and their live bounce-2 rays, each
+     bit-equal to its plain version and to K1 (t, idx; K25b's features to
+     K1's, 0 on a miss), device time a call in a CUDA graph in turns with
+     K1 and the table's copy alone, beside the bound (the pairs' FP32
+     operations, the roots only where disc > 0) and the issue-rate floor
+     of the build's slot loop (``sphere_layout_ab.slot_sass``); K26
      (``shapecast_probe.shapecast``), all 15 cases bit-equal to their plain
      versions alone and in one launch, each case's launch and the launch
      of all 15 timed;
@@ -317,6 +324,7 @@ from tpu_pathtracer_torch.experiments import sah_vs_median as sm
 from tpu_pathtracer_torch.experiments import sah_vs_median_stairs as sms
 from tpu_pathtracer_torch.experiments import shapecast_probe as scp
 from tpu_pathtracer_torch.experiments import common
+from tpu_pathtracer_torch.experiments import sphere_layout_ab as lab
 from tpu_pathtracer_torch.experiments import sphere_layout_probe as slp
 from tpu_pathtracer_torch.experiments import spheres_mx_ab as mx_ab
 from tpu_pathtracer_torch.experiments import terrain_big_ab as tb
@@ -326,7 +334,7 @@ from tpu_pathtracer_torch.experiments import width_e2e_ab as wab
 from tpu_pathtracer_torch.experiments import width_sweep as ws
 from tpu_pathtracer_torch.experiments import zoo_table as zt
 from tpu_pathtracer_torch.experiments.arms import Reading
-from tpu_pathtracer_torch.experiments.common import (distinct,
+from tpu_pathtracer_torch.experiments.common import (ISSUE_RATE, distinct,
                                                       first_bounce,
                                                       graph_ms,
                                                       graph_rounds,
@@ -353,9 +361,12 @@ T_RTOL = 2.0 ** -22              # 2 ulp: -fmad=false makes t bit-equal
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W)
 FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
 # FP32 operations counted from the kernels' sources (compares not
-# counted): a ray-sphere pair (spheres.cu), a ray-triangle slot
-# (bvh_common.cuh mt_hit, its division counted as one), a slab test
-SPHERE_FLOPS, MT_FLOPS, SLAB_FLOPS = 20, 37, 12
+# counted): a ray-sphere pair (spheres.cu: the oc differences, the two
+# 3-term dots, - r2 and disc) and the roots where disc > 0 (the sqrt
+# counted as one, -b - sq, -b + sq), a ray-triangle slot (bvh_common.cuh
+# mt_hit, its division counted as one), a slab test
+SPHERE_PAIR_FLOPS, SPHERE_ROOT_FLOPS = 16, 3
+MT_FLOPS, SLAB_FLOPS = 37, 12
 # bvh_mx.cu: a slot's 19 x passes products and sums (G's bf16 parts come
 # built by mx_tables), 4 combined sums (2 or 5 adds each), f, t, u, v and
 # u + v; a ray's F: 9 operations and 10 three-part splits
@@ -389,8 +400,7 @@ TRI_ROW_BYTES = 48  # a [T, 12] f32 triangle row: v0, e1, e2, n
 # test (the unrolled leaf loop's body over its slots), of a node step
 # (its loads, four slab tests, the rank and the pushes) and of a leaf
 # visit's broadcast, merge and pop (a round's, times the visit's lanes:
-# 8 nearest, 16 any-hit), in each mode
-ISSUE_RATE = 528 * 1.98e9
+# 8 nearest, 16 any-hit), in each mode (ISSUE_RATE: experiments/common.py)
 BVH4_SASS = {"nearest": (80, 210, 140 * 8), "any_hit": (75, 210, 82 * 16)}
 # csrc/spheres.cu's SASS for sm_90a, the nearest modes' unrolled slot
 # loop (cuobjdump -sass of experiments/spheres_ab.py --out, counted on
@@ -657,8 +667,9 @@ def compare_modes(tag, origin, direction, view, eps, flt_max):
                                                    tab=tab))
     plain_any = cuda_ms(lambda: cs._spheres_anyhit_ref(*args, eps, tm))
     n, s = origin.x.shape[0], view.sph_r.shape[0]
-    bnd = bound(n * s * SPHERE_FLOPS, n * (28 + 8 + 72) + s * (16 + 72))
-    _, floor = sphere_floor(origin, direction, view, eps)
+    _, floor, pairs, disc = sphere_floor(origin, direction, view, eps)
+    bnd = bound(sphere_flops(pairs, disc),
+                n * (28 + 8 + 72) + s * (16 + 72))
     phase("kernel", f"{tag}: {n} rays x {s} spheres: idx equal on "
           f"{int(same.sum())}/{same.numel()} lanes ({mism.numel()} ties), "
           f"hits {int(hit.sum())}, max |err| t+features {err:.3e}, "
@@ -689,19 +700,25 @@ def sphere_pool(tag, origin, direction, view, eps):
                                      tab=view.sph_tab)
     ms = graph_ms(k1)
     s_count = view.sph_r.shape[0]
-    bnd = bound(POOL * s_count * SPHERE_FLOPS,
+    floor, text, pairs, disc = sphere_floor(po, pd, view, eps)
+    bnd = bound(sphere_flops(pairs, disc),
                 POOL * (28 + 8 + 72) + s_count * (16 + 72))
-    floor, text = sphere_floor(po, pd, view, eps)
     phase("kernel", f"{tag} pool: {POOL} rays x {s_count} spheres: "
           f"{ms:.4f} ms a call in a CUDA graph; bound {bnd[0]:.4f} ms by "
           f"{bnd[1]}, {text}")
     return ms, bnd, floor
 
 
+def sphere_flops(pairs, disc_pairs):
+    """The FP32 operations of ``pairs`` ray-sphere pairs, ``disc_pairs``
+    of them with disc > 0, where the roots are taken."""
+    return pairs * SPHERE_PAIR_FLOPS + disc_pairs * SPHERE_ROOT_FLOPS
+
+
 def sphere_floor(origin, direction, view, eps):
-    """(ms, text): the least time the card could issue csrc/spheres.cu's
-    SASS for the nearest modes on these rays at t_max = FLT_MAX, at
-    ISSUE_RATE."""
+    """(ms, text, pairs, disc pairs): the least time the card could issue
+    csrc/spheres.cu's SASS for the nearest modes on these rays at t_max =
+    FLT_MAX, at ISSUE_RATE, and the pairs it counts."""
     n = origin.x.shape[0]
     pairs, disc = sphere_pairs(origin, direction, view.sph_tab, eps,
                                torch.full((n,), FLT_MAX,
@@ -709,7 +726,8 @@ def sphere_floor(origin, direction, view, eps):
     lanes = pairs * SPHERE_SASS[0] + disc * SPHERE_SASS[1]
     floor = lanes / 32 / ISSUE_RATE * 1e3
     return floor, (f"issue-rate floor {floor:.4f} ms ({lanes} lane "
-                   f"instructions: {pairs} pairs, {disc} with disc > 0)")
+                   f"instructions: {pairs} pairs, {disc} with disc > 0)"), \
+        pairs, disc
 
 
 def plain_tris():
@@ -2103,58 +2121,102 @@ def mr_phase(tabs, sets, eps, checks):
     return recs
 
 
-def walk_probe_phase(tabs, rays, eps):
-    """Phase 10d: the walk probes on phase 10's primary lanes, the launch
-    counts set to 0 just before and read just after. ``iter_ablate`` and
-    ``dual_probe``'s ``measure``: K13's modes held bit-equal to their plain
-    walks and timed in turns with K5, once with closest held at t_max (no
-    culling, as the TPU probe) and once at K5's hit t (a subset of K5's
-    visits), the split of each printed; K16 at R = 1, 2, 4 held bit-equal
-    to the plain node phase and timed in turns. Bounds from the node steps
-    and leaf slots the counters report and the distinct rows the plain
-    walks read. Returns the JSON records of K13's three modes (the
-    no-culling reading) and K16's three forms."""
+# K13's SHFL a leaf phase's round keeps in each mode: the ray's 8 values
+# broadcast (o, d, closest, its node), and in full and nomt the pair's
+# 4-step tree and the owner's fetch of the sum
+K13_SHFL = {"full": 13, "nomt": 13, "noleaf": 8}
+
+
+def walk_probe_phase(tabs, rays, pool, eps):
+    """Phase 10d: the walk probes on phase 10's primary lanes and the
+    dragon's 196,608-lane pool (``pool``: pool_sets'), the launch counts
+    set to 0 just before and read just after. ``iter_ablate.measure``:
+    K13's modes held bit-equal to their plain walks (acc and counters,
+    equal across modes), then K5 and the three modes timed in turns,
+    device time a call in a CUDA graph, on each set with closest
+    held at t_max (no culling, as the TPU probe) and at K5's hit t (a
+    subset of K5's visits), the split of each printed; each mode beside
+    its bound and the issue-rate floor of the build's SASS
+    (``iter_ablate.mode_sass``: a slot, a node step, a leaf round), which
+    must keep every broadcast's shuffle (K13_SHFL). K16
+    (``dual_probe.measure``) at R = 1, 2, 4 held bit-equal to the plain
+    node phase and timed in turns. Bounds from the node steps and leaf
+    slots the counters report and the distinct rows the plain walks read.
+    Returns the JSON records of K13's three modes (the primary rays' no-
+    culling reading, the others beside it) and K16's three forms."""
     t_phase = time.perf_counter()
-    o, d, tm = rays["primary"]
-    n = o.x.shape[0]
+    dump = common.sass_dump(_build.library_path("iter_ablate"))
+    sass = ia.mode_sass(dump)
+    shfl = {ia.MODES[int(name.split("ablate_kernelILi")[1][0])]: c[1]
+            for name, c in common.sass_counts(dump, ops=("SHFL",)).items()
+            if "ablate_kernelILi" in name}
+    if any(shfl[m] < k for m, k in K13_SHFL.items()):
+        raise AssertionError(f"K13's build dropped a leaf round's shuffles: "
+                             f"SHFL {shfl}, at least {K13_SHFL}")
+    sets = {"primary": rays["primary"], "pool primary": pool["pool primary"]}
     torch.cuda.synchronize()
     bench.reset_launches((ia, dp))
-    k13 = ia.measure(o, d, tm, tabs, eps, rounds=2)
-    k16 = dp.measure(o, d, tabs, rounds=2)
-    launches = {**{f"iter_ablate.{k}": v for k, v in k13["launches"].items()},
+    readings = {}
+    for name, (o, d, tm) in sets.items():
+        for hits in (False, True):
+            readings[name, hits] = ia.measure(
+                o, d, tm, tabs, eps, at_k5_hits=hits, rounds=2,
+                time_plain=(name, hits) == ("primary", False))
+    k16 = dp.measure(rays["primary"][0], rays["primary"][1], tabs, rounds=2)
+    launches = {**{f"iter_ablate.{k}": v for k, v in ia.LAUNCHES.items()},
                 **{f"dual_probe.{k}": v for k, v in k16["launches"].items()}}
     if min(launches.values()) <= 0:
         raise AssertionError(f"the walk-probe path launched {launches}")
     P = tabs.prims_per_leaf
-    recs = []
-    for tag, r in (("closest at t_max, no culling", k13),
-                   ("closest at K5's hit t",
-                    ia.measure(o, d, tm, tabs, eps, at_k5_hits=True,
-                               rounds=2))):
-        c = r["counters"]["modes"].sum(dim=1, dtype=torch.int64)
+    bnds, floors = {}, {}
+    for (name, hits), r in readings.items():
+        n = sets[name][0].x.shape[0]
+        cnt = r["counters"]["modes"]
+        c = cnt.sum(dim=1, dtype=torch.int64)
         c5 = r["counters"]["K5"].sum(dim=1, dtype=torch.int64)
-        phase("kernel", f"K13 on the dragon's {n} primary rays, {tag}: every "
-              f"mode's acc and counters bit-equal to its plain walk; "
-              f"{int(c[4])} node steps and {int(c[2])} leaf visits (K5 "
-              f"{int(c5[4])} and {int(c5[2])}), {r['nodes']} distinct node "
-              f"rows, {r['leaves']} leaves; in turns, 2 rounds: " + ", ".join(
-                  f"{m} {r['ms'][m]:.3f} ms (readings "
-                  f"{min(r['readings'][m]):.3f}-{max(r['readings'][m]):.3f}, "
-                  f"plain {r['plain_ms'][m]:.1f})" for m in ia.MODES)
+        for m in ia.MODES:
+            flops = 3 * n + int(c[4]) * 2 * SLAB_FLOPS
+            nbytes = n * (28 + 4 + 20) + r["nodes"] * HEAP_NODE
+            if m != "noleaf":
+                nbytes += r["leaves"] * P * TRI_ROW_BYTES
+            if m == "full":
+                flops += int(c[2]) * P * MT_FLOPS
+            bnds[name, hits, m] = bound(flops, nbytes)
+            floors[name, hits, m] = ia.issue_floor(sass[m], cnt, P)[0]
+        tag = "closest at K5's hit t" if hits else ("closest at t_max, no "
+                                                   "culling")
+        phase("kernel", f"K13 dragon {name} ({n} rays), {tag}: every mode's "
+              f"acc and counters bit-equal to its plain walk; "
+              f"{int(c[4])} node steps and "
+              f"{int(c[2])} leaf visits (K5 {int(c5[4])} and {int(c5[2])}), "
+              f"{r['nodes']} distinct node rows, {r['leaves']} leaves; "
+              f"device time a call in a CUDA graph, 2 rounds in turns: "
+              + ", ".join(f"{m} {r['ms'][m]:.4f} ms (bound "
+                          f"{bnds[name, hits, m][0]:.4f} by "
+                          f"{bnds[name, hits, m][1]}, issue-rate floor "
+                          f"{floors[name, hits, m]:.4f})" for m in ia.MODES)
               + f"; split of full: {ia.split_text(r)}")
-    c = k13["counters"]["modes"].sum(dim=1, dtype=torch.int64)
+    phase("kernel", f"K13 SASS of this build (warp instructions: slot, node "
+          f"step, leaf round) {sass}, SHFL {shfl}")
+    recs = []
+    r = readings["primary", False]
     for m in ia.MODES:
-        flops = 3 * n + int(c[4]) * 2 * SLAB_FLOPS
-        nbytes = n * (28 + 4 + 20) + k13["nodes"] * HEAP_NODE
-        if m != "noleaf":
-            nbytes += k13["leaves"] * P * TRI_ROW_BYTES
-        if m == "full":
-            flops += int(c[2]) * P * MT_FLOPS
-        recs.append(record(f"iter_ablate_{m}", "iter_ablate.cu",
-                           "experiments/iter_ablate.py:60",
-                           launches[f"iter_ablate.{m}"], 0.0, k13["ms"][m],
-                           k13["plain_ms"][m], bound(flops, nbytes)))
+        rec = record(f"iter_ablate_{m}", "iter_ablate.cu",
+                     "experiments/iter_ablate.py:60",
+                     launches[f"iter_ablate.{m}"], 0.0, r["ms"][m],
+                     r["plain_ms"][m], bnds["primary", False, m])
+        key = lambda name, hits: f"{name}{', at K5 hit t' if hits else ''}"
+        rec.update(graph_ms={key(*k): v["ms"][m]
+                             for k, v in readings.items()},
+                   k5_ms={key(*k): v["ms"]["K5"]
+                          for k, v in readings.items()},
+                   floor_ms={key(*k[:2]): v for k, v in floors.items()
+                             if k[2] == m},
+                   bound_ms_by_set={key(*k[:2]): v[0]
+                                    for k, v in bnds.items() if k[2] == m})
+        recs.append(rec)
 
+    n = rays["primary"][0].x.shape[0]
     total = k16["total"]
     bnd = bound(3 * n + total * 2 * SLAB_FLOPS,
                 n * (24 + 4) + k16["nodes"] * HEAP_NODE)
@@ -2437,18 +2499,25 @@ SBF_FEATURE_FLOPS = 7
 
 def layout_phase(dev):
     """Phase 18: the sphere layout probe (K25a, K25b) on the TPU file's
-    16,384 rays and on the headline's 960,000 primary rays of sample 0,
-    and the shape-cast probe (K26), the launch counts set to 0 just before
-    and read just after. Each module's ``measure``: every kernel held
-    bit-equal to its plain version (K25 also to K1), then timed (K25 in
-    turns with K1). Bounds: K25a 20 operations a ray-slot pair over all
-    512 slots, K25b that plus 7 a fetched feature of a hit; bytes the
-    rays, the table (and K25b's feature table) once, the outputs once.
-    Returns the JSON records."""
+    16,384 rays and on the headline's sets (``frame_sets``: the 32,768-lane
+    pool's and the 960,000 primary rays of sample 0, and the live rays of
+    each one's second bounce), and the shape-cast probe (K26), the launch
+    counts set to 0 just before and read just after. Each module's
+    ``measure``: every kernel held bit-equal to its plain version (K25
+    also to K1), then timed (K25: device time a call in a CUDA graph, in
+    turns with K1 and the table's copy alone). Bounds: K25a
+    SPHERE_PAIR_FLOPS a ray-slot pair over all 512 slots and
+    SPHERE_ROOT_FLOPS more where disc > 0, K25b that plus 7 a fetched
+    feature of a hit; bytes the rays, the table (and K25b's feature
+    table) once, the outputs once. Issue-rate floor: the build's slot loop
+    (``sphere_layout_ab.slot_sass``: a pair, the roots where disc > 0)
+    over the set's pairs. Returns the JSON records (K25 on the TPU file's
+    rays, the pool's primary rays and the 960,000 primary rays)."""
     t_phase = time.perf_counter()
-    sets = {"tpu": slp.probe_inputs(dev),
-            "headline": slp.headline_inputs(dev)}
+    sets = {"tpu": slp.probe_inputs(dev), **slp.frame_sets(dev)}
     x = scp.probe_x(dev)
+    dump = common.sass_dump(_build.library_path("sphere_layout_probe"))
+    sass = {"sb": lab.slot_sass(dump)["01"], "sbf": lab.slot_sass(dump)["11"]}
     torch.cuda.synchronize()
     mods = (slp, scp)
     bench.reset_launches(mods)
@@ -2459,35 +2528,43 @@ def layout_phase(dev):
             for k in m.LAUNCHES}
     if set(launches) != want:
         raise AssertionError(f"the layout-probe path launched {launches}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    phase("kernel", f"K25 SASS of this build: (instructions, LDC, ULDC, "
+          f"FP32 with a bank-3 operand) by template arguments (FEAT, ALL) "
+          f"{lab.table_reads(dump)}; the slot loop's (pair, root) {sass}")
     recs = []
     table, ftab = 4 * 4 * slp.S, 4 * slp.N_C * slp.S
     for name, v in k25["sets"].items():
         n, hits = v["n"], v["hits"]
-        pair_flops = SPHERE_FLOPS * n * slp.S
+        pair_flops = sphere_flops(v["pairs"], v["disc_pairs"])
         bnd = {"sb": bound(pair_flops, 4 * 7 * n + table + 8 * n),
                "sbf": bound(pair_flops + SBF_FEATURE_FLOPS * slp.N_C * hits,
                             4 * 7 * n + table + ftab + (8 + 4 * slp.N_C) * n)}
+        floor = {m: lab.issue_floor(sass[m], v["pairs"], v["disc_pairs"])[0]
+                 for m in sass}
+        ms = v["ms"]
+        phase("kernel", f"K25 {name}: {n} rays, {hits} hits, {v['pairs']} "
+              f"pairs, {v['disc_pairs']} with disc > 0: sb and sbf bit-equal "
+              f"to plain and to K1 (t, idx; features, 0 on a miss); device "
+              f"time a call in a CUDA graph, 2 rounds in turns: " + ", ".join(
+                  f"{m} {ms[m]:.4f} ms (bound {bnd[m][0]:.4f} by "
+                  f"{bnd[m][1]}, issue-rate floor {floor[m]:.4f})"
+                  for m in ("sb", "sbf"))
+              + f"; the table's copy alone {ms['copy']:.4f} ms; K1b "
+              f"{ms['k1b']:.4f}, K1 {ms['k1']:.4f} ms "
+              f"({sets[name]['centers'].shape[0]} spheres, K25 {slp.S} "
+              f"slots); plain sb {v['plain_ms']['sb']:.2f} ms, sbf "
+              f"{v['plain_ms']['sbf']:.2f} ms")
+        if name not in ("tpu", "pool primary", "960,000 primary"):
+            continue
         for mode, line in (("sb", 117), ("sbf", 38)):
-            recs.append(record(f"sphere_layout_{mode}_{n}",
-                               "sphere_layout_probe.cu",
-                               f"experiments/sphere_layout_probe.py:{line}",
-                               launches[f"sphere_layout_probe.{mode}"], 0.0,
-                               v["ms"][mode], v["plain_ms"][mode], bnd[mode]))
-        blocks = -(-n // 256)
-        phase("kernel", f"K25 {name}: {n} rays ({blocks} blocks of 256 "
-              f"threads on {sms} SMs{', under one wave' if blocks < sms else ''}"
-              f"), {hits} hits: sb and sbf bit-equal to plain and to K1 (t, "
-              f"idx; features, 0 on a miss); in turns K1 {v['ms']['k1']:.4f} "
-              f"ms ({sets[name]['centers'].shape[0]} spheres), sb {v['ms']['sb']:.4f} ms, sbf "
-              f"{v['ms']['sbf']:.4f} ms ({slp.S} slots): prod/sb "
-              f"{v['prod_sb']:.3f}x, prod/sbf {v['prod_sbf']:.3f}x; device "
-              f"(profiler, a launch) " + ", ".join(
-                  f"{k} {ms:.4f} ms" if ms else f"{k} not measured"
-                  for k, ms in v["device"].items()) + f"; plain sb "
-              f"{v['plain_ms']['sb']:.2f} ms, sbf {v['plain_ms']['sbf']:.2f} "
-              f"ms; bound sb {bnd['sb'][0]:.4f} ms, sbf {bnd['sbf'][0]:.4f} "
-              f"ms by {bnd['sb'][1]}")
+            rec = record(f"sphere_layout_{mode}_{n}", "sphere_layout_probe.cu",
+                         f"experiments/sphere_layout_probe.py:{line}",
+                         launches[f"sphere_layout_probe.{mode}"], 0.0,
+                         ms[mode], v["plain_ms"][mode], bnd[mode])
+            rec.update(copy_ms=ms["copy"],
+                       k1_ms=ms["k1b" if mode == "sb" else "k1"],
+                       floor_ms=floor[mode])
+            recs.append(rec)
     bnd = bound(sum(scp.CASE_FLOPS), 4 * scp.N * (1 + len(scp.NAMES)))
     recs.append(record("shapecast", "shapecast_probe.cu",
                        "experiments/shapecast_probe.py:135",
@@ -2566,7 +2643,7 @@ def dragon_path(dev):
     mr_recs = mr_phase(tabs, {"primary": rays["primary"],
                               "NEE shadows": rays["NEE shadows"], **pool},
                        cfg.epsilon, res)
-    probe_recs = walk_probe_phase(tabs, rays, cfg.epsilon)
+    probe_recs = walk_probe_phase(tabs, rays, pool, cfg.epsilon)
 
     run = frame_run("dragon", "dragon", "dragon", built, TIER_KERNELS["heap"])
     base, launches = run.timed.image, run.timed.launches

@@ -1194,24 +1194,33 @@ def test_small_knob_render_kernel_vs_plain(dev, knob):
 
 
 @pytest.mark.gpu
-def test_iter_ablate_kernel_bit_equal(dev):
+@pytest.mark.parametrize("n,ppl", [(40_000, 64), (196_608, 64),
+                                   (40_003, 33)],
+                         ids=["soup", "pool", "ragged"])
+def test_iter_ablate_kernel_bit_equal(dev, n, ppl):
     """K13's three modes against their plain walks: acc and per-ray
-    counters bit-equal; every mode visits the same nodes and leaves."""
-    mesh, o, d, tm = _bvh_inputs(dev, seed=7, ppl=64)
+    counters bit-equal; every mode visits the same nodes and leaves. On a
+    random soup, at the dragon frame's 196,608-lane pool, and on 33-slot
+    leaves (no multiple of a pair's 16 lanes) with n no multiple of a
+    block; no culling and with closest held at each ray's K5 hit t."""
+    mesh, o, d, tm = _bvh_inputs(dev, n=n, seed=7, ppl=ppl)
     tabs = cb.heap_tables(mesh)
     before = dict(ia.LAUNCHES)
-    for t_max in (torch.full_like(tm, FLT_MAX), tm):
+    hit_t = cb.heap_trace(o, d, tm, tabs, T_MIN)[0]
+    for t_max in (torch.full_like(tm, FLT_MAX), tm, hit_t):
         cnts = []
         for mode in ia.MODES:
             acc, cnt = ia.ablate_trace(o, d, t_max, tabs, T_MIN, mode)
             p_acc, p_cnt = ia._ablate_ref(o, d, t_max, tabs, T_MIN, mode)
             torch.cuda.synchronize()
             assert torch.equal(acc, p_acc) and torch.equal(cnt, p_cnt)
-            assert (acc != 0).any() == (mode != "noleaf")
+            # at K5's hit t no slot passes: full's acc is 0 there too
+            assert (acc != 0).any() == (mode == "nomt" or (
+                mode == "full" and t_max is not hit_t))
             cnts.append(cnt)
         assert all(torch.equal(c, cnts[0]) for c in cnts)
     assert not cnt[:, ::7].any()
-    assert all(ia.LAUNCHES[m] == before[m] + 2 for m in ia.MODES)
+    assert all(ia.LAUNCHES[m] == before[m] + 3 for m in ia.MODES)
 
 
 @pytest.mark.gpu
@@ -1455,12 +1464,15 @@ def test_walk_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [sl.M, 1000])
-def test_sphere_layout_kernels_bit_equal(dev, m):
+@pytest.mark.parametrize("which", ["tpu", "ragged", "pool"])
+def test_sphere_layout_kernels_bit_equal(dev, which):
     """K25a (all slots and the first 100) and K25b against their plain
-    versions and K1; 1000 rays leave a ragged block."""
-    inp = sl.probe_inputs(dev, m)
+    versions and K1: the TPU file's 16,384 rays, 1000 of them (a ragged
+    block), and the headline's 32,768-lane pool."""
+    inp = (sl.frame_sets(dev)["pool primary"] if which == "pool"
+           else sl.probe_inputs(dev, sl.M if which == "tpu" else 1000))
     rays, sph, feat_t = inp["rays"], inp["sph"], inp["feat_t"]
+    m = rays.shape[1]
     before = dict(sl.LAUNCHES)
     for n_s in (sl.S, 100):
         got, want = sl.spheres_sb(rays, sph, n_s=n_s), sl.sb_plain(
@@ -1473,23 +1485,27 @@ def test_sphere_layout_kernels_bit_equal(dev, m):
     t, idx, f = sl._k1(inp)
     assert all(torch.equal(g, p) for g, p in zip(got, (t, idx,
                                                        torch.stack(f))))
-    assert 0 < int((got[1] >= 0).sum()) < m
+    hits = int((got[1] >= 0).sum())
+    # the pool's middle rows hit on every lane
+    assert 0 < hits and (hits < m or which == "pool")
     assert sl.LAUNCHES == {"sb": before["sb"] + 2, "sbf": before["sbf"] + 1}
 
 
 @pytest.mark.gpu
 def test_sphere_layout_kernels_match_k1_on_the_headline(dev):
-    """The headline's 960,000 primary rays: both kernels bit-equal to K1
-    (t, idx; the features, 0 on a miss) and K25a to its plain version."""
-    inp = sl.headline_inputs(dev)
-    rays, sph = inp["rays"], inp["sph"]
-    t, idx, f = sl._k1(inp)
-    sb = sl.spheres_sb(rays, sph)
-    assert torch.equal(sb[0], t) and torch.equal(sb[1], idx)
-    sbf = sl.spheres_sbf(rays, sph, inp["feat_t"])
-    assert all(torch.equal(g, p) for g, p in zip(sbf, (t, idx,
-                                                       torch.stack(f))))
-    assert all(torch.equal(g, p) for g, p in zip(sb, sl.sb_plain(rays, sph)))
+    """The headline's four sets, its 960,000 and 32,768-lane pool primary
+    rays and their live bounce-2 rays: both kernels bit-equal to K1 (t,
+    idx; the features, 0 on a miss) and K25a to its plain version."""
+    for inp in sl.frame_sets(dev).values():
+        rays, sph = inp["rays"], inp["sph"]
+        t, idx, f = sl._k1(inp)
+        sb = sl.spheres_sb(rays, sph)
+        assert torch.equal(sb[0], t) and torch.equal(sb[1], idx)
+        sbf = sl.spheres_sbf(rays, sph, inp["feat_t"])
+        assert all(torch.equal(g, p) for g, p in zip(sbf, (t, idx,
+                                                           torch.stack(f))))
+        assert all(torch.equal(g, p)
+                   for g, p in zip(sb, sl.sb_plain(rays, sph)))
 
 
 @pytest.mark.gpu

@@ -157,6 +157,7 @@ def test_import_builds_nothing():
                                    "regroup_probe", "leafround_probe",
                                    "multirow_probe", "gather_probe",
                                    "sphere_layout_probe",
+                                   "sphere_layout_ab",
                                    "shapecast_probe", "spheres_mx_ab",
                                    "bvh_mx_ab",
                                    "bvh_ab", "bvh_rg_ab",

@@ -27,7 +27,11 @@ The script-style TPU probe ``iter_ablate.py`` builds a scene and times at
 import, so only its kernel function is compiled from the file's source;
 ``dual_probe.py`` guards its ``main()`` and is imported by its path. The
 CUDA kernels run only on a card: ``tests/test_torch_cuda.py`` holds them
-bit for bit against these plain versions.
+bit for bit against these plain versions. Beside the JAX comparisons:
+``full``'s per-leaf sum in the kernel's 16-lane tree order (leaves 5, 33
+and 64 wide), the modes' counters at the dragon pool's 196,608 rays, and
+``mode_sass``, the SASS counter of K13's issue-rate floor, on a listing
+written out by hand (``sass_listing.py``).
 """
 
 import ast
@@ -45,6 +49,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from sass_listing import listing
 from test_torch_bvh4 import tv
 from tpu_pathtracer.models import shapes as jshapes
 from tpu_pathtracer.ops import pallas_bvh as pb
@@ -307,3 +312,117 @@ def test_cpu_tensors_take_the_plain_version(knot):
     assert (ia.LAUNCHES, dp.LAUNCHES) == before
     with pytest.raises(ValueError, match="mode"):
         ia.ablate_trace(o, d, FLT_MAX, knot.tabs, ia.T_MIN, "mt")
+
+
+def _tree_sum(t, ok, lanes):
+    """One leaf visit's sum as the kernel forms it, written out in float32
+    numpy: lane s adds the accepted t of slots s, s + lanes, ... in slot
+    order from 0; then the lanes' partials are added pairwise, neighbours
+    first (offsets 1, 2, 4, 8)."""
+    part = [np.float32(0)] * lanes
+    for k in range(len(t)):
+        if ok[k]:
+            part[k % lanes] = np.float32(part[k % lanes] + np.float32(t[k]))
+    while len(part) > 1:
+        part = [np.float32(part[i] + part[i + 1])
+                for i in range(0, len(part), 2)]
+    return part[0]
+
+
+def test_leaf_lanes_are_the_kernels():
+    src = open(os.path.join(ROOT, "tpu_pathtracer_torch", "csrc",
+                            "iter_ablate.cu")).read()
+    assert f"constexpr int kLeafLanes = {ia.LEAF_LANES};" in src
+
+
+@pytest.mark.parametrize("width", [5, 33, 64])
+def test_full_sums_a_leaf_in_the_kernels_tree_order(width):
+    """``leaf_sums`` on leaves 5 and 33 wide (no multiple of the pair's 16
+    lanes: the tail lanes test nothing) and 64 wide: bit-equal to the
+    16-lane tree order written out, not to the slot-by-slot sum."""
+    rng = np.random.RandomState(width)
+    t = rng.uniform(0.5, 40, (64, width)).astype(np.float32)
+    ok = rng.uniform(size=(64, width)) < 0.6
+    ok[0] = True
+    got = ia.leaf_sums(torch.from_numpy(t), torch.from_numpy(ok)).numpy()
+    want = np.array([_tree_sum(t[m], ok[m], ia.LEAF_LANES)
+                     for m in range(64)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    serial = [np.float32(0)] * 64
+    for m in range(64):
+        for k in range(width):
+            if ok[m, k]:
+                serial[m] = np.float32(serial[m] + t[m, k])
+    assert (got != np.array(serial, np.float32)).any()
+
+
+def test_full_adds_each_visit_in_tree_order():
+    """``full`` on a 33-wide leaf mesh: each ray's acc is its visits'
+    tree-order sums (``_tree_sum`` of the plain Moller-Trumbore t),
+    added in visit order."""
+    kw = dict(KNOT, prims_per_leaf=33)
+    ts, cam = tshapes.knot_zoo_scene(32, 32, device="cpu", **kw)
+    tabs = cb.heap_tables(ts.mesh)
+    o, d = cam.generate_rays(torch.arange(1024), 0, 32, 32)
+    (acc, _), _, leaves = lane_walks(lambda: ia.ablate_trace(
+        o, d, FLT_MAX, tabs, ia.T_MIN, "full"))
+    want = np.zeros(1024, np.float32)
+    slots = torch.arange(33)
+    for lane, leaf in leaves:
+        rows = tabs.tri[leaf * 33 + slots][None]
+        t, ok = cb.mt_rows(rows, torch.stack([c[lane] for c in o])[None],
+                           torch.stack([c[lane] for c in d])[None],
+                           ia.T_MIN, torch.full((1,), FLT_MAX))
+        want[lane] = np.float32(want[lane] + _tree_sum(
+            t[0].numpy(), ok[0].numpy(), ia.LEAF_LANES))
+    assert (want > 0).sum() > 50
+    np.testing.assert_array_equal(acc.numpy(), want)
+
+
+def test_modes_visit_alike_at_the_pool_ray_count():
+    """At the dragon frame's 196,608-lane pool (a 512x384 grid of the
+    small knot's camera), the three modes' counters are equal, with
+    closest at t_max and at the walk's hit t."""
+    ts, cam = tshapes.knot_zoo_scene(512, 384, device="cpu", **KNOT)
+    tabs = cb.heap_tables(ts.mesh)
+    n = 3 << 16
+    o, d = cam.generate_rays(torch.arange(n), 0, 512, 384)
+    hit_t = cb._heap_trace_ref(o, d, torch.full((n,), FLT_MAX), tabs,
+                               ia.T_MIN)[0]
+    for t_max in (FLT_MAX, hit_t):
+        cnts = [ia.ablate_trace(o, d, t_max, tabs, ia.T_MIN, m)[1]
+                for m in ia.MODES]
+        assert cnts[0].shape == (5, n) and int(cnts[0][2].sum()) > n // 10
+        assert all(torch.equal(c, cnts[0]) for c in cnts[1:])
+
+
+def test_mode_sass_counts_a_slot_a_step_and_a_round():
+    """``mode_sass`` on a listing of the walk's shape: the walk loop holds
+    the leaf phase's loop, which holds the slot loop; the division's slow
+    path (a forward branch over a CALL) counts nowhere."""
+    slot = (["slot:"] + ["LDG.E.128.CONSTANT R4, desc[UR4][R16.64]"] * 3
+            + ["MUFU.RCP R0, R49", "@!P1 BRA {fast}", "MOV R16, 0x0",
+               "CALL.REL.NOINC {div}", "fast:"]
+            + ["FADD R9, R46, -R9"] * 10
+            + ["ISETP.GE.AND P1, PT, R39, UR10, PT", "@!P1 BRA {slot}"])
+    leaf = (["leaf:"] + ["SHFL.IDX PT, R45, R24, R2, 0x1f"] * 8
+            + ["LOP3.LUT R7, R48, R7, RZ, 0x30, !PT"] * 5 + slot
+            + ["SHFL.BFLY PT, R3, R50, 0x1, 0x1f"] * 4
+            + ["SHFL.IDX PT, R4, R2, R47, 0x1f", "VOTE.ANY R0, PT, P0",
+               "@P0 BRA {leaf}"])
+    walk = (["walk:", "VOTE.ANY R3, PT, P0", "VOTE.ANY R48, PT, P1",
+             "@!P2 BRA {done}", "@P1 BRA {node}"] + leaf
+            + ["BRA {tail}", "node:"]
+            + ["LDG.E.128.CONSTANT R4, desc[UR4][R14.64]"] * 4
+            + ["FADD R17, -R24, R4"] * 20
+            + ["tail:", "ISETP.NE.AND P0, PT, R31, RZ, PT",
+               "VOTE.ANY R48, PT, P1", "@P2 BRA {walk}"])
+    text = listing("_ZN4anon13ablate_kernelILi0EEEvPKf",
+                   ["LDC R1, c[0x0][0x28]"] * 3 + walk
+                   + ["done:", "EXIT", "div:", "RET.REL.NODEC R2 0x0",
+                      "trap:", "BRA {trap}"])
+    # slot: 19 - 2 slow; round: 39 - 2 slow - 17; node: 71 - 2 slow - 37
+    assert ia.mode_sass(text) == {"full": (17, 32, 20)}
+    cnt = torch.tensor([[0], [0], [3], [0], [10]])
+    ms, ins = ia.issue_floor((17, 32, 20), cnt, 64)
+    assert ins == (3 * (64 * 17 + 16 * 20) + 10 * 32) // 32

@@ -22,7 +22,9 @@ contractions (b, c and disc), which the test restates in numpy. t against
 the port is held at the sphere tests' bound (``test_torch_spheres.py``:
 rtol 1e-5 plus the grazing term). The CUDA kernels run only on a card:
 ``tests/test_torch_cuda.py`` holds them bit for bit against these plain
-versions and K1.
+versions and K1. ``sphere_layout_ab``'s SASS counters (the slot loop's
+instructions a pair and a root, the table's reads) are held on a listing
+written out by hand (``sass_listing.py``).
 """
 
 import functools
@@ -37,6 +39,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from tpu_pathtracer.models.spheres import random_spheres_scene as j_scene
+from sass_listing import listing
+from tpu_pathtracer_torch.experiments import sphere_layout_ab as ab
 from tpu_pathtracer_torch.experiments import sphere_layout_probe as sl
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
 from tpu_pathtracer_torch.ops.v3 import V3
@@ -289,3 +293,33 @@ def test_sbf_needs_every_slot(small):
     with pytest.raises(ValueError, match="slots"):
         sl.spheres_sbf(small["rays"], small["sph"],
                        small["feat_t"][:, :S_TEST - 1].contiguous())
+
+
+def test_slot_sass_counts_a_pair_and_its_roots():
+    """``slot_sass`` and ``table_reads`` on a listing of the slot loop's
+    shape: two slots unrolled, each read by two ULDC.64, its roots behind
+    a forward branch over one MUFU.RSQ with the sqrtf's slow path (a
+    forward branch over a CALL) inside; the loop's 3 instructions shared
+    by its 2 slots."""
+    def one(k):
+        return (["ULDC.64 UR6, c[0x3][UR4]", "ULDC.64 UR8, c[0x3][UR4+0x8]"]
+                + ["FADD R3, R5, -UR6"] * 17
+                + [f"BSSY B0, {{end{k}}}", "FSETP.GT.AND P0, PT, R0, RZ, PT",
+                   f"@!P0 BRA {{end{k}}}", "IADD3 R2, R0, -0xd000000, RZ",
+                   "MUFU.RSQ R17, R0", f"BSSY B1, {{join{k}}}",
+                   f"@!P0 BRA {{fast{k}}}", "MOV R2, 0x0",
+                   "CALL.REL.NOINC {sqrt}", f"BRA {{join{k}}}", f"fast{k}:"]
+                + ["FMUL.FTZ R3, R0, R17"] * 4
+                + [f"join{k}:", "BSYNC B1"]
+                + ["FSETP.GT.AND P0, PT, R0, UR5, PT"] * 7
+                + [f"end{k}:", "BSYNC B0"])
+    text = listing("_ZN4anon20sphere_layout_kernelILb0ELb1EEEvPKf",
+                   ["MOV R12, 0xffffffff", "head:"] + one(0) + one(1)
+                   + ["UIADD3 UR4, UR4, 0x20, URZ",
+                      "ISETP.NE.AND P1, PT, R15, 0x200, PT", "@P1 BRA {head}",
+                      "EXIT", "sqrt:", "RET.REL.NODEC R2 0x0"])
+    # a slot: 23 outside its roots, 19 in them less 3 of slow path
+    assert ab.slot_sass(text) == {"01": (23 + 3 / 2, 16)}
+    assert ab.table_reads(text) == {"01": (90, 0, 4, 0)}
+    ms, ins = ab.issue_floor((24.5, 16), 64, 2)
+    assert ins == int((64 * 24.5 + 2 * 16) / 32)

@@ -50,10 +50,12 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.experiments.bvh_ab import (DRAGON, DRAGON_MESH,
                                                      fixed_sets)
-from tpu_pathtracer_torch.experiments.common import (ab_sources,
-                                                      branch_target, build,
-                                                      card, graph_rounds,
-                                                      opcode, sass_counts,
+from tpu_pathtracer_torch.experiments.common import (ISSUE_RATE,
+                                                      ab_sources,
+                                                      backward_loops, build,
+                                                      card, fast_count,
+                                                      graph_rounds, opcode,
+                                                      sass_counts,
                                                       sass_functions)
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.ops import _build
@@ -153,24 +155,13 @@ def describe(cnt, node_rounds, leaf_rounds) -> str:
             f"packets make {tail_share(cnt[2]):.1%} of the leaf visits")
 
 
-ISSUE_RATE = 528 * 1.98e9  # warp instructions a second: 132 SMs x 4
-# schedulers at 1,980 MHz, one instruction a scheduler a cycle
-
-
 def _slot(code, ops) -> float:
     """Warp instructions a slot test: the slot loop (of the innermost
-    backward branches around a MUFU.RCP, the one with the most, then the
-    shortest) over its MUFU.RCPs, less the division's slow path (what a
-    forward branch inside the loop jumps over to skip a CALL)."""
-    addr = [a for a, _ in code]
+    loops around a MUFU.RCP, the one with the most, then the shortest)
+    over its MUFU.RCPs, less the division's slow path."""
     rcp = [k for k, o in enumerate(ops) if o.startswith("MUFU.RCP")]
-    spans = []
-    for k, (a, ins) in enumerate(code):
-        t = branch_target(ins)
-        if t is not None and t <= a and t in addr:
-            h = addr.index(t)
-            if any(h <= j <= k for j in rcp):
-                spans.append((h, k))
+    spans = [(h, b) for h, b in backward_loops(code)
+             if any(h <= j <= b for j in rcp)]
     inner = [(h, b) for h, b in spans
              if not any(h <= h2 and b2 <= b and (h2, b2) != (h, b)
                         for h2, b2 in spans)]
@@ -179,15 +170,7 @@ def _slot(code, ops) -> float:
     if not loops:
         raise ValueError("no loop around a MUFU.RCP")
     n, _, h, b = min(loops)
-    slow = set()
-    for k in range(h, b + 1):
-        t = branch_target(code[k][1])
-        if t is None or t <= code[k][0] or t not in addr:
-            continue
-        end = addr.index(t)
-        if end <= b + 1 and any(o.startswith("CALL") for o in ops[k + 1:end]):
-            slow.update(range(k + 1, end))
-    return (b + 1 - h - len(slow)) / -n
+    return fast_count(code, (h, b)) / -n
 
 
 def _node(ops) -> int:

@@ -29,6 +29,9 @@ from tpu_pathtracer_torch.ops.v3 import V3
 from tpu_pathtracer_torch.ops.vec import FLT_MAX
 
 WARP = 32
+# warp instructions a second an H100 SXM issues at most: 132 SMs x 4
+# schedulers at its 1,980 MHz maximum clock, one a scheduler a cycle
+ISSUE_RATE = 528 * 1.98e9
 
 
 def card(probe: str) -> torch.device:
@@ -321,3 +324,41 @@ def sass_counts(text: str, ops=("HMMA", "LDSM")) -> Dict[str, tuple]:
     return {name: (len(code), *(sum(opcode(i).startswith(op)
                                     for _, i in code) for op in ops))
             for name, code in sass_functions(text).items()}
+
+
+def backward_loops(code: List[tuple]) -> List[tuple]:
+    """[(head, end)]: the index spans of a function's loops (``code`` as
+    :func:`sass_functions` gives it), one a backward branch; a branch to
+    itself (the trap after the last EXIT) is none."""
+    addr = [a for a, _ in code]
+    out = []
+    for k, (a, ins) in enumerate(code):
+        t = branch_target(ins)
+        if t is not None and t < a and t in addr:
+            out.append((addr.index(t), k))
+    return out
+
+
+def slow_paths(code: List[tuple], lo: int, hi: int) -> set:
+    """The indices in [lo, hi] that a forward branch jumps over to skip a
+    CALL and no MUFU: an IEEE division's or square root's slow path, which
+    the kernels' inputs do not take."""
+    addr = [a for a, _ in code]
+    slow = set()
+    for k in range(lo, hi + 1):
+        t = branch_target(code[k][1])
+        if t is None or t <= code[k][0] or t not in addr:
+            continue
+        end = addr.index(t)
+        ops = [opcode(i) for _, i in code[k + 1:end]]
+        if (end <= hi + 1 and any(o.startswith("CALL") for o in ops)
+                and not any(o.startswith("MUFU") for o in ops)):
+            slow.update(range(k + 1, end))
+    return slow
+
+
+def fast_count(code: List[tuple], span: tuple) -> int:
+    """The instructions of ``span`` (inclusive index pair) but its slow
+    paths."""
+    lo, hi = span
+    return hi + 1 - lo - len(slow_paths(code, lo, hi))

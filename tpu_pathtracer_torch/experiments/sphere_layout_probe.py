@@ -5,7 +5,8 @@ broadcast of the sphere table. The port's counterpart of
 ``experiments/sphere_layout_probe.py`` (``_kernel_sb`` through ``run_sb``,
 ``_kernel_sbf`` through ``run_sbf``).
 
-    python -m tpu_pathtracer_torch.experiments.sphere_layout_probe
+    python -m tpu_pathtracer_torch.experiments.sphere_layout_probe \\
+        [parent=FILE.cu]
 
 Rays are a [7, n] float32 tensor (rows ox, oy, oz, dx, dy, dz, t_max), the
 TPU file's seven arrays. The sphere table ``sph`` is [4, S] (rows cx, cy,
@@ -27,30 +28,40 @@ every ray. The port's gather would not copy that, so it refuses such a
 table instead (:func:`check_features`).
 
 On the card the wrapper transposes the table to slot-major [S, 4], the
-kernel copies it to constant memory on the launch's stream, and a thread
-walks one ray (the kernel's header says why). :func:`spheres_sb` and :func:`spheres_sbf` dispatch on the device of
-their rays: CPU tensors go to the plain version, CUDA tensors to the
-kernel or the call raises. ``main()`` runs :func:`measure` on the TPU
-file's 16,384 rays and on the headline's 960,000 primary rays of sample
-0: each kernel held bit-equal to its plain version and to K1, then K1,
-K25a and K25b timed in turns on fixed inputs. (The TPU file chains its
-timed steps by moving ``ox`` by t·1e-9, which a miss's t = FLT_MAX moves
-by ~3.4e29; that chain is not ported.) K1 walks the 486 spheres, K25 all
-512 slots, so K25 does 5% more pair tests.
+C entry copies it to constant memory on the launch's stream, and the
+kernel takes K1's current form but for where the table lives (its header
+says which of the two arms it ships and why; ``sphere_layout_ab.py`` is
+their A/B). :func:`spheres_sb` and :func:`spheres_sbf` dispatch on the
+device of their rays: CPU tensors go to the plain version, CUDA tensors
+to the kernel or the call raises. ``main()`` runs :func:`measure` on the
+TPU file's 16,384 rays and on the headline's sets (:func:`frame_sets`:
+its 960,000 primary rays of sample 0 and the 32,768-lane pool's, and
+their live bounce-2 rays): each kernel held bit-equal to its plain
+version and to K1, a ``parent`` source with the same C entry, if given
+(say the first form, a thread a ray over every slot: commit 68d9d84's
+``csrc/sphere_layout_probe.cu``), to its plain version, then all timed
+in turns with K1, device time a call in a CUDA graph. (The TPU file chains
+its timed steps by moving ``ox`` by t·1e-9, which a miss's t = FLT_MAX
+moves by ~3.4e29; that chain is not ported.) K1 walks the 486 spheres,
+K25 all 512 slots, so K25 does 5% more pair tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-import statistics
 import sys
-from typing import Dict, Tuple
+from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpu_pathtracer_torch.experiments.common import (card, device_ms,
-                                                    in_turns, median_ms)
+from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.engine import wavefront as wf
+from tpu_pathtracer_torch.experiments.common import (build, card,
+                                                    graph_rounds, median_ms,
+                                                    sphere_pairs)
+from tpu_pathtracer_torch.experiments.spheres_mx_ab import ray_sets
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_spheres as cs
@@ -68,11 +79,8 @@ HEADLINE = (1200, 800)  # the headline's frame: 960,000 primary rays
 # Kernel launches by spheres_sb and spheres_sbf. Callers reset them to 0
 # and read them back to show that a run went through the kernels.
 LAUNCHES = {"sb": 0, "sbf": 0}
-# the kernel of each timed run, by the name the profiler gives it
-KERNELS = {"k1": "spheres_kernel", "sb": "sphere_layout_kernel",
-           "sbf": "sphere_layout_kernel"}
+KERNEL_ID = {"sb": "K25a", "sbf": "K25b"}
 ROUNDS = 3
-REPS = 7
 
 
 # ------------------------------------------------------------------ inputs
@@ -138,13 +146,17 @@ def probe_inputs(device="cuda", m: int = M) -> Dict[str, torch.Tensor]:
     return _inputs(o, d, scene.sphere_center, scene.sphere_radius)
 
 
-def headline_inputs(device="cuda") -> Dict[str, torch.Tensor]:
-    """:func:`probe_inputs`' keys for the headline's 960,000 primary rays
-    of sample 0 (the rays of K1's row in PERF.md)."""
+def frame_sets(device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """:func:`probe_inputs`' keys for the headline's four sets of
+    ``spheres_mx_ab.ray_sets``: the pool's primary rays and the 960,000
+    primary rays of sample 0, and the live rays of each one's second
+    bounce (t_max = FLT_MAX)."""
     nx, ny = HEADLINE
+    cfg = RenderConfig(nx=nx, ny=ny, ns=100, max_depth=50)
     scene, cam = random_spheres_scene(nx, ny, device=device)
-    o, d = cam.generate_rays(torch.arange(nx * ny, device=device), 0, nx, ny)
-    return _inputs(o, d, scene.sphere_center, scene.sphere_radius)
+    view = wf.make_view(scene, cfg)
+    return {name: _inputs(o, d, scene.sphere_center, scene.sphere_radius)
+            for name, (o, d) in ray_sets(scene, cam, cfg, view).items()}
 
 
 # ---------------------------------------------------------- plain versions
@@ -203,8 +215,9 @@ def check_features(feat_t: torch.Tensor) -> None:
 
 
 # --------------------------------------------------------------- wrappers
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("sphere_layout_probe")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (the package's build or another source's) with
+    ``sphere_layout_launch``'s signature set."""
     fn = lib.sphere_layout_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -213,13 +226,30 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(mode: str, rays, sph, t_min, n_s, feat_t=None):
+def source_lib(path: Path, out: Optional[Path] = None) -> ctypes.CDLL:
+    """Another source of the kernel with the same C entry (a parent),
+    built by ``common.build`` and bound; ``out`` keeps its ptxas lines
+    and SASS."""
+    lib, _ = build("sphere_layout_parent", Path(path).read_text(), out)
+    return bind(ctypes.CDLL(str(lib)))
+
+
+def slot_major(sph: torch.Tensor) -> torch.Tensor:
+    """[S, 4]: the [4, S] table transposed, a slot's 16 B together (what
+    the C entry copies to constant memory)."""
+    return sph.t().contiguous()
+
+
+def _launch(mode: str, rays, tab, t_min, n_s, feat_t=None,
+            lib: Optional[ctypes.CDLL] = None):
+    """One launch on slot-major ``tab`` [S, 4] through ``lib`` (default:
+    the package's build, counted in LAUNCHES; another library's are not
+    counted): the table's copy to constant memory, then the kernel."""
     dev = rays.device
     n = rays.shape[1]
     f32 = torch.float32
     _check("rays", rays, dev, f32, (7, n))
-    _check("sph", sph, dev, f32, (4, S))
-    tab = sph.t().contiguous()  # a slot's 16 B together
+    _check("tab", tab, dev, f32, (S, 4))
     if not 0 <= n_s <= S:
         raise ValueError(f"n_s = {n_s} is outside [0, {S}]")
     n_c = 0
@@ -233,14 +263,16 @@ def _launch(mode: str, rays, sph, t_min, n_s, feat_t=None):
     ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib().sphere_layout_launch(
+        rc = (lib or bind(_build.load("sphere_layout_probe"))
+              ).sphere_layout_launch(
             int(feat_t is not None), *(rays[k].data_ptr() for k in range(7)),
-            tab.data_ptr(), int(n_s), ptr(feat_t), n_c, n, float(t_min),
-            t.data_ptr(), idx.data_ptr(), ptr(f), stream)
+            tab.data_ptr(), int(n_s), ptr(feat_t), n_c, n,
+            float(t_min), t.data_ptr(), idx.data_ptr(), ptr(f), stream)
     if rc != 0:
         raise RuntimeError(f"sphere_layout_probe {mode} launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES[mode] += 1
+    if lib is None:
+        LAUNCHES[mode] += 1
     return t, idx, f
 
 
@@ -257,7 +289,8 @@ def spheres_sb(rays: torch.Tensor, sph: torch.Tensor, t_min: float = T_MIN,
     (t [n] with FLT_MAX on a miss, idx [n] int32, −1 on a miss). On the
     card ``sph`` is [4, S]."""
     if _on_cuda(rays):
-        return _launch("sb", rays, sph, t_min, n_s)[:2]
+        _check("sph", sph, rays.device, torch.float32, (4, S))
+        return _launch("sb", rays, slot_major(sph), t_min, n_s)[:2]
     return sb_plain(rays, sph, t_min, n_s)
 
 
@@ -273,7 +306,9 @@ def spheres_sbf(rays: torch.Tensor, sph: torch.Tensor, feat_t: torch.Tensor,
     if not checked:
         check_features(feat_t)
     if _on_cuda(rays):
-        return _launch("sbf", rays, sph, t_min, sph.shape[1], feat_t)
+        _check("sph", sph, rays.device, torch.float32, (4, S))
+        return _launch("sbf", rays, slot_major(sph), t_min, sph.shape[1],
+                       feat_t)
     return sbf_plain(rays, sph, feat_t, t_min)
 
 
@@ -282,12 +317,20 @@ def _v3s(rays):
     return V3(*rays[:3]), V3(*rays[3:6])
 
 
-def _k1(inp):
-    """K1 (``spheres_hit_feat``, kFeatures) on the same rays and spheres:
-    (t, idx, a tuple of 18 [n] features)."""
+def _k1(inp, nearest: bool = False):
+    """K1 (``spheres_hit_feat``, kFeatures; ``nearest``: K1b,
+    ``spheres_hit_soa``) on the same rays and spheres, with the sphere
+    table built once as the frame's view holds it (``inp["k1_tab"]``,
+    made on first use): (t, idx[, a tuple of 18 [n] features])."""
     o, d = _v3s(inp["rays"])
-    return cs.spheres_hit_feat(o, d, V3(*inp["centers"].t()), inp["radii"],
-                               inp["feat"], T_MIN, inp["rays"][6])
+    c = V3(*inp["centers"].t())
+    if "k1_tab" not in inp:
+        inp["k1_tab"] = cs.sphere_table(c, inp["radii"])
+    if nearest:
+        return cs.spheres_hit_soa(o, d, c, inp["radii"], T_MIN,
+                                  inp["rays"][6], tab=inp["k1_tab"])
+    return cs.spheres_hit_feat(o, d, c, inp["radii"], inp["feat"], T_MIN,
+                               inp["rays"][6], tab=inp["k1_tab"])
 
 
 def _equal(tag, got, want):
@@ -297,76 +340,107 @@ def _equal(tag, got, want):
                                  f"{int((g != w).sum())} of {g.numel()}")
 
 
+def calls(inp, lib: Optional[ctypes.CDLL] = None):
+    """{"sb": ..., "sbf": ...}: K25a's and K25b's launch on ``inp`` through
+    ``lib`` (default: the package's build), as :func:`_launch` takes them,
+    on the slot-major table built once (``inp["tab"]``)."""
+    if "tab" not in inp:
+        inp["tab"] = slot_major(inp["sph"])
+    rays, tab = inp["rays"], inp["tab"]
+    return {"sb": lambda: _launch("sb", rays, tab, T_MIN, S, None, lib)[:2],
+            "sbf": lambda: _launch("sbf", rays, tab, T_MIN, S, inp["feat_t"],
+                                   lib)}
+
+
+def check(name, inp, fns) -> dict:
+    """Holds K25a's and K25b's outputs (``fns``: :func:`calls`) bit-equal
+    to their plain versions and to K1 (t and idx; K25b's f to K1's
+    features, 0 on a miss). Returns the plain outputs."""
+    rays, sph, feat_t = inp["rays"], inp["sph"], inp["feat_t"]
+    want = {"sb": sb_plain(rays, sph), "sbf": sbf_plain(rays, sph, feat_t)}
+    k1 = _k1(inp)
+    for mode, fn in fns.items():
+        got = fn()
+        _equal(f"{KERNEL_ID[mode]} {name} vs plain", got, want[mode])
+        _equal(f"{KERNEL_ID[mode]} {name} vs K1", got,
+               (*k1[:2], torch.stack(k1[2])) if mode == "sbf" else k1[:2])
+    return want
+
+
 def measure(sets: Dict[str, Dict[str, torch.Tensor]],
-            rounds: int = ROUNDS) -> dict:
+            rounds: int = ROUNDS,
+            parent: Optional[ctypes.CDLL] = None) -> dict:
     """The probe's one measurement, on the card (``main()`` and
     ``chip_smoke.py`` phase 18 print it). For each set of inputs (keys of
     :func:`probe_inputs`): the table checked once (C-20); K25a and K25b
-    held bit-equal to their plain versions (t, idx, f) and to K1 (t and
-    idx; K25b's f to K1's features, which are 0 on a miss); then K1, K25a
-    and K25b timed in turns, then under the profiler. Returns
-    ``launches`` (LAUNCHES after the checked runs) and by set: ``n``,
-    ``hits``, ``ms`` {k1, sb, sbf} (medians of the in-turn readings),
-    ``device`` {k1, sb, sbf: the kernel's device ms a launch, by the
-    profiler; 0 if it reported none}, ``plain_ms`` {sb, sbf} (one reading
-    each), ``prod_sb`` and ``prod_sbf`` (K1's time over K25a's and
-    K25b's, in turns)."""
+    held bit-equal to their plain versions (t, idx, f) and to K1
+    (:func:`check`), ``parent`` (:func:`source_lib`), if given, to the
+    plain versions too; then timed in turns, device time a call in a CUDA
+    graph (``common.graph_rounds``, ``rounds`` rounds): ``sb`` and ``sbf``
+    (the table's copy to constant memory and the kernel, as the wrapper
+    launches them), ``copy`` (the C entry on no rays: the table's copy
+    alone), the parent's calls (``parent sb``, ``parent sbf``) and K1
+    (``k1``: features, ``k1b``: t and idx, the table built once, as the
+    frame calls them).
+    Returns ``launches`` (LAUNCHES after the checked runs) and by set:
+    ``n``, ``hits``, ``pairs`` and ``disc_pairs`` (the ray-slot pairs
+    over every slot and those with disc > 0), ``ms`` by name and
+    ``plain_ms`` {sb, sbf} (one reading each)."""
     out = {"sets": {}}
     for name, inp in sets.items():
-        rays, sph, feat_t = inp["rays"], inp["sph"], inp["feat_t"]
-        check_features(feat_t)
-        runs = {"k1": lambda inp=inp: _k1(inp),
-                "sb": lambda r=rays, s=sph: spheres_sb(r, s),
-                "sbf": lambda r=rays, s=sph, f=feat_t: spheres_sbf(
-                    r, s, f, checked=True)}
-        k1, sb, sbf = (runs[k]() for k in ("k1", "sb", "sbf"))
-        _equal(f"K25a {name} vs plain", sb, sb_plain(rays, sph))
-        _equal(f"K25b {name} vs plain", sbf, sbf_plain(rays, sph, feat_t))
-        _equal(f"K25a {name} vs K1", sb, k1[:2])
-        _equal(f"K25b {name} vs K1", sbf, (*k1[:2], torch.stack(k1[2])))
+        check_features(inp["feat_t"])
+        want = check(name, inp, calls(inp))
+        # the timed calls go through the library itself: LAUNCHES keeps
+        # the checked runs' count
+        lib = bind(_build.load("sphere_layout_probe"))
+        fns = {**calls(inp, lib),
+               "copy": lambda inp=inp, lib=lib: _launch(
+                   "sb", inp["rays"][:, :0], inp["tab"], T_MIN, S, None, lib),
+               "k1": lambda inp=inp: _k1(inp),
+               "k1b": lambda inp=inp: _k1(inp, nearest=True)}
+        if parent is not None:
+            for mode, fn in calls(inp, parent).items():
+                _equal(f"parent {mode} {name} vs plain", fn(),
+                       want[mode])
+                fns[f"parent {mode}"] = fn
         torch.cuda.synchronize()
-        readings = in_turns(runs, rounds, REPS)
-        ms = {k: statistics.median(v) for k, v in readings.items()}
-        device = {k: sum(v for key, v in device_ms(fn).items()
-                         if KERNELS[k] in key) for k, fn in runs.items()}
+        names = list(fns)
+        ms = {k: v for (k, _), v in graph_rounds(
+            names, [None], lambda k, _: fns[k](), rounds).items()}
+        rays, sph, feat_t = inp["rays"], inp["sph"], inp["feat_t"]
+        o, d = _v3s(rays)
+        pairs, disc = sphere_pairs(o, d, inp["tab"], T_MIN, rays[6])
         out["sets"][name] = {
-            "n": rays.shape[1], "hits": int((sb[1] >= 0).sum()), "ms": ms,
-            "device": device,
+            "n": rays.shape[1], "hits": int((want["sb"][1] >= 0).sum()),
+            "pairs": pairs, "disc_pairs": disc, "ms": ms,
             "plain_ms": {
                 "sb": median_ms(lambda: sb_plain(rays, sph), reps=1),
                 "sbf": median_ms(lambda: sbf_plain(rays, sph, feat_t),
-                                 reps=1)},
-            "prod_sb": ms["k1"] / ms["sb"], "prod_sbf": ms["k1"] / ms["sbf"]}
+                                 reps=1)}}
     out["launches"] = dict(LAUNCHES)
     return out
 
 
 def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv:
-        sys.exit(f"sphere_layout_probe: takes no arguments, not {argv}")
+    parent = [a.split("=", 1)[1] for a in argv if a.startswith("parent=")]
+    if len(parent) != len(argv) or len(parent) > 1:
+        sys.exit(f"sphere_layout_probe: takes [parent=FILE.cu], not {argv}")
     dev = card("sphere_layout_probe")
-    r = measure({"tpu": probe_inputs(dev), "headline": headline_inputs(dev)})
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    r = measure({"tpu": probe_inputs(dev), **frame_sets(dev)},
+                parent=source_lib(parent[0]) if parent else None)
     print(f"K25a, K25b bit-equal to their plain versions and to K1 (t, idx; "
-          f"features where idx >= 0, 0 elsewhere) on both ray sets; in "
-          f"turns, {ROUNDS} rounds forward and back, each reading the "
-          f"median of {REPS}; K1 walks 486 spheres, K25 {S} slots",
-          flush=True)
+          f"features where idx >= 0, 0 elsewhere), the parent, if given, to "
+          f"the plain versions, on every set; device time a call in a CUDA "
+          f"graph, median of {ROUNDS} rounds in turns (sb, sbf: the table's "
+          f"copy and the kernel; copy: the copy alone); K1 walks 486 "
+          f"spheres, K25 {S} slots", flush=True)
     for name, v in r["sets"].items():
-        blocks = -(-v["n"] // 256)
-        wave = (f"{blocks} blocks of 256 threads, under one wave of the "
-                f"card's {sms} SMs" if blocks < sms else
-                f"{blocks} blocks of 256 threads")
-        print(f"  {name}: {v['n']} rays ({wave}), {v['hits']} hits: K1 "
-              f"{v['ms']['k1']:.4f} ms, sb {v['ms']['sb']:.4f} ms, sbf "
-              f"{v['ms']['sbf']:.4f} ms; ratios prod/sb {v['prod_sb']:.3f}x "
-              f"prod/sbf {v['prod_sbf']:.3f}x; plain sb "
-              f"{v['plain_ms']['sb']:.2f} ms, sbf {v['plain_ms']['sbf']:.2f} "
-              f"ms", flush=True)
-        print("    device (profiler, a launch): " + ", ".join(
-            f"{k} {ms:.4f} ms" if ms else f"{k} not measured"
-            for k, ms in v["device"].items()), flush=True)
+        print(f"  {name}: {v['n']} rays, {v['hits']} hits, {v['pairs']} "
+              f"pairs, {v['disc_pairs']} with disc > 0: " + ", ".join(
+                  f"{k} {ms:.4f}" for k, ms in v["ms"].items())
+              + f" ms; plain sb {v['plain_ms']['sb']:.2f} ms, sbf "
+              f"{v['plain_ms']['sbf']:.2f} ms", flush=True)
 
 
 if __name__ == "__main__":
