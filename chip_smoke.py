@@ -168,12 +168,16 @@ line each; any failure raises and exits non-zero:
      All run after phase 13, the last timed frame: a profiler session
      slows the host's launches in the rest of the process;
  15. the leaf-fetch probes on the TPU probes' seeded inputs, counts from
-     0: K14 (``leafmt_probe.leafmt_run``, modes pure, cond, dma, db, db2)
-     and K15 (``dma_probe.dma_chain``, sync and db), each bit-equal to its
-     plain version at a few visits or copies, then timed at the probes'
-     own pair (V = 1024 and 17,408 visits of one 1024-ray tile; k =
-     16,384 and 131,072 copies) in turns: ns a visit and a triangle slot,
-     ns a copy and the latency the prefetch hides;
+     0: K14 (``leafmt_probe.leafmt_run``, modes pure, cond, dma, db, db2;
+     a visit tested by the warp in K5's split, db's ring filled by the
+     bulk-copy engine) bit-equal to its plain version at one 1024-ray
+     tile (V = 1024 and 17,408) and at the dragon's 196,608-lane pool (V
+     = 128 and 1,152), and K15 (``dma_probe.dma_chain``, sync and db, a
+     bulk copy on an mbarrier a cluster) at k = 16,384 and 131,072
+     copies; then timed in turns, device time a call in CUDA graphs, each
+     beside its bound and the issue-rate floor of the build's SASS: ns a
+     visit and a slot, the B-17 reading (dma - pure, dma - db), ns a copy
+     and the latency the prefetch hides;
  16. the TPU micro-benchmarks on the TPU file's seeded inputs, counts from
      0 (``tpu_micro.measure``): K17a (the per-lane gather, modes l2 and
      smem) and K17c (the one-hot fetch as a bf16 gather) at the TPU's
@@ -2240,66 +2244,106 @@ def walk_probe_phase(tabs, rays, pool, eps):
 def leaf_probe_phase(dev):
     """Phase 15: the leaf-fetch probes on the TPU probes' seeded inputs,
     the launch counts set to 0 just before and read just after.
-    ``leafmt_probe`` and ``dma_probe``'s ``measure``: K14's modes on one
-    tile, each held bit-equal to its plain version and timed in turns at
-    V = 1024 and 17,408 visits, past the 611 clusters' wrap (db2 is
-    checked and takes db's times: db's kernel); K15's two
-    kernels held bit-equal to the plain in-order sum at k = 16,384 and
-    131,072 copies and timed in turns there: the per-visit and per-copy
-    slopes. The records' times, plain times and bounds are at the pair's
-    lower point. Returns the JSON records of K14's modes and K15's two
-    kernels."""
+    ``leafmt_probe.measure``: K14's modes, a visit tested by the warp in
+    K5's split (16 lanes a ray, the (t, slot) shuffle merge), each held
+    bit-equal to its plain version at one 1024-ray tile (8 blocks on 8
+    SMs; V = 1024 and 17,408) and at the dragon's 196,608-lane pool (192
+    tiles; V = 128 and 1,152), past the 611 clusters' wrap (db2 is checked
+    and takes db's times: db's kernel), then timed in turns, device time a
+    call in a CUDA graph: ns a visit at each shape beside the bound (the
+    shape's rays) and the issue-rate floor of the build's SASS
+    (``leafmt_probe.mode_sass``: a slot, a pass, a visit; it raises unless
+    the slot loop is the 16-lane split and db's visit holds its bulk copy
+    and mbarrier wait), and the B-17 reading (dma - pure: the per-lane
+    fetch; dma - db: what the bulk-copy ring hides). ``dma_probe.measure``:
+    K15's two bulk-copy chains held bit-equal to the plain in-order sum at
+    k = 16,384 and 131,072 copies and timed in turns there (CUDA graphs):
+    ns a copy and sync - db, beside the bound and the chain loop's issue
+    floor (``dma_probe.copy_sass``, which raises without the bulk copy or
+    the wait). The records' times, plain times and bounds are at the
+    pool's (K14) and the pair's (K15) lower point. Returns the JSON
+    records of K14's modes and K15's two kernels."""
     t_phase = time.perf_counter()
-    one = lm.probe_inputs(1, dev)
-    blocks = dm.probe_blocks(device=dev)
+    k14_sass = lm.mode_sass(common.sass_dump(_build.build("leafmt_probe")))
+    k15_sass = dm.copy_sass(common.sass_dump(_build.build("dma_probe")))
     torch.cuda.synchronize()
     bench.reset_launches((lm, dm))
-    k14 = lm.measure(one, rounds=1)
-    k15 = dm.measure(blocks, rounds=1)
+    k14 = lm.measure(dev, rounds=1)
+    k15 = dm.measure(dm.probe_blocks(device=dev), rounds=1)
     launches = {**{f"leafmt_probe.{k}": v for k, v in k14["launches"].items()},
                 **{f"dma_probe.{k}": v for k, v in k15["launches"].items()}}
     if min(launches.values()) <= 0:
         raise AssertionError(f"the leaf-probe path launched {launches}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     recs = []
-    lo, hi = lm.VISITS
-    text = []
+    bnds, floors = {}, {}
     for m in lm.MODES:
-        (t_lo, t_hi), per = k14["t"][m], k14["per_visit"][m]
-        plain_ms = k14["plain_ms"][m]
-        bnd = bound(MT_FLOPS * lm.WIDTH * lm.TILE * lo,
-                    lm.TILE * (28 + 8) + lm.WIDTH * TRI_ROW_BYTES * (
-                        1 if m in ("pure", "cond") else min(lo, lm.CLUSTERS)))
-        served = lm.SERVED_BY.get(m)
-        if not served:
-            text.append(f"{m} {per:.1f} ns a visit ({per / lm.WIDTH:.2f} a "
-                        f"slot; t({lo}) {t_lo:.3f} ms, t({hi}) {t_hi:.3f} "
-                        f"ms, plain t({lo}) {plain_ms:.3f} ms)")
+        for s, (_, vs) in lm.SHAPES.items():
+            n = k14["n"][s]
+            for v in vs:
+                bnds[m, s, v] = bound(
+                    MT_FLOPS * lm.WIDTH * n * v,
+                    n * (28 + 8) + lm.WIDTH * TRI_ROW_BYTES * (
+                        1 if m in ("pure", "cond") else min(v, lm.CLUSTERS)))
+                floors[m, s, v] = lm.issue_floor(
+                    k14_sass[lm.SERVED_BY.get(m, m)], n, v)[0]
+        lo = lm.POOL_VISITS[0]
         rec = record(f"leafmt_{m}", "leafmt_probe.cu",
                      "experiments/leafmt_probe.py:36",
-                     launches[f"leafmt_probe.{m}"], 0.0, t_lo, plain_ms, bnd)
-        if served:
-            rec["served_by"] = served
+                     launches[f"leafmt_probe.{m}"], 0.0,
+                     k14["ms"][m, "pool", lo], k14["plain_ms"][m, "pool"],
+                     bnds[m, "pool", lo])
+        rec.update(graph_ms={f"{s} V={v}": k14["ms"][m, s, v]
+                             for s, (_, vs) in lm.SHAPES.items() for v in vs},
+                   ns_a_visit={s: k14["per_visit"][m, s] for s in lm.SHAPES},
+                   floor_ms={f"{s} V={v}": f for (mm, s, v), f in
+                             floors.items() if mm == m},
+                   bound_ms_by_cell={f"{s} V={v}": b[0] for (mm, s, v), b in
+                                     bnds.items() if mm == m},
+                   plain_ms_tile=k14["plain_ms"][m, "tile"],
+                   sass=k14_sass[lm.SERVED_BY.get(m, m)])
+        if m in lm.SERVED_BY:
+            rec["served_by"] = lm.SERVED_BY[m]
+        else:
+            rec["blocks_per_sm"] = k14["blocks_per_sm"][m]
         recs.append(rec)
-    phase("kernel", f"K14: {len(lm.MODES)} modes bit-equal to their plain "
-          f"versions at {lo} and {hi} visits (db2 is served by db's kernel "
-          f"and takes its times); one {lm.TILE}-ray tile on 1 of {sms} SMs, in turns: "
-          + "; ".join(text) + f"; bound at V={lo}: {recs[0]['bound_ms']:.4f} "
-          f"ms card-wide, by operations")
+    for s, (tiles, (lo, hi)) in lm.SHAPES.items():
+        text = [f"{m} {k14['per_visit'][m, s]:.1f} ns a visit "
+                f"({k14['per_visit'][m, s] / lm.WIDTH:.2f} a slot; t({lo}) "
+                f"{k14['ms'][m, s, lo]:.4f} ms, t({hi}) "
+                f"{k14['ms'][m, s, hi]:.4f} ms; bound at V={lo} "
+                f"{bnds[m, s, lo][0]:.4f} ms by {bnds[m, s, lo][1]}, "
+                f"issue-rate floor {floors[m, s, lo]:.4f} ms; plain "
+                f"{k14['plain_ms'][m, s]:.3f} ms)" for m in lm.TIMED]
+        b17 = lm.b17(k14["per_visit"], s)
+        phase("kernel", f"K14 {s}: {k14['n'][s]} rays ({tiles} tiles of "
+              f"8 blocks of 128), every mode bit-equal to its plain version "
+              f"at V={lo} and {hi} (db2: db's kernel and times); device "
+              f"time a call in a CUDA graph, in turns: " + "; ".join(text)
+              + "; B-17: " + ", ".join(f"{k} {v:.1f} ns a visit ({sh:.1%} "
+                                      f"of dma)" for k, (v, sh) in
+                                      b17.items()))
+    phase("kernel", f"K14 SASS of this build (slot, pass, visit) {k14_sass}; "
+          f"resident blocks an SM {k14['blocks_per_sm']}")
     lo, hi = dm.COPIES
     per = k15["per_copy"]
     for m, line in zip(dm.MODES, ("experiments/dma_probe.py:36",
                                   "experiments/dma_probe.py:50")):
-        recs.append(record(f"dma_{m}", "dma_probe.cu", line,
-                           launches[f"dma_probe.{m}"], 0.0, k15["t"][m][0],
-                           k15["plain_ms"],
-                           bound(lo, lo * 4 * dm.CLUSTER_FLOATS + 4)))
-    phase("kernel", f"K15: sync and db equal to the plain in-order sum at "
-          f"{lo} and {hi} copies; in turns, " + ", ".join(
-              f"{m} {per[m]:.1f} ns a copy (t({lo}) "
-              f"{recs[-2 + i]['ms']:.3f} ms, bound "
-              f"{recs[-2 + i]['bound_ms']:.4f} ms by bytes)"
-              for i, m in enumerate(dm.MODES))
+        copies = lo + (m == "db")  # db drains one copy past the chain
+        rec = record(f"dma_{m}", "dma_probe.cu", line,
+                     launches[f"dma_probe.{m}"], 0.0, k15["t"][m][0],
+                     k15["plain_ms"],
+                     bound(lo, copies * 4 * dm.CLUSTER_FLOATS + 4))
+        rec.update(ns_a_copy=per[m], graph_ms_hi=k15["t"][m][1],
+                   floor_ms=dm.issue_floor(k15_sass[m][0], lo),
+                   sass=k15_sass[m])
+        recs.append(rec)
+    phase("kernel", f"K15: sync and db (one warp, a bulk copy a cluster on "
+          f"an mbarrier) equal to the plain in-order sum at {lo} and {hi} "
+          f"copies; device time a call in a CUDA graph, in turns: " +
+          ", ".join(f"{r['name'][4:]} {r['ns_a_copy']:.1f} ns a copy "
+                    f"(t({lo}) {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} "
+                    f"ms by bytes, issue-rate floor {r['floor_ms']:.4f} ms; "
+                    f"chain loop {r['sass']})" for r in recs[-2:])
           + f"; sync - db {per['sync'] - per['db']:.1f} ns a copy hidden by "
           f"the prefetch; launches {launches}; phase 15 in "
           f"{time.perf_counter() - t_phase:.1f} s")

@@ -24,6 +24,7 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.engine import wavefront as wf
 from tpu_pathtracer_torch.engine.regen import render_image_regen
+from tpu_pathtracer_torch.experiments import common
 from tpu_pathtracer_torch.experiments import dma_probe as dm
 from tpu_pathtracer_torch.experiments import dual_probe as dp
 from tpu_pathtracer_torch.experiments import gather_probe as gp
@@ -38,6 +39,7 @@ from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
+from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import bvh as tbvh
 from tpu_pathtracer_torch.ops import bvh4 as tb4
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
@@ -52,6 +54,7 @@ from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh4_cases
 import bvh_mx_cases
 import heap_cases
+import leafmt_cases
 import mr_cases
 import rg_cases
 import sphere_cases
@@ -1237,37 +1240,105 @@ def test_dual_probe_kernel_bit_equal(dev):
     assert all(dp.LAUNCHES[k] == before[k] + 1 for k in dp.LAUNCHES)
 
 
+LEAFMT_VISITS = (0, 1, 2, 7, 611, 612, 1153)
+
+
+def _leafmt_equal(run, tiles, dev, mode):
+    """``run`` (a launch of K14's C entry) bit-equal to the plain version
+    in ``mode`` at ``tiles`` tiles of the probe's inputs and at each of
+    LEAFMT_VISITS: the db ring's first phases (0, 1, 2 visits), the 611
+    clusters' wrap (611, 612) and an odd count past it (1153)."""
+    args = lm.probe_inputs(tiles, dev)
+    for visits in LEAFMT_VISITS:
+        k = run(*args, visits, mode)
+        p = lm._leafmt_ref(*args, visits, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]), visits
+    assert (k[1] >= 0).any()
+    assert torch.equal(k[0][:lm.TILE], k[0][-lm.TILE:])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", lm.MODES)
 def test_leafmt_kernel_bit_equal(dev, mode):
     """K14 in each mode against its plain version on the probe's inputs,
-    two tiles: closest and besti bit-equal, at 700 visits past the 611
-    clusters' wrap too; cond with its branch never taken runs no visit."""
-    args = lm.probe_inputs(2, dev)
+    closest and besti bit-equal, at two tiles and at the dragon's
+    196,608-lane pool (192 tiles, a wave and a half of blocks), at 0 to
+    1153 visits (``_leafmt_equal``); cond with its branch never taken runs
+    no visit."""
     before = lm.LAUNCHES[mode]
-    for visits in (1, 7, 64, 700):
-        k = lm.leafmt_run(*args, visits, mode)
-        p = lm._leafmt_ref(*args, visits, mode)
-        torch.cuda.synchronize()
-        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
-    assert (k[1] >= 0).any() and torch.equal(k[0][:lm.TILE], k[0][lm.TILE:])
-    assert lm.LAUNCHES[mode] == before + 4
+    for tiles in (2, lm.POOL_TILES):
+        _leafmt_equal(lm.leafmt_run, tiles, dev, mode)
+    assert lm.LAUNCHES[mode] == before + 2 * len(LEAFMT_VISITS)
     if mode == "cond":
+        args = lm.probe_inputs(2, dev)
         closest, best = lm.leafmt_run(*args, 7, mode, skip=1)
         assert (best == -1).all() and torch.equal(closest, args[2])
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["kBulk:0", "kDmaL1:0", "kProxyFence:0"])
+def test_leafmt_variants_bit_equal(dev, spec):
+    """K14's variants the A/B times, built through ``common.variant``: the
+    db ring filled by the lanes' cp.async (kBulk 0), dma's rows read at
+    the L2 only (kDmaL1 0), the refill without its proxy fence; each mode
+    bit-equal at two tiles and at the pool, not counted in LAUNCHES."""
+    own = (_build.CSRC_DIR / "leafmt_probe.cu").read_text()
+    name = "test_" + spec.split(":")[0]
+    lib, _ = lm.source_lib(name, common.variant(own, spec))
+    before = dict(lm.LAUNCHES)
+    run = lambda *a: lm._launch(*a, lib=lib)
+    for mode in lm.TIMED:
+        for tiles in (2, lm.POOL_TILES):
+            _leafmt_equal(run, tiles, dev, mode)
+    assert lm.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", leafmt_cases.CASES)
+def test_leafmt_cases_kernel_bit_equal(dev, name):
+    """tests/leafmt_cases.py on the card: equal t at two slots, zero and
+    NaN rows, dead lanes, a later visit's t equal to closest; K14 in
+    every mode bit-equal to its plain version at 1, 2 and 3 visits."""
+    blocks, o, d, tmax = leafmt_cases.case(name)
+    args = (V3(*(torch.from_numpy(c).to(dev) for c in o)),
+            V3(*(torch.from_numpy(c).to(dev) for c in d)),
+            torch.from_numpy(tmax).to(dev),
+            lm.clusters_from_blocks(blocks).to(dev))
+    for mode in lm.MODES:
+        for visits in (1, 2, 3):
+            k = lm.leafmt_run(*args, visits, mode)
+            p = lm._leafmt_ref(*args, visits, mode)
+            assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert (k[1] >= 0).any()
+
+
+@pytest.mark.gpu
+def test_leaf_probe_sass_forms(dev):
+    """The builds' SASS: K14 in the 16-lane split with db's bulk copy and
+    mbarrier wait (``mode_sass``), K15's chain loops each with one bulk
+    copy and one wait (``copy_sass``)."""
+    sass = lm.mode_sass(common.sass_dump(_build.build("leafmt_probe")))
+    assert set(sass) == set(lm.TIMED)
+    assert all(50 <= slot <= 90 for slot, _, _ in sass.values())
+    chain = dm.copy_sass(common.sass_dump(_build.build("dma_probe")))
+    assert {m: c[1:] for m, c in chain.items()} == {"sync": (1, 1),
+                                                     "db": (1, 1)}
+
+
+@pytest.mark.gpu
 def test_dma_probe_kernel_bit_equal(dev):
-    """K15a and K15b against the plain in-order sum, bit for bit, up to
-    the probe's lower slope point."""
+    """K15a and K15b against the plain in-order sum, bit for bit: no copy,
+    the two barriers' first phases (1, 2, 3 copies), past the 2048
+    clusters' wrap (2049, 4097) and at the probe's lower slope point."""
     blocks = dm.probe_blocks(device=dev)
     before = dict(dm.LAUNCHES)
-    for k in (0, 1, 2, 1000, 4097, dm.COPIES[0]):
+    ks = (0, 1, 2, 3, 1000, 2049, 4097, dm.COPIES[0])
+    for k in ks:
         want = dm._dma_chain_ref(blocks, k)
         for mode in dm.MODES:
             assert torch.equal(dm.dma_chain(blocks, k, mode), want)
-    assert all(dm.LAUNCHES[m] == before[m] + 6 for m in dm.MODES)
+    assert all(dm.LAUNCHES[m] == before[m] + len(ks) for m in dm.MODES)
 
 
 @pytest.fixture(scope="module")

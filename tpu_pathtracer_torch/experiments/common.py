@@ -261,16 +261,17 @@ def build(name: str, text: str, out: Path | None):
 
 
 def graph_rounds(names: List, cells: List, call: Callable,
-                 rounds: int) -> Dict:
+                 rounds: int, calls: int = 20) -> Dict:
     """{(name, cell): median ms} of ``call(name, cell)``, each timed by
-    :func:`graph_ms` in ``rounds`` rounds, the names in order in even
-    rounds and in reverse in odd ones, every cell of a name in a row."""
+    :func:`graph_ms` (``calls`` calls a graph) in ``rounds`` rounds, the
+    names in order in even rounds and in reverse in odd ones, every cell
+    of a name in a row."""
     times: Dict = {}
     for r in range(rounds):
         for name in names if r % 2 == 0 else names[::-1]:
             for cell in cells:
                 times.setdefault((name, cell), []).append(
-                    graph_ms(lambda: call(name, cell)))
+                    graph_ms(lambda: call(name, cell), calls))
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -337,6 +338,15 @@ def backward_loops(code: List[tuple]) -> List[tuple]:
         if t is not None and t < a and t in addr:
             out.append((addr.index(t), k))
     return out
+
+
+def body_loops(code: List[tuple]) -> List[tuple]:
+    """:func:`backward_loops` that close before the function's last EXIT.
+    The code after it holds out-of-line stubs (a divergent warp's
+    shuffles, an mbarrier wait's retries) whose branches back into the
+    body close no loop of it."""
+    last = max(k for k, (_, i) in enumerate(code) if opcode(i) == "EXIT")
+    return [s for s in backward_loops(code) if s[1] < last]
 
 
 def slow_paths(code: List[tuple], lo: int, hi: int) -> set:
