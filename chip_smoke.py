@@ -182,15 +182,23 @@ line each; any failure raises and exits non-zero:
      0 (``tpu_micro.measure``): K17a (the per-lane gather, modes l2 and
      smem) and K17c (the one-hot fetch as a bf16 gather) at the TPU's
      lanes and at 131,072, K17b (the row broadcast and block vote), K18
-     (the 8 KB copy chain), K19 and K20 (a 128-triangle leaf from shared
-     memory as broadcasts, and by per-lane loads), each bit-equal to its
-     plain version at 3 steps and at the lower count of its pair, then
-     timed in turns at the TPU file's pairs: ns a step, a lane-step, a copy
+     (the 8 KB copy chain, the next block from the copied data: one warp,
+     one bulk copy on an mbarrier a step; its chain loop's SASS checked
+     for the bulk copy and the wait, ``tpu_micro.copy_sass``), K19 and K20
+     (a 128-triangle leaf from shared memory as broadcasts, and by
+     per-lane loads), each bit-equal to its plain version at 3 steps and
+     at the lower count of its pair, then timed in turns at the TPU file's
+     pairs: ns a step, a lane-step, a copy (beside K18's issue-rate floor)
      and a leaf; one torch.gather at the same lanes beside K17a and K17c;
  17. the regrouped leaf phase and the 8-row packet probes on the TPU
      files' seeded inputs, counts from 0: K21 (``regroup_probe``, modes
-     ct, g, ray, tri, mt, full) on one window, at 4 and 1028 windows
-     repeated in one block, and card-wide (132 x 8 blocks of one window);
+     ct, g, ray, tri, mt, full; the clusters staged by the bulk-copy
+     engine, each ray's winner merged in slot order; its SASS checked for
+     UBLKCP and SYNCS and against any shared-memory atomic,
+     ``regroup_probe.mode_sass``) on one window, at 4 and 1028 windows
+     repeated in one block, and card-wide (132 x 8 blocks of one window),
+     device time a call in CUDA graphs, each mode beside its bound and the
+     issue-rate floor of the build's SASS;
      K22 (``leafround_probe``, LEAF_MODE 0, 1, 2 at w = 32, 64; 256 and
      2048 rounds), K23 (``multirow_probe``, fixed and assemble; 64 and 512
      steps) and K24 (``gather_probe``, lanes and shfl at S = 8 to 128; 1024
@@ -363,7 +371,7 @@ POOL = 1 << 15  # the regen engine's lane pool off the packet path
 RMSE_TOL, SSIM_MIN = bench.RMSE_TOL, bench.SSIM_MIN  # the crop gate's
 T_RTOL = 2.0 ** -22              # 2 ulp: -fmad=false makes t bit-equal
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W)
-FP32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+FP32_FLOPS, HBM_BYTES = common.FP32_RATE, common.HBM_RATE
 # FP32 operations counted from the kernels' sources (compares not
 # counted): a ray-sphere pair (spheres.cu: the oc differences, the two
 # 3-term dots, - r2 and disc) and the roots where disc > 0 (the sqrt
@@ -508,13 +516,9 @@ def pool_rays(*vs):
     return [V3(*map(cut, v)) if isinstance(v, V3) else cut(v) for v in vs]
 
 
-def bound(flops, nbytes):
-    """(ms, "operations" or "bytes"): the least time the card could take,
-    the larger of flops over its FP32 rate and bytes over its memory
-    rate."""
-    t_ops = flops / FP32_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+# (ms, "operations" or "bytes"): the least time the card could take, the
+# larger of flops over its FP32 rate and bytes over its memory rate
+bound = common.roofline
 
 
 def record(name, source, replaces, launches, err, ms, plain_ms, bnd):
@@ -2390,6 +2394,11 @@ def micro_phase(dev):
     Records at the lower step count. Returns the JSON records."""
     t_phase = time.perf_counter()
     inp = um.probe_inputs(dev)
+    k18_sass = um.copy_sass(common.sass_dump(_build.build("tpu_micro")))
+    if k18_sass[1:] != (1, 1):
+        raise AssertionError(f"K18's chain loop holds {k18_sass[1]} bulk "
+                             f"copies and {k18_sass[2]} mbarrier waits, "
+                             f"not one each")
     torch.cuda.synchronize()
     bench.reset_launches((um,))
     r = um.measure(inp, rounds=1)
@@ -2406,11 +2415,17 @@ def micro_phase(dev):
                      launches[f"tpu_micro.{key}"], 0.0, v["t"][0],
                      v["plain_ms"], bnd)
         rec["library_ms"] = v["library_ms"]
+        lib = ("" if v["library_ms"] is None else
+               f", one torch.gather {v['library_ms']:.4f} ms")
+        if key == "e5":
+            rec.update(ns_a_copy=v["ns"], sass=k18_sass,
+                       floor_ms=k18_sass[0] * lo / um.WARP_ISSUE_RATE * 1e3)
+            lib += (f"; chain loop {k18_sass} (instructions, bulk copies, "
+                    f"waits), issue-rate floor {rec['floor_ms']:.4f} ms, "
+                    f"{k18_sass[0] / um.WARP_ISSUE_RATE * 1e9:.1f} ns a copy")
         recs.append(rec)
         per = {"E5": "a copy", "E8": "a leaf", "E9": "a leaf"}.get(
             v["exp"], f"a step, {v['ns'] / lanes:.4f} a lane-step")
-        lib = ("" if v["library_ms"] is None else
-               f", one torch.gather {v['library_ms']:.4f} ms")
         phase("kernel", f"{k_id} {v['exp']} {key} at {lanes} lanes: "
               f"bit-equal to plain at {um.CHECK_STEPS} and {lo} steps; "
               f"{v['ns']:.1f} ns {per} (t({lo}) {v['t'][0]:.4f} ms, "
@@ -2427,28 +2442,19 @@ def micro_phase(dev):
     return recs
 
 
-# K21's FP32 operations a slot (compares and integer steps not counted):
-# ct's add, ray's 3 sums and 2 more, tri's 8 products and 8 sums (a used
-# slot), and mt/full's 37 a slot-triangle (MT_FLOPS) over the pairs
-REGROUP_SLOT_FLOPS = {"ct": 1, "g": 0, "ray": 5, "tri": 16}
-CLUSTER_BYTES = 12 * rp.W * 4  # the 12 used words of a triangle, a cluster
 # K23/K24: two slab tests and two acc adds a lane-step
 WALK_FLOPS = 2 * SLAB_FLOPS + 2
 
 
-def regroup_bound(upto, pairs, windows):
-    """K21's bound at ``windows`` windows: each window's inputs that its
-    outputs depend on (ct none; g the masks; ray the masks and rays; tri
-    its 8 words of each cluster; mt and full the masks, rays and the 12
-    used words of each cluster), read once a window, its 8 KB of outputs
-    written once, and its FP32 operations."""
-    masks, rays = 4 * rp.K * rp.R, 4 * 7 * rp.R
-    nbytes = 8 * rp.R + {"ct": 0, "g": masks, "ray": masks + rays,
-                         "tri": 4 * 8 * rp.K}.get(
-        upto, masks + rays + rp.K * CLUSTER_BYTES)
-    flops = (MT_FLOPS * rp.W * pairs if upto in ("mt", "full") else
-             REGROUP_SLOT_FLOPS[upto] * (pairs if upto == "tri" else rp.S))
-    return bound(flops * windows, nbytes * windows)
+def regroup_bound(upto, pairs, windows, blocks=1):
+    """K21's bound at ``windows`` windows on each of ``blocks`` blocks
+    (``regroup_probe.bound``): every window's FP32 operations; the
+    inputs its outputs depend on (ct none; g the masks; ray the masks and
+    rays; tri its 8 words of each cluster; mt and full the masks, rays and
+    the 12 used words of each cluster), distinct once a launch, since
+    every window and block computes the same window; each block's 8 KB of
+    outputs written once."""
+    return rp.bound(upto, pairs, windows, blocks)
 
 
 def packet8_phase(dev):
@@ -2461,6 +2467,9 @@ def packet8_phase(dev):
     the FP32 operations and the bytes of that run. Returns the JSON
     records."""
     t_phase = time.perf_counter()
+    k21_sass = rp.mode_sass(common.sass_dump(_build.build("regroup_probe")))
+    lanes = rp.source_lanes(
+        (_build.CSRC_DIR / "regroup_probe.cu").read_text())
     rg_in = rp.probe_inputs(dev)
     lr_rays, lr_blocks = lr.probe_inputs(device=dev)
     ntab, mr_rays = mr.probe_inputs(device=dev)
@@ -2480,21 +2489,40 @@ def packet8_phase(dev):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     recs = []
     lo, hi = rp.WINDOWS
+    pairs = k21["pairs"]
     for upto, v in k21["modes"].items():
-        bnd = regroup_bound(upto, k21["pairs"], lo)
-        recs.append(record(f"regroup_{upto}", "regroup_probe.cu",
-                           "experiments/regroup_probe.py:94",
-                           launches[f"regroup_probe.{upto}"], 0.0, v["t"][0],
-                           v["plain_ms"], bnd))
+        bnd = regroup_bound(upto, pairs, lo)
+        card_bnd = regroup_bound(upto, pairs, 1, rp.CARD_BLOCKS)
+        floor = rp.issue_floor(k21_sass[upto], pairs, lo, lanes,
+                               rp.SM_ISSUE_RATE)
+        card_floor = rp.issue_floor(k21_sass[upto], pairs, rp.CARD_BLOCKS,
+                                    lanes)
+        rec = record(f"regroup_{upto}", "regroup_probe.cu",
+                     "experiments/regroup_probe.py:94",
+                     launches[f"regroup_probe.{upto}"], 0.0, v["t"][0],
+                     v["plain_ms"], bnd)
+        rec.update(us_window=v["us_window"], ns_pair=v["ns_pair"],
+                   card_ms=v["card_ms"], card_ns_pair=v["card_ns_pair"],
+                   card_bound_ms=card_bnd[0], floor_ms=floor,
+                   card_floor_ms=card_floor, sass=k21_sass[upto])
+        recs.append(rec)
         phase("kernel", f"K21 {upto}: bit-equal to plain on 1, {lo} and "
-              f"{hi} windows and {rp.CARD_BLOCKS} blocks; {v['us_window']:.3f}"
-              f" us a window, {v['ns_pair']:.2f} ns a pair ({k21['pairs']} "
-              f"pairs; t({lo}) {v['t'][0]:.4f} ms, t({hi}) {v['t'][1]:.4f} "
-              f"ms, one block on 1 of {sms} SMs); card-wide "
-              f"{rp.CARD_BLOCKS} windows {v['card_ms']:.4f} ms = "
-              f"{v['card_ms'] / rp.CARD_BLOCKS * 1e3:.3f} us a window; plain "
-              f"t({lo}) {v['plain_ms']:.3f} ms; bound {bnd[0]:.5f} ms by "
-              f"{bnd[1]} card-wide")
+              f"{hi} windows and {rp.CARD_BLOCKS} blocks; device time a call "
+              f"in a CUDA graph: {v['us_window']:.3f} us a window, "
+              f"{v['ns_pair']:.3f} ns a pair on one SM ({pairs} pairs; "
+              f"t({lo}) {v['t'][0]:.4f} ms, t({hi}) {v['t'][1]:.4f} ms, one "
+              f"block on 1 of {sms} SMs; issue-rate floor of the build's "
+              f"SASS {floor:.4f} ms at {lo}); card-wide {rp.CARD_BLOCKS} "
+              f"windows {v['card_ms']:.4f} ms = "
+              f"{v['card_ms'] / rp.CARD_BLOCKS * 1e3:.4f} us a window, "
+              f"{v['card_ns_pair']:.4f} ns a pair (bound {card_bnd[0]:.5f} "
+              f"ms by {card_bnd[1]}, issue-rate floor {card_floor:.4f} ms); "
+              f"plain t({lo}) {v['plain_ms']:.3f} ms; bound at {lo} "
+              f"{bnd[0]:.5f} ms by {bnd[1]}")
+    phase("kernel", f"K21 SASS of this build (test, step, rank, rest), "
+          f"{lanes} lanes a slot, the clusters staged by the bulk copy "
+          f"(UBLKCP, SYNCS) and no shared-memory atomic: {k21_sass}; the "
+          f"ring {rp.ring_bytes()} B of dynamic shared memory a block")
     lo, hi = lr.ROUNDS_PAIR
     for (m, w), v in k22["modes"].items():
         fetched = 8 * 16 * w * 4 * lo if m == 2 else 0

@@ -55,7 +55,9 @@ import bvh4_cases
 import bvh_mx_cases
 import heap_cases
 import leafmt_cases
+import micro_cases
 import mr_cases
+import regroup_cases
 import rg_cases
 import sphere_cases
 import tri_cases
@@ -1399,6 +1401,37 @@ def test_tpu_micro_wrappers_refuse_what_the_kernels_do_not_take(micro):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", list(micro_cases.COPY_CASES))
+def test_tpu_micro_copy_edge_inputs_bit_equal(dev, name):
+    """K18 on tests/micro_cases.py's edge inputs (int(acc[0]) negative,
+    a multiple of 3 and saturated; C = 1; one step), bit-equal to its
+    plain version at the case's steps and below."""
+    blocks = torch.from_numpy(micro_cases.copy_blocks(name)).to(dev)
+    for steps in {0, 1, 2, micro_cases.COPY_CASES[name]}:
+        k, p = um.copy_chain(blocks, steps), um._copy_ref(blocks, steps)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), (name, steps)
+
+
+@pytest.mark.gpu
+def test_tpu_micro_copy_sass_and_fence_variant(dev):
+    """K18's chain loop holds one bulk copy and one mbarrier wait
+    (``tpu_micro.copy_sass``), and its build without the proxy fence
+    (the A/B's ``kProxyFence:0``) is bit-equal too, uncounted."""
+    chain = um.copy_sass(common.sass_dump(_build.build("tpu_micro")))
+    assert chain[1:] == (1, 1)
+    own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
+    lib, _ = um.source_lib("test_nofence",
+                           common.variant(own, "kProxyFence:0"))
+    blocks = um.probe_inputs(dev)["blocks"]
+    before = dict(um.LAUNCHES)
+    for steps in (1, 3, 2000):
+        assert torch.equal(um._copy(blocks, steps, lib),
+                           um._copy_ref(blocks, steps))
+    assert um.LAUNCHES == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("exp", ["E8", "E9"])
 def test_tpu_micro_leaf_chain_through_a_lane_that_misses(micro, exp):
     """Lane 0's o1 NaN: it never hits, and the chain runs on int(1e30),
@@ -1438,6 +1471,74 @@ def test_regroup_kernel_bit_equal_with_empty_visits(dev):
     for upto in rp.UPTOS:
         got, want = rp.regroup_window(inp, upto), rp._regroup_plain(inp, upto)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), upto
+
+
+def _regroup_equal(inp, run):
+    """Every mode through ``run`` (a launch of K21's C entry: inp, upto,
+    windows, blocks) bit-equal to the plain version on one window, 3 and
+    the probe's 4 and 1028 repeats in one block, 2 blocks and card-wide
+    (CARD_BLOCKS)."""
+    for upto in rp.UPTOS:
+        want = rp._regroup_plain(inp, upto)
+        for windows, blocks in ((1, 1), (3, 1), (1, 2), *rp.CELLS):
+            got = run(inp, upto, windows, blocks)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w.repeat(blocks, 1, 1))
+                       for g, w in zip(got, want)), (upto, windows, blocks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", regroup_cases.CASES)
+def test_regroup_cases_bit_equal(dev, name):
+    """tests/regroup_cases.py on the card: ties across visits and
+    triangles, a ray only in visit 63, an empty visit between two, a ray
+    in every visit, t equal to cl0; each crafted ray's winner the case's."""
+    inp = regroup_cases.inputs(name, dev)
+    before = rp.LAUNCHES["full"]
+    _regroup_equal(inp, rp.regroup_window)
+    assert rp.LAUNCHES["full"] == before + 6
+    t, i = rp.regroup_window(inp, "full")
+    for r, (tt, ii) in regroup_cases.EXPECT[name].items():
+        assert (t.reshape(-1)[r].item(), i.reshape(-1)[r].item()) == (
+            tt, ii), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["kSlotLanes:1,kRingStages:5",
+                                  "kSlotLanes:2", "kSlotLanes:8",
+                                  "kSlotLanes:16", "kSlotLanes:32",
+                                  "kRingStages:2", "kRingStages:8",
+                                  "kRingStages:3,kSlotLanes:16",
+                                  "kUnroll:1", "kProxyFence:0"])
+def test_regroup_variants_bit_equal(dev, spec):
+    """K21 at every other kSlotLanes the source allows (1 with the 5
+    stages its steps can span), with rings of 2, 3 and 8 stages, one test
+    a lane at a time and without the proxy fence, built through
+    ``common.variant``:
+    every mode bit-equal on the seeded window and every case, not counted
+    in LAUNCHES."""
+    own = (_build.CSRC_DIR / "regroup_probe.cu").read_text()
+    name = "test_" + spec.replace(":", "").replace(",", "_")
+    lib, _ = rp.source_lib(name, common.variant(own, spec))
+    before = dict(rp.LAUNCHES)
+    run = lambda *a: rp._launch(*a, lib=lib)
+    _regroup_equal(rp.probe_inputs(dev), run)
+    for case in regroup_cases.CASES:
+        _regroup_equal(regroup_cases.inputs(case, dev), run)
+    assert rp.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_regroup_sass_form(dev):
+    """The build's SASS (``regroup_probe.mode_sass``): no shared-memory
+    atomic in any mode; the staged modes hold the bulk copy and the
+    mbarrier wait, mt and full their tests in a loop of their own."""
+    sass = rp.mode_sass(common.sass_dump(_build.build("regroup_probe")))
+    assert set(sass) == set(rp.UPTOS)
+    for mode in ("mt", "full"):
+        test, step, rank, rest = sass[mode]
+        assert 40 <= test <= 120 and step > 0 and rank > 0
+    assert 0 < rp.ring_bytes() <= 232_448 - 25_344  # beside the tables
 
 
 @pytest.mark.gpu

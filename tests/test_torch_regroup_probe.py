@@ -6,12 +6,17 @@ full, against that file's own ``numpy_ref``, and against numpy
 restatements of the kernel's ``ct``, ``g``, ``ray`` and ``tri`` blocks
 (:134-180; the JAX runs of those four take ~30 s of interpret mode
 together, so they are restated here instead), on the TPU file's seeded
-inputs (``default_rng(7)``: 807 pairs, no empty visit) and on a crafted
-window with empty visits.
+inputs (``default_rng(7)``: 807 pairs, no empty visit), on a crafted
+window with empty visits and on the cases of ``tests/regroup_cases.py``;
+and the kernel's SASS counter (``mode_sass``, ``issue_floor``) on
+listings written out by hand (``sass_listing.py``).
 
 The TPU file guards its ``main()`` and is imported by its path. Its
 ``_kernel`` runs at mt and at full in one interpret-mode ``pallas_call``
-with ``run_window``'s specs: one trace and compile instead of two.
+with ``run_window``'s specs, jitted: one trace and compile (~20 s) for
+the seeded window and the crafted windows of ``tests/regroup_cases.py``
+(ties across visits and triangles, a ray only in visit 63, an empty visit
+between two, a ray in every visit, t equal to cl0), each ~0.1 s after it.
 
 Tolerances. The split-bf16 fetches are exact, so the slots' rays and
 clusters are the float32 inputs on both sides. XLA contracts the
@@ -36,7 +41,10 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from tpu_pathtracer_torch.experiments import common
 from tpu_pathtracer_torch.experiments import regroup_probe as rp
+import regroup_cases
+from sass_listing import listing
 from torch_threads import one_torch_thread  # noqa: F401
 
 EXP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -88,8 +96,10 @@ def test_inputs_and_split_are_the_tpu_files(seeded):
 
 
 @pytest.fixture(scope="module")
-def jax_out(jrg, seeded):
-    """{upto: (t_out, i_out)} of the TPU kernel at mt and full."""
+def jax_kernel(jrg):
+    """The TPU kernel at mt and full in one jitted interpret-mode
+    ``pallas_call``: (t mt, i mt, t full, i full) of a window's 11 TPU
+    operands."""
     def both(*refs):
         for k, upto in enumerate(("mt", "full")):
             jrg._kernel(*refs[:11], *refs[11 + 2 * k:13 + 2 * k], upto=upto,
@@ -98,31 +108,46 @@ def jax_out(jrg, seeded):
     spec8 = pl.BlockSpec(memory_space=pltpu.VMEM)
     shapes = (jax.ShapeDtypeStruct((8, 128), jnp.float32),
               jax.ShapeDtypeStruct((8, 128), jnp.int32))
-    out = pl.pallas_call(
+    return jax.jit(pl.pallas_call(
         both, in_specs=[spec8] * 9 + [pl.BlockSpec(
             memory_space=pltpu.SMEM)] * 2,
-        out_specs=(spec8,) * 4, out_shape=shapes * 2, interpret=True)(
-            *map(jnp.asarray, seeded[0][:11]))
-    out = [np.asarray(a) for a in out]
+        out_specs=(spec8,) * 4, out_shape=shapes * 2, interpret=True))
+
+
+def _run_jax(jax_kernel, args):
+    out = [np.asarray(a) for a in jax_kernel(*map(jnp.asarray, args))]
     return {"mt": out[:2], "full": out[2:]}
 
 
-@pytest.mark.parametrize("upto", ["mt", "full"])
-def test_matches_jax_kernel(seeded, jax_out, upto):
-    j, inp = seeded
-    tj, ij = jax_out[upto]
+@pytest.fixture(scope="module")
+def jax_out(jax_kernel, seeded):
+    """{upto: (t_out, i_out)} of the TPU kernel at mt and full."""
+    return _run_jax(jax_kernel, seeded[0][:11])
+
+
+def _against_jax(inp, out, upto, vpref, cids):
+    """The plain version of ``inp`` at ``upto`` against the TPU kernel's
+    ``out``: winners exact, the misses the same, t within T_RTOL_JAX."""
+    tj, ij = out[upto]
     tp, ip = _plain(inp, upto)
     np.testing.assert_array_equal(ip, ij)
     if upto == "mt":  # per slot: FLT_MAX where nothing was accepted
         miss = tj == np.float32(rp.FLT_MAX)
         np.testing.assert_array_equal(tp == np.float32(rp.FLT_MAX), miss)
-        used = np.arange(rp.S).reshape(8, 128) < int(j[9][-1])
+        used = np.arange(rp.S).reshape(8, 128) < int(vpref[-1])
         assert miss[~used].all()
-        assert (ip[~used] == int(j[10][-1]) * rp.W).all()
+        assert (ip[~used] == int(cids[-1]) * rp.W).all()
     else:
         miss = ij < 0
         assert 0 < miss.sum() < miss.size
     np.testing.assert_allclose(tp[~miss], tj[~miss], rtol=T_RTOL_JAX, atol=0)
+    return tp, ip
+
+
+@pytest.mark.parametrize("upto", ["mt", "full"])
+def test_matches_jax_kernel(seeded, jax_out, upto):
+    j, inp = seeded
+    _against_jax(inp, jax_out, upto, j[9], j[10])
 
 
 def _numpy_ref(jrg, inp):
@@ -264,3 +289,121 @@ def test_scalars_refused(seeded):
         rp._scalars(inp["vpref"].long(), inp["cids"])
     with pytest.raises(ValueError, match="upto"):
         rp.regroup_window(inp, "bogus")
+
+
+# ------------------------------------------ the crafted windows' cases
+def _jax_args(jrg, rays, masks, vpref, cids, tri):
+    """A case's 11 TPU operands: the rays' 7 tiles, the masks, the
+    clusters' 3-term bf16 split stacked as ``make_inputs`` stacks it, and
+    the scalars."""
+    hi, mid, lo = jrg.split3(jnp.asarray(tri))
+    return (*rays, masks, jnp.concatenate([hi, mid, lo], axis=0), vpref,
+            cids)
+
+
+@pytest.mark.parametrize("upto", ["mt", "full"])
+@pytest.mark.parametrize("name", regroup_cases.CASES)
+def test_cases_match_jax_kernel(jrg, jax_kernel, name, upto):
+    """Each crafted window through the TPU kernel in interpret mode: the
+    plain version's winners exact, t within T_RTOL_JAX, and each crafted
+    ray's (t, winner) the case's to the bit on both sides."""
+    arrays = regroup_cases.case(name)
+    rays, masks, vpref, cids, tri = arrays
+    out = _run_jax(jax_kernel, _jax_args(jrg, *arrays))
+    tp, ip = _against_jax(regroup_cases.inputs(name, "cpu"), out, upto,
+                          vpref, cids)
+    if upto == "full":
+        for r, (t, i) in regroup_cases.EXPECT[name].items():
+            for tt, ii in ((tp, ip), out["full"]):
+                assert (tt.reshape(-1)[r], ii.reshape(-1)[r]) == (
+                    np.float32(t), i), (name, r)
+
+
+@pytest.mark.parametrize("name", regroup_cases.CASES)
+def test_cases_match_the_files_numpy_ref(jrg, name):
+    """Each crafted window against the TPU file's ``numpy_ref`` (slot
+    order is visit order, the earlier visit winning a tie), and the cases'
+    own shapes: visit 20 empty between 19 and 21, every visit demanded."""
+    inp = regroup_cases.inputs(name, "cpu")
+    ip = _check_full(jrg, inp)
+    assert 0 < (ip >= 0).sum() < ip.size
+    vp = inp["vpref"].tolist()
+    if name == "empty_between":
+        assert vp[19] < vp[20] == vp[21] < vp[22]
+    if name == "every_visit":
+        assert (inp["masks"].reshape(rp.K, -1)[:, 777] > 0.5).all()
+    tg, _ = _plain(inp, "g")
+    for r in regroup_cases.EXPECT[name]:
+        demanded = int((inp["masks"].reshape(rp.K, -1)[:, r] > 0.5).sum())
+        assert tg.reshape(-1)[r] == demanded
+
+
+# ------------------------------------------------ the SASS counter
+FULL = "_ZN12_GLOBAL__N_114regroup_kernelILi5EEEvPKfS2_S2_NS_7ScalarsEiPfPi"
+
+
+def _window(steps, copy=True, atom=False):
+    """A hand-written window loop: the ranking loop (4 instructions, 2
+    ballots), then ``steps`` (the step loop's lines), a store, the
+    window's branch back and the EXIT."""
+    return (["MOV R1, c[0x0][0x28]", "win:", "S2R R0, SR_TID.X"]
+            + (["UBLKCP.S.G [UR4], [UR6], UR8"] if copy else [])
+            + (["ATOMS.MIN.64 RZ, [R2], R4"] if atom else [])
+            + ["rank:", "LDG.E R2, desc[UR4][R4.64]", "VOTE.ANY R5, PT, P0",
+               "VOTE.ANY R6, PT, P1", "@P2 BRA {rank}",
+               "BAR.SYNC.DEFER_BLOCKING 0x0"]
+            + steps + ["STS [R21], R22", "@P5 BRA {win}", "EXIT",
+                       "end:", "BRA {end}"])
+
+
+STEP = ["step:", "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R8+URZ], R9",
+        "LDS R10, [R11]", "test:", "MUFU.RCP R12, R13", "FMUL R14, R12, R15",
+        "MUFU.RCP R16, R17", "FADD R18, R14, R16", "@P3 BRA {test}",
+        "SHFL.BFLY PT, R19, R20, 0x1, 0x1f", "@P4 BRA {step}"]
+
+
+def test_mode_sass_counts_a_window():
+    """(test, step, rank, rest): the test loop over its MUFU.RCPs (5 / 2),
+    the step loop less it (9 - 5), the ranking loop over its ballots
+    (4 / 2), the window loop less both (18 - 4 - 9); a step whose tests
+    are unrolled into it counts them all as tests (8 / 2)."""
+    sass = rp.mode_sass(listing(FULL, _window(STEP)))
+    assert sass == {"full": (2.5, 4, 2.0, 5)}
+    flat = [ln for ln in STEP if ln not in ("test:", "@P3 BRA {test}")]
+    assert rp.mode_sass(listing(FULL, _window(flat))) == {
+        "full": (4.0, 0, 2.0, 5)}
+    floor = rp.issue_floor((2.5, 4, 2.0, 5), pairs=8, windows=2, lanes=4,
+                           rate=1e6)
+    # 2 windows of 32 warps x (64 x 2 + 5) and 1 step x (4 + 16 x 2.5)
+    assert floor == pytest.approx(2 * (32 * 133 + 44) / 1e6 * 1e3)
+
+
+def test_mode_sass_refuses_other_forms():
+    """A shared-memory atomic (the first form's merge) raises, and so
+    does a staged mode without the bulk copy; the package's source is in
+    the staged form at 4 lanes a slot, the first form in none."""
+    with pytest.raises(ValueError, match="atomics"):
+        rp.mode_sass(listing(FULL, _window(STEP, atom=True)))
+    with pytest.raises(ValueError, match="UBLKCP"):
+        rp.mode_sass(listing(FULL, _window(STEP, copy=False)))
+    assert rp.source_lanes(rp._build.CSRC_DIR.joinpath(
+        "regroup_probe.cu").read_text()) == 4
+    assert rp.source_lanes("constexpr int kS = 1024;") is None
+
+
+def test_bound_counts_distinct_bytes_once():
+    """The bound: every window's FP32 operations, the distinct inputs
+    once a launch whatever the windows and blocks, 8 KB of outputs a
+    block. Card-wide mt and full are bound by operations, one block's
+    few windows by bytes."""
+    flops, nbytes = rp.work("full", 807)
+    assert flops == 37 * 64 * 807
+    assert nbytes == 4 * 64 * 1024 + 4 * 7 * 1024 + 64 * 12 * 64 * 4
+    for windows, blocks in ((1, 1), (4, 1), (1028, 1), (1, rp.CARD_BLOCKS)):
+        want = common.roofline(flops * windows * blocks,
+                               nbytes + rp.OUT_BYTES * blocks)
+        assert rp.bound("full", 807, windows, blocks) == want
+    assert rp.bound("full", 807, 1, rp.CARD_BLOCKS)[1] == "operations"
+    assert rp.bound("mt", 807, 4)[1] == "bytes"
+    assert rp.work("ct", 807)[1] == 0
+    assert rp.bound("ct", 807, 1028)[0] < rp.bound("ct", 807, 1, 1028)[0]

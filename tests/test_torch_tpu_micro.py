@@ -2,7 +2,10 @@
 (``tpu_pathtracer_torch/experiments/tpu_micro.py``): the plain versions of
 K17a-K17c, K18, K19 and K20 against the TPU kernels of
 ``experiments/tpu_micro.py`` run in interpret mode, and E1 and E6 against
-its XLA ``run`` functions, on the TPU file's seeded inputs at a few steps.
+its XLA ``run`` functions, on the TPU file's seeded inputs at a few steps;
+K18 also on the edge inputs of ``tests/micro_cases.py`` (E5's kernel
+rebuilt at their block count), and its SASS counter (``copy_sass``) on a
+listing written out by hand.
 
 The TPU file is loaded by its path (its ``main`` is guarded). Each of its
 experiments is called once with ``pl.pallas_call`` recording the callable
@@ -28,6 +31,7 @@ versions.
 import functools
 import importlib.util
 import os
+import types
 from unittest import mock
 
 import jax
@@ -38,6 +42,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from tpu_pathtracer_torch.experiments import tpu_micro as um
+import micro_cases
+from sass_listing import listing
 from torch_threads import one_torch_thread  # noqa: F401
 
 EXP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -50,7 +56,8 @@ STEPS = 3
 @pytest.fixture(scope="module")
 def jmicro():
     """{experiment: the Pallas callable it builds (interpret mode), or the
-    ``run`` functions it would time (E1: one a table, E6)}."""
+    ``run`` functions it would time (E1: one a table, E6)}; "E5 call": the
+    arguments E5 gives ``pallas_call`` (its kernel first)."""
     spec = importlib.util.spec_from_file_location(
         "tpu_micro", os.path.join(EXP, "tpu_micro.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -60,9 +67,10 @@ def jmicro():
 
     def record(*a, **k):
         built.append(real(*a, interpret=True, **k))
+        calls.append((a, k))
         return built[-1]
 
-    out = {}
+    out, calls = {}, []
     with mock.patch.object(pl, "pallas_call", record), \
             mock.patch.object(mod, "timed_slope",
                               lambda fn, lo, hi, reps=3: timed.append(fn)
@@ -70,8 +78,11 @@ def jmicro():
         for name in ("e1", "e3", "e4", "e5", "e6", "e7", "e8", "e9"):
             built.clear()
             timed.clear()
+            calls.clear()
             getattr(mod, name)()
             out[name.upper()] = built[0] if built else list(timed)
+            if name == "e5":
+                out["E5 call"] = calls[0]
     return out
 
 
@@ -124,6 +135,41 @@ def test_e5_matches_jax_kernel(jmicro, inp, steps):
     got = um.copy_chain(inp["blocks"], steps)
     assert got.shape == (1, 128)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _e5_with_blocks(jmicro, C):
+    """E5's TPU kernel, in interpret mode, with its block count C (a
+    constant of the TPU file's ``e5``) set to ``C``: the same code, the
+    closure's C cell replaced."""
+    (fn, *rest), kw = jmicro["E5 call"]
+    code = fn.__code__
+    cells = tuple(types.CellType(C) if name == "C" else cell
+                  for name, cell in zip(code.co_freevars, fn.__closure__))
+    assert "C" in code.co_freevars
+    kernel = types.FunctionType(code, fn.__globals__, fn.__name__,
+                                fn.__defaults__, cells)
+    return pl.pallas_call(kernel, *rest, interpret=True, **kw)
+
+
+@pytest.mark.parametrize("name", list(micro_cases.COPY_CASES))
+def test_e5_edge_inputs_match_jax_kernel(jmicro, name):
+    """K18's plain version on tests/micro_cases.py's edge inputs against
+    E5's TPU kernel (at the case's C): int(acc[0]) negative, a multiple of
+    3 and saturated (every branch of the floor mod); C = 1; one step."""
+    blocks = micro_cases.copy_blocks(name)
+    steps = micro_cases.COPY_CASES[name]
+    C = blocks.shape[0]
+    kern = jmicro["E5"] if C == um.COPY_BLOCKS else _e5_with_blocks(jmicro,
+                                                                   C)
+    want = np.asarray(kern(_steps(steps), jnp.asarray(blocks)))
+    got = um.copy_chain(torch.from_numpy(blocks), steps)
+    assert got.shape == (1, 128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if name == "negative":
+        ints = micro_cases.chain_ints(blocks, steps)
+        assert -2 ** 31 in ints
+        assert any(i < 0 and i % 3 == 0 for i in ints)
+        assert any(i < 0 and -i % 3 for i in ints)
 
 
 def _exact(blocks, ox, chain):
@@ -304,3 +350,19 @@ def test_wrappers_refuse_bad_arguments(inp):
     assert torch.equal(um.copy_chain(inp["blocks"], 0),
                        torch.zeros((1, 128)))
     assert (um.leaf_chain(inp["blocks"], inp["x"], 0) == um.FAR).all()
+
+
+def test_copy_sass_counts_the_chain_loop():
+    """K18's chain loop in a hand-written listing: its instructions once,
+    its bulk copy and its mbarrier wait; raises without the bulk copy
+    (the first form's threads' loads)."""
+    name = "_ZN12_GLOBAL__N_111copy_kernelEPK6float4iiPf"
+    chain = ["MOV R1, c[0x0][0x28]", "loop:", "UBLKCP.S.G [UR4], [UR6], UR8",
+             "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R8+URZ], R9",
+             "LDS.128 R4, [R10]", "FADD R12, R12, R4",
+             "SHFL.IDX PT, R13, R14, RZ, 0x1f", "@P1 BRA {loop}", "EXIT",
+             "end:", "BRA {end}"]
+    assert um.copy_sass(listing(name, chain)) == (6, 1, 1)
+    with pytest.raises(ValueError, match="bulk copy"):
+        um.copy_sass(listing(name, [ln for ln in chain
+                                    if not ln.startswith("UBLKCP")]))

@@ -49,6 +49,8 @@
 
 #include <cuda_runtime.h>
 
+#include "bulk_copy.cuh"
+
 namespace {
 
 constexpr int kThreads = 32;     // one warp: lane 0 issues and reads
@@ -63,47 +65,18 @@ __device__ __forceinline__ int cluster(int i, int C) {
   return static_cast<int>((static_cast<long long>(i) * kStride) % C);
 }
 
-__device__ __forceinline__ unsigned smem(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem(bar))
-               : "memory");
-}
-
 // Cluster c into `dst` by one bulk copy, completing on `bar`.
 __device__ __forceinline__ void fetch(float4* dst, const float4* blocks,
                                       int c, uint64_t* bar) {
-  if (kProxyFence) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem(bar)), "r"(kBytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem(dst)),
-      "l"(blocks + static_cast<size_t>(c) * kCluster4), "r"(kBytes),
-      "r"(smem(bar))
-      : "memory");
-}
-
-// Waits until the phase of `bar` with parity `parity` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
+  if (kProxyFence) pt::proxy_fence();
+  pt::arrive_expect_tx(bar, kBytes);
+  pt::bulk_copy(dst, blocks + static_cast<size_t>(c) * kCluster4, kBytes,
+                bar);
 }
 
 __device__ __forceinline__ void init(uint64_t* bar, int n) {
-  for (int b = 0; b < n; ++b) bar_init(bar + b);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  for (int b = 0; b < n; ++b) pt::bar_init(bar + b, 1);
+  pt::bar_init_fence();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -116,7 +89,7 @@ sync_kernel(const float4* __restrict__ blocks, int C, int k,
   float acc = 0.f;
   for (int i = 0; i < k; ++i) {
     fetch(buf, blocks, cluster(i, C), &bar);
-    bar_wait(&bar, i & 1);
+    pt::bar_wait(&bar, i & 1);
     acc += buf[0].x;
   }
   *out = acc;
@@ -134,10 +107,10 @@ db_kernel(const float4* __restrict__ blocks, int C, int k,
   for (int i = 0; i < k; ++i) {
     const int j = (i + 1) & 1;
     fetch(ring[j], blocks, cluster(i + 1, C), &bar[j]);
-    bar_wait(&bar[i & 1], (i >> 1) & 1);
+    pt::bar_wait(&bar[i & 1], (i >> 1) & 1);
     acc += ring[i & 1][0].x;
   }
-  if (k > 0) bar_wait(&bar[k & 1], (k >> 1) & 1);  // drain copy k
+  if (k > 0) pt::bar_wait(&bar[k & 1], (k >> 1) & 1);  // drain copy k
   *out = acc;
 }
 

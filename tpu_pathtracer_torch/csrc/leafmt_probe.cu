@@ -89,6 +89,7 @@
 
 #include <cuda_runtime.h>
 
+#include "bulk_copy.cuh"
 #include "bvh_common.cuh"
 
 namespace {
@@ -188,48 +189,20 @@ __device__ __forceinline__ void visit(const float4* rows, int v, unsigned run,
   }
 }
 
-__device__ __forceinline__ unsigned smem(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem(bar))
-               : "memory");
-}
-
 // Lane 0: cluster `src` (3072 B) into `dst` by the bulk-copy engine,
 // completing on `bar`.
 __device__ __forceinline__ void bulk_fetch(float4* dst, const float4* src,
                                            uint64_t* bar) {
   constexpr unsigned kBytes = kCluster4 * 16;
   static_assert(kBytes % 16 == 0, "a bulk copy moves 16 B multiples");
-  if (kProxyFence) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem(bar)), "r"(kBytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem(dst)),
-      "l"(src), "r"(kBytes), "r"(smem(bar))
-      : "memory");
-}
-
-// Waits until the phase of `bar` with parity `parity` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
+  if (kProxyFence) pt::proxy_fence();
+  pt::arrive_expect_tx(bar, kBytes);
+  pt::bulk_copy(dst, src, kBytes, bar);
 }
 
 __device__ __forceinline__ void copy16_async(float4* dst, const float4* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem(dst)),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   pt::smem(dst)),
                "l"(src)
                : "memory");
 }
@@ -269,9 +242,9 @@ leafmt_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     float4* ring = sm + (threadIdx.x >> 5) * 2 * kCluster4;
     uint64_t* bar = bars + (threadIdx.x >> 5) * 2;
     if (kBulk && lane == 0) {
-      bar_init(bar);
-      bar_init(bar + 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      pt::bar_init(bar, 1);
+      pt::bar_init(bar + 1, 1);
+      pt::bar_init_fence();
     }
     __syncthreads();
     // visit v's cluster into slot v & 1
@@ -294,7 +267,7 @@ leafmt_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
         fill(v + 1);
       }
       if (kBulk) {
-        bar_wait(bar + (v & 1), (v >> 1) & 1u);
+        pt::bar_wait(bar + (v & 1), (v >> 1) & 1u);
       } else {
         if (next) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
         else asm volatile("cp.async.wait_group 0;\n" ::: "memory");

@@ -20,11 +20,20 @@
 //     __float2bfloat16_rn. L2 only: the (8, 16384) table in bf16 (256 KB)
 //     exceeds a block's 227 KB of shared memory;
 //   * E5 `kernel` :187 (pallas_call :206): a chain of blocking 8 KB copies
-//     of a (16, 128) block into shared memory by 128 threads, of which row
-//     0 is added to acc; the next block follows from acc[0] (thread 0,
-//     through shared memory and a barrier). The copy is a store to shared
-//     memory that other threads could read, so the compiler keeps it, as
-//     csrc/dma_probe.cu's kSync does;
+//     of a (16, 128) block into shared memory, of which row 0 is added to
+//     acc; the next block's index follows from the data just copied,
+//     c = (c * 5 + int(acc[0]) % 3 + 1) % C, so no copy can be issued
+//     before the last one has landed and been read: a leaf learned with
+//     no lead. The TPU's make_async_copy on a DMA semaphore is Hopper's
+//     bulk copy on an mbarrier (csrc/dma_probe.cu's K15a): a block is one
+//     warp; for each step lane 0 arrives with expect_tx 8,192 B and issues
+//     one cp.async.bulk of block c, the warp waits with try_wait.parity
+//     and adds row 0 (4 floats a lane), lane 0 takes the next c from its
+//     own acc[0] and a __shfl_sync gives it to the warp; a __syncwarp
+//     orders every lane's reads of the buffer before lane 0's
+//     fence.proxy.async (kProxyFence; the A/B prices it at 0) and the next
+//     copy. The first form gave each copy to 128 threads' 16 B loads and
+//     stores, with two __syncthreads a copy;
 //   * E8 `kernel` :299 (pallas_call :341): leaf phase A, the cluster
 //     staged in shared memory and its 128 triangles' 9 words read as
 //     broadcasts by the 1024 lanes, best updated triangle by triangle;
@@ -44,11 +53,16 @@
 // What bounds them: by design, latency. Each step waits on the one before
 // it (a gather, a copy, a vote); the bounds the records carry (each input
 // read once, or the bytes copied; E8/E9's FP32 operations) are far below.
+// E5's one warp issues a step's chain loop (its SASS counted by
+// experiments/tpu_micro.py copy_sass) far faster than the copy's round
+// trip, which is the number to read.
 
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -59,7 +73,8 @@ constexpr int kRowW = 8;                // E4's table rows
 constexpr int kCols = 8;                // E7's table columns
 constexpr int kBlockRows = 16, kBlockW = 128;  // a (16, 128) f32 block
 constexpr int kBlockFloats = kBlockRows * kBlockW;
-constexpr int kCopyThreads = 128;       // E5: acc is (1, 128)
+constexpr int kCopyThreads = 32;        // E5: one warp, 4 of acc's 128 a lane
+constexpr int kProxyFence = 1;          // E5: fence.proxy.async before a copy
 constexpr int kChunk = 32;              // E9's chunk of triangles
 constexpr float kFar = 1e30f;
 constexpr float kTMin = 1e-3f;
@@ -168,24 +183,36 @@ __global__ void __launch_bounds__(kCopyThreads)
 copy_kernel(const float4* __restrict__ blocks, int C, int steps,
             float* __restrict__ out) {
   constexpr int kBlock4 = kBlockFloats / 4;  // 512 float4: 8 KB
-  __shared__ float4 buf[kBlock4];
-  __shared__ int next;
-  const int t = threadIdx.x;
-  const float* row0 = reinterpret_cast<const float*>(buf);
-  float acc = 0.f;
+  constexpr unsigned kBytes = kBlock4 * 16;
+  __shared__ __align__(128) float4 buf[kBlock4];
+  __shared__ __align__(8) uint64_t bar;
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    pt::bar_init(&bar, 1);
+    pt::bar_init_fence();
+  }
+  __syncwarp();
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   int c = 0;
   for (int s = 0; s < steps; ++s) {
-    const float4* src = blocks + static_cast<size_t>(c) * kBlock4;
-#pragma unroll
-    for (int k = 0; k < kBlock4 / kCopyThreads; ++k)
-      buf[t + k * kCopyThreads] = src[t + k * kCopyThreads];
-    __syncthreads();  // the whole block is in
-    acc += row0[t];
-    if (t == 0) next = floor_mod(c * 5 + floor_mod(__float2int_rz(acc), 3) + 1, C);
-    __syncthreads();  // buf is read and next written before the next copy
-    c = next;
+    if (lane == 0) {
+      if (kProxyFence) pt::proxy_fence();
+      pt::arrive_expect_tx(&bar, kBytes);
+      pt::bulk_copy(buf, blocks + static_cast<size_t>(c) * kBlock4, kBytes,
+                    &bar);
+    }
+    pt::bar_wait(&bar, s & 1);
+    const float4 r = buf[lane];  // row 0: acc[4 * lane .. 4 * lane + 3]
+    acc.x += r.x;
+    acc.y += r.y;
+    acc.z += r.z;
+    acc.w += r.w;
+    const int next =
+        floor_mod(c * 5 + floor_mod(__float2int_rz(acc.x), 3) + 1, C);
+    c = __shfl_sync(kFull, next, 0);
+    __syncwarp();  // every lane has read buf before the next copy
   }
-  out[t] = acc;
+  reinterpret_cast<float4*>(out)[lane] = acc;
 }
 
 struct Tri {
@@ -333,10 +360,12 @@ extern "C" int tpu_micro_onehot(const float* table, const int* idx, int T,
   return static_cast<int>(cudaGetLastError());
 }
 
-// E5: blocks [C, 16, 128], 16-byte aligned; out [128].
+// E5: blocks [C, 16, 128], 16-byte aligned; out [128], 16-byte aligned.
 extern "C" int tpu_micro_copy(const float* blocks, int C, int steps,
                               float* out, void* stream) {
-  if (C < 1 || steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || steps < 0 || reinterpret_cast<uintptr_t>(blocks) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   copy_kernel<<<1, kCopyThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(blocks), C, steps, out);
   return static_cast<int>(cudaGetLastError());

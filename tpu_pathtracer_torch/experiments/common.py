@@ -32,6 +32,8 @@ WARP = 32
 # warp instructions a second an H100 SXM issues at most: 132 SMs x 4
 # schedulers at its 1,980 MHz maximum clock, one a scheduler a cycle
 ISSUE_RATE = 528 * 1.98e9
+# its published FP32 rate outside the tensor cores and its memory rate
+FP32_RATE, HBM_RATE = 67e12, 3.35e12
 
 
 def card(probe: str) -> torch.device:
@@ -44,6 +46,15 @@ def card(probe: str) -> torch.device:
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
     return torch.device("cuda", 0)
+
+
+def roofline(flops: float, nbytes: float):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of ``flops`` over its FP32 rate and ``nbytes`` over its
+    memory rate."""
+    t_ops = flops / FP32_RATE * 1e3
+    t_bytes = nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def event_ms(fn: Callable) -> float:
@@ -200,6 +211,20 @@ def variant(text: str, spec: str) -> str:
     return text
 
 
+def split_ab(argv: List[str]):
+    """(the arguments of a probe's own, the A/B's: ``NAME=...`` and
+    ``--out DIR``), in order."""
+    argv = list(argv)
+    ab = []
+    if "--out" in argv:
+        k = argv.index("--out")
+        ab, argv[k:k + 2] = argv[k:k + 2], []
+        if len(ab) < 2:
+            sys.exit("--out needs a directory")
+    return ([a for a in argv if "=" not in a],
+            [a for a in argv if "=" in a] + ab)
+
+
 def ab_sources(argv: List[str], new: str):
     """An A/B's command line: ``NAME=PATH`` (a source file) and
     ``NAME=K:V,...`` (``new`` with its constants set, :func:`variant`),
@@ -256,8 +281,19 @@ def build(name: str, text: str, out: Path | None):
         out.mkdir(parents=True, exist_ok=True)
         (out / f"{name}.ptxas.txt").write_text(log)
         (out / f"{name}.sass").write_text(sass_dump(lib))
-    return lib, [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+    return lib, ptxas_lines(log)
+
+
+def ptxas_lines(log: str) -> List[str]:
+    """The register, shared-memory and spill lines of an nvcc log."""
+    return [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def package_ptxas(name: str) -> List[str]:
+    """:func:`ptxas_lines` of the package's build of ``csrc/<name>.cu``
+    (``ops/_build.py`` keeps its log beside the library)."""
+    return ptxas_lines(_build.build(name).with_suffix(".log").read_text())
 
 
 def graph_rounds(names: List, cells: List, call: Callable,
@@ -372,3 +408,26 @@ def fast_count(code: List[tuple], span: tuple) -> int:
     paths."""
     lo, hi = span
     return hi + 1 - lo - len(slow_paths(code, lo, hi))
+
+
+# the SASS of a bulk copy and of an mbarrier's try_wait
+BULK_COPY, BARRIER_WAIT = "UBLKCP", "SYNCS.PHASECHK"
+
+
+def bulk_chain(code: List[tuple], what: str) -> tuple:
+    """(instructions, bulk copies, waits) of the chain loop of a function
+    (``code`` as :func:`sass_functions` gives it) that copies by the
+    bulk-copy engine a step: the widest loop that holds a ``UBLKCP``, its
+    instructions counted once (an mbarrier spin loop's once), and its
+    ``UBLKCP`` and ``SYNCS.PHASECHK``. Raises, naming ``what``, if no loop
+    holds a bulk copy and an mbarrier wait."""
+    count = lambda s, op: sum(opcode(i).startswith(op)
+                              for _, i in code[s[0]:s[1] + 1])
+    loops = sorted(body_loops(code), key=lambda s: s[0] - s[1])
+    chain = next((s for s in loops if count(s, BULK_COPY)), None)
+    if chain is None or not count(chain, BARRIER_WAIT):
+        raise ValueError(f"{what}: no chain loop with a bulk copy "
+                         f"({BULK_COPY}) and an mbarrier wait "
+                         f"({BARRIER_WAIT})")
+    return (fast_count(code, chain), count(chain, BULK_COPY),
+            count(chain, BARRIER_WAIT))

@@ -40,10 +40,9 @@ import numpy as np
 import torch
 
 from tpu_pathtracer_torch.experiments.common import (ab_sources,
-                                                     body_loops, build,
-                                                     card, fast_count,
+                                                     bulk_chain, build, card,
                                                      graph_rounds, median_ms,
-                                                     opcode, sass_dump,
+                                                     sass_dump,
                                                      sass_functions)
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops.cuda_spheres import _check
@@ -61,8 +60,6 @@ CALLS = 2  # calls a CUDA graph: each is milliseconds long
 # one warp issues the chain: one instruction a cycle at the H100 SXM's
 # 1,980 MHz maximum clock
 WARP_ISSUE_RATE = 1.98e9
-# the SASS of a bulk copy and of an mbarrier's try_wait
-BULK_COPY, BARRIER_WAIT = "UBLKCP", "SYNCS.PHASECHK"
 
 
 def probe_blocks(C: int = CLUSTERS, device="cuda") -> torch.Tensor:
@@ -171,25 +168,13 @@ def measure(blocks: torch.Tensor, rounds: int = ROUNDS,
 def copy_sass(text: str) -> Dict[str, Tuple[int, int, int]]:
     """{mode: (instructions, bulk copies, waits)} of the chain loop of
     each kernel in a ``cuobjdump -sass`` dump (``sync_kernel``,
-    ``db_kernel``): the loop that holds the mbarrier's spin loop, its
-    instructions counted once (the spin loop's once), and its ``UBLKCP``
-    and ``SYNCS.PHASECHK``. Raises if a kernel's chain loop lacks the bulk
-    copy or the wait."""
+    ``db_kernel``; ``common.bulk_chain``). Raises if a kernel's chain loop
+    lacks the bulk copy or the wait."""
     out = {}
     for name, code in sass_functions(text).items():
         m = re.search(r"(sync|db)_kernel", name)
-        if not m:
-            continue
-        count = lambda s, op: sum(opcode(i).startswith(op)
-                                  for _, i in code[s[0]:s[1] + 1])
-        loops = sorted(body_loops(code), key=lambda s: s[0] - s[1])
-        chain = next((s for s in loops if count(s, BULK_COPY)), None)
-        if chain is None or not count(chain, BARRIER_WAIT):
-            raise ValueError(f"{m.group(1)}: no chain loop with a bulk copy "
-                             f"({BULK_COPY}) and an mbarrier wait "
-                             f"({BARRIER_WAIT})")
-        out[m.group(1)] = (fast_count(code, chain), count(chain, BULK_COPY),
-                           count(chain, BARRIER_WAIT))
+        if m:
+            out[m.group(1)] = bulk_chain(code, m.group(1))
     return out
 
 
