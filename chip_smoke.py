@@ -185,11 +185,19 @@ line each; any failure raises and exits non-zero:
      (the 8 KB copy chain, the next block from the copied data: one warp,
      one bulk copy on an mbarrier a step; its chain loop's SASS checked
      for the bulk copy and the wait, ``tpu_micro.copy_sass``), K19 and K20
-     (a 128-triangle leaf from shared memory as broadcasts, and by
-     per-lane loads), each bit-equal to its plain version at 3 steps and
-     at the lower count of its pair, then timed in turns at the TPU file's
-     pairs: ns a step, a lane-step, a copy (beside K18's issue-rate floor)
-     and a leaf; one torch.gather at the same lanes beside K17a and K17c;
+     (a chain of 128-triangle leaves over the card, 128 blocks each with
+     a warp that tests ray 0 and walks the chain: K19's clusters staged
+     by the bulk-copy engine and read as broadcasts, K20's by per-lane
+     loads; first held bit-equal on every case of tests/leaf_cases.py,
+     their SASS checked by ``tpu_micro.leaf_sass``, UBLKCP and
+     SYNCS.PHASECHK in K19 and in K20 neither, and each launch more than
+     one block), each bit-equal to its plain version at 3 steps and at the
+     lower count of its pair, then timed in turns at the TPU file's pairs:
+     ns a step, a lane-step, a copy (beside K18's issue-rate floor) and a
+     leaf (beside the issue-rate floor of the build's leaf loops and the
+     chain's latency floor: its step's issue and K18's copy or K17a's L2
+     round trip, both this run's); one torch.gather at the same lanes
+     beside K17a and K17c;
  17. the regrouped leaf phase and the 8-row packet probes on the TPU
      files' seeded inputs, counts from 0: K21 (``regroup_probe``, modes
      ct, g, ray, tri, mt, full; the clusters staged by the bulk-copy
@@ -2366,24 +2374,77 @@ MICRO = {"e3_l2": ("K17a", 123, 1), "e3_smem": ("K17a", 123, 1),
          "e9": ("K20", 367, 46 * um.BLOCK[1])}
 
 
-def micro_bound(key, lanes, steps):
+def micro_bound(key, lanes, steps, clusters=0):
     """The bound of one micro kernel at ``lanes`` and ``steps``: its FP32
     operations, and its bytes: each input and output once (K17a-K17c, the
-    whole table), or the bytes its steps copy or read (K18: the 8 KB
-    blocks; K19/K20: the 9 rows of 128 words a leaf, and ox and best)."""
+    whole table), or the bytes its steps copy (K18: the 8 KB blocks);
+    K19/K20: the 9 used rows of each of the chain's ``clusters`` distinct
+    clusters once, and ox in and best out (``tpu_micro.leaf_bytes``)."""
     flops = MICRO[key][2] * lanes * steps
     table = 4 * um.ROWS * um.T
     nbytes = {"e3_l2": table + 8 * lanes, "e3_smem": table + 8 * lanes,
               "e4": table + 8 * lanes, "e7": table + 4 * lanes * 9,
               "e5": steps * 4 * um.BLOCK[0] * um.BLOCK[1] + 4 * lanes,
-              "e8": steps * 4 * um.TRI_WORDS * um.BLOCK[1] + 8 * lanes,
-              "e9": steps * 4 * um.TRI_WORDS * um.BLOCK[1] + 8 * lanes}[key]
+              "e8": um.leaf_bytes(clusters),
+              "e9": um.leaf_bytes(clusters)}[key]
     return bound(flops, nbytes)
+
+
+def leaf_cases_module():
+    """tests/leaf_cases.py of this checkout (K19/K20's edge inputs; it
+    imports no JAX), loaded by its path."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "leaf_cases.py")
+    spec = importlib.util.spec_from_file_location("leaf_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def leaf_checks(dev):
+    """K19/K20 before phase 16's run: the build's SASS (``leaf_sass``:
+    raises on another form; K19 holds the bulk copy and the mbarrier wait,
+    K20 neither), each launch spread over more than one block, and both
+    kernels bit-equal to the plain version at 0, 1 and each case's leaves
+    on every case of tests/leaf_cases.py. Returns (SASS, launch shapes,
+    ptxas lines)."""
+    lib = _build.build("tpu_micro")
+    dump = common.sass_dump(lib)
+    sass = um.leaf_sass(dump)
+    ops = {("E8" if "leaf_smem" in n else "E9"):
+           {common.opcode(i) for _, i in c}
+           for n, c in common.sass_functions(dump).items() if "leaf_" in n}
+    for op in (common.BULK_COPY, common.BARRIER_WAIT):
+        if not any(o.startswith(op) for o in ops["E8"]):
+            raise AssertionError(f"K19's SASS holds no {op}")
+        if any(o.startswith(op) for o in ops["E9"]):
+            raise AssertionError(f"K20's SASS holds {op}")
+    shapes = {exp: um.leaf_shape(exp) for exp in um.LEAF_MODES}
+    for exp, (blocks, threads, _) in shapes.items():
+        if blocks <= 1:
+            raise AssertionError(f"{exp} launches {blocks} block")
+    cases = leaf_cases_module()
+    for name in cases.LEAF_CASES:
+        blocks, x, steps = cases.leaf_case(name)
+        blocks = torch.from_numpy(blocks).to(dev)
+        x = torch.from_numpy(x).to(dev)
+        for k in sorted({0, 1, steps}):
+            for exp, mode in um.LEAF_MODES.items():
+                got = um.leaf_chain(blocks, x, k, exp)
+                want = um._leaf_ref(blocks, x, k, mode)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{exp} on the edge case {name} at "
+                                         f"{k} leaves: kernel != plain on "
+                                         f"{int((got != want).sum())} lanes")
+    return sass, shapes, um.leaf_ptxas(lib.with_suffix(".log").read_text())
 
 
 def micro_phase(dev):
     """Phase 16: the TPU micro-benchmarks on the TPU file's seeded inputs,
-    the launch counts set to 0 just before and read just after.
+    the launch counts set to 0 just before and read just after (K19/K20's
+    checks, ``leaf_checks``, come before).
     ``tpu_micro.measure``: K17a (E3, modes l2 and smem) and K17c (E7) at
     the TPU's lanes and at 131,072, K17b (E4), K18 (E5), K19 (E8) and K20
     (E9), each held bit-equal to its plain version at 3 steps and at the
@@ -2399,6 +2460,10 @@ def micro_phase(dev):
         raise AssertionError(f"K18's chain loop holds {k18_sass[1]} bulk "
                              f"copies and {k18_sass[2]} mbarrier waits, "
                              f"not one each")
+    leaf_sass, leaf_shapes, leaf_ptx = leaf_checks(dev)
+    lo8 = um.STEPS["E8"][0]
+    clusters = len(set(um.chain_clusters(inp["blocks"][:um.LEAF_CLUSTERS],
+                                         inp["x"], lo8)))
     torch.cuda.synchronize()
     bench.reset_launches((um,))
     r = um.measure(inp, rounds=1)
@@ -2409,7 +2474,7 @@ def micro_phase(dev):
     for (key, lanes), v in r["kernels"].items():
         k_id, line, _ = MICRO[key]
         lo, hi = um.STEPS[v["exp"]]
-        bnd = micro_bound(key, lanes, lo)
+        bnd = micro_bound(key, lanes, lo, clusters)
         rec = record(f"tpu_micro_{key}_{lanes}", "tpu_micro.cu",
                      f"experiments/tpu_micro.py:{line}",
                      launches[f"tpu_micro.{key}"], 0.0, v["t"][0],
@@ -2423,6 +2488,32 @@ def micro_phase(dev):
             lib += (f"; chain loop {k18_sass} (instructions, bulk copies, "
                     f"waits), issue-rate floor {rec['floor_ms']:.4f} ms, "
                     f"{k18_sass[0] / um.WARP_ISSUE_RATE * 1e9:.1f} ns a copy")
+        if key in ("e8", "e9"):
+            exp = v["exp"]
+            sass, shape = leaf_sass[exp], leaf_shapes[exp]
+            floor = um.leaf_floor(sass, shape)
+            chain = sass[3] / um.WARP_ISSUE_RATE * 1e9
+            # the chain's latency floor: its step's issue, then K19's copy
+            # round trip (K18's, this run) or K20's L2 round trip (K17a
+            # l2's step at 1,024 lanes, this run)
+            trip_key = ("e5", um.BLOCK[1]) if exp == "E8" else ("e3_l2",
+                                                                um.TILE)
+            trip = r["kernels"][trip_key]["ns"] if trip_key in r[
+                "kernels"] else float("nan")
+            rec.update(ns_a_leaf=v["ns"], sass=sass, shape=shape,
+                       ptxas=leaf_ptx.get(exp), clusters=clusters,
+                       floor_ms=floor * lo / 1e6, chain_ns=chain,
+                       latency_floor_ns=chain + trip)
+            lib += (f"; {shape[0]} blocks of {shape[1]} threads, {shape[2]} B "
+                    f"of dynamic shared memory, {leaf_ptx.get(exp)}; SASS "
+                    f"{sass} (a consumer warp's leaf, its tests a lane, its "
+                    f"merge, the producer's chain step); issue-rate floor "
+                    f"{floor:.1f} ns a leaf ({rec['floor_ms']:.4f} ms), the "
+                    f"chain step's issue {chain:.1f} ns + "
+                    f"{'K18' if exp == 'E8' else 'K17a l2'}'s round trip "
+                    f"{trip:.1f} ns = latency floor "
+                    f"{chain + trip:.1f} ns a leaf; {clusters} distinct "
+                    f"clusters")
         recs.append(rec)
         per = {"E5": "a copy", "E8": "a leaf", "E9": "a leaf"}.get(
             v["exp"], f"a step, {v['ns'] / lanes:.4f} a lane-step")

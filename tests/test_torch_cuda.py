@@ -54,6 +54,7 @@ from tpu_pathtracer_torch.ops.vec import FLT_MAX
 import bvh4_cases
 import bvh_mx_cases
 import heap_cases
+import leaf_cases
 import leafmt_cases
 import micro_cases
 import mr_cases
@@ -1358,16 +1359,18 @@ def micro():
                                  ("e5", 128), ("e8", 1024), ("e9", 1024)])
 def test_tpu_micro_kernel_bit_equal(micro, key):
     """K17a-K20, each mode at the TPU shape and (K17a, K17c) at 131,072
-    lanes, bit-equal to its plain version over a few steps."""
+    lanes, bit-equal to its plain version over a few steps (K19 and K20
+    also at 200 leaves, the lower count of their pair)."""
     _, runs = micro
     exp, kern, ref, _ = runs[key]
     name = key[0]
     before = um.LAUNCHES[name]
-    for steps in (0, 1, 3, 17, 64):
+    steps_list = (0, 1, 3, 17, 64) + ((200,) if exp in ("E8", "E9") else ())
+    for steps in steps_list:
         k, p = kern(steps), ref(steps)
         torch.cuda.synchronize()
         assert torch.equal(k, p), (key, steps)
-    assert um.LAUNCHES[name] == before + 5
+    assert um.LAUNCHES[name] == before + len(steps_list)
     if exp in ("E8", "E9"):
         assert (k < um.FAR).any() and (k == um.FAR).any()
 
@@ -1398,6 +1401,21 @@ def test_tpu_micro_wrappers_refuse_what_the_kernels_do_not_take(micro):
         um.leaf_chain(blocks, x.reshape(-1), 1)
     with pytest.raises(ValueError, match="devices"):
         um.leaf_chain(blocks, x.cpu(), 1)
+    # K19's bulk copy reads 16-byte aligned clusters; K20 reads words
+    leaf = blocks[:um.LEAF_CLUSTERS]
+    flat = torch.empty(leaf.numel() + 1, device=blocks.device)
+    shifted = flat[1:].view(leaf.shape)
+    shifted.copy_(leaf)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        um.leaf_chain(shifted, x, 1, "E8")
+    assert torch.equal(um.leaf_chain(shifted, x, 3, "E9"),
+                       um._leaf_ref(leaf, x, 3, "lanes"))
+    with pytest.raises(ValueError, match="contiguous"):
+        um.leaf_chain(leaf, x.t().contiguous().t(), 1, "E9")
+    with pytest.raises(ValueError, match="at least one cluster"):
+        um.leaf_chain(leaf[:0], x, 1, "E8")
+    with pytest.raises(TypeError):
+        um.leaf_chain(leaf.double(), x, 1, "E9")
 
 
 @pytest.mark.gpu
@@ -1429,6 +1447,76 @@ def test_tpu_micro_copy_sass_and_fence_variant(dev):
         assert torch.equal(um._copy(blocks, steps, lib),
                            um._copy_ref(blocks, steps))
     assert um.LAUNCHES == before
+
+
+@pytest.fixture(scope="module")
+def leaf_split_libs():
+    """{(lanes a ray, rays a block): library} of csrc/tpu_micro.cu with
+    both leaf kernels at every split it takes (``tpu_micro.LEAF_SPLITS``),
+    built in parallel; their launches are not counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
+    from concurrent.futures import ThreadPoolExecutor
+    own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
+    spec = "kE8Lanes:{0},kE8Rays:{1},kE9Lanes:{0},kE9Rays:{1}"
+    with ThreadPoolExecutor(len(um.LEAF_SPLITS)) as ex:
+        libs = ex.map(lambda sr: um.source_lib(
+            f"test_split_{sr[0]}_{sr[1]}",
+            common.variant(own, spec.format(*sr)))[0], um.LEAF_SPLITS)
+    return dict(zip(um.LEAF_SPLITS, libs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(leaf_cases.LEAF_CASES))
+def test_tpu_micro_leaf_edge_cases_bit_equal(dev, leaf_split_libs, name):
+    """K19 and K20 on tests/leaf_cases.py's edge inputs (a chain on 2^31 -
+    1, a tie across a split's lanes, the f = 1 path, t at 0.001, C = 1, 0
+    and 1 leaves), bit-equal to the plain version in their modes at 0, 1
+    and the case's leaves: the package's build (counted) and every split
+    the source takes (uncounted)."""
+    blocks, x, steps = leaf_cases.leaf_case(name)
+    blocks = torch.from_numpy(blocks).to(dev)
+    x = torch.from_numpy(x).to(dev)
+    for k in sorted({0, 1, steps}):
+        for exp, mode in um.LEAF_MODES.items():
+            want = um._leaf_ref(blocks, x, k, mode)
+            before = um.LAUNCHES[exp.lower()]
+            assert torch.equal(um.leaf_chain(blocks, x, k, exp), want)
+            assert um.LAUNCHES[exp.lower()] == before + 1
+            for split, lib in leaf_split_libs.items():
+                got = um._leaf(blocks, x, k, exp, lib)
+                assert torch.equal(got, want), (exp, split, k)
+            assert um.LAUNCHES[exp.lower()] == before + 1
+
+
+@pytest.mark.gpu
+def test_tpu_micro_leaf_launch_and_sass(dev, leaf_split_libs):
+    """K19 and K20 spread over the card (more than one block, 1024 rays in
+    all) at every split, and their SASS: K19's leaf loops hold the bulk
+    copy and the mbarrier wait, K20's neither; ``leaf_sass`` counts both
+    kernels' loops (a consumer's tests and merge at its lanes a ray)."""
+    for split, lib in [(None, None), *leaf_split_libs.items()]:
+        for exp in um.LEAF_MODES:
+            blocks, threads, smem = um.leaf_shape(exp, lib)
+            assert blocks > 1, (exp, split)
+            if split:
+                lanes, rays = split
+                assert blocks * rays == um.TILE
+                assert threads == 32 + rays * lanes
+    dump = common.sass_dump(_build.build("tpu_micro"))
+    code = {n: c for n, c in common.sass_functions(dump).items()
+            if "leaf_" in n}
+    ops = {("E8" if "leaf_smem" in n else "E9"):
+           {common.opcode(i) for _, i in c} for n, c in code.items()}
+    for op in (common.BULK_COPY, common.BARRIER_WAIT):
+        assert any(o.startswith(op) for o in ops["E8"])
+        assert not any(o.startswith(op) for o in ops["E9"])
+    sass = um.leaf_sass(dump)
+    for exp, lanes in um.LEAF_LANES.items():
+        consumer, tests, merge, producer = sass[exp]
+        assert tests == um.BLOCK[1] // lanes
+        assert merge == (1 if lanes == 32 else int(np.log2(lanes)))
+        assert consumer > 0 and producer > 0
 
 
 @pytest.mark.gpu

@@ -42,6 +42,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from tpu_pathtracer_torch.experiments import tpu_micro as um
+import leaf_cases
 import micro_cases
 from sass_listing import listing
 from torch_threads import one_torch_thread  # noqa: F401
@@ -56,8 +57,9 @@ STEPS = 3
 @pytest.fixture(scope="module")
 def jmicro():
     """{experiment: the Pallas callable it builds (interpret mode), or the
-    ``run`` functions it would time (E1: one a table, E6)}; "E5 call": the
-    arguments E5 gives ``pallas_call`` (its kernel first)."""
+    ``run`` functions it would time (E1: one a table, E6)}; "E5 call",
+    "E8 call", "E9 call": the arguments the experiment gives
+    ``pallas_call`` (its kernel first)."""
     spec = importlib.util.spec_from_file_location(
         "tpu_micro", os.path.join(EXP, "tpu_micro.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -81,8 +83,8 @@ def jmicro():
             calls.clear()
             getattr(mod, name)()
             out[name.upper()] = built[0] if built else list(timed)
-            if name == "e5":
-                out["E5 call"] = calls[0]
+            if name in ("e5", "e8", "e9"):
+                out[f"{name.upper()} call"] = calls[0]
     return out
 
 
@@ -137,11 +139,11 @@ def test_e5_matches_jax_kernel(jmicro, inp, steps):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def _e5_with_blocks(jmicro, C):
-    """E5's TPU kernel, in interpret mode, with its block count C (a
-    constant of the TPU file's ``e5``) set to ``C``: the same code, the
-    closure's C cell replaced."""
-    (fn, *rest), kw = jmicro["E5 call"]
+def _with_blocks(jmicro, exp, C):
+    """``exp``'s TPU kernel (E5, E8 or E9), in interpret mode, with its
+    block count C (a constant of the TPU file's experiment) set to ``C``:
+    the same code, the closure's C cell replaced."""
+    (fn, *rest), kw = jmicro[f"{exp} call"]
     code = fn.__code__
     cells = tuple(types.CellType(C) if name == "C" else cell
                   for name, cell in zip(code.co_freevars, fn.__closure__))
@@ -159,8 +161,8 @@ def test_e5_edge_inputs_match_jax_kernel(jmicro, name):
     blocks = micro_cases.copy_blocks(name)
     steps = micro_cases.COPY_CASES[name]
     C = blocks.shape[0]
-    kern = jmicro["E5"] if C == um.COPY_BLOCKS else _e5_with_blocks(jmicro,
-                                                                   C)
+    kern = jmicro["E5"] if C == um.COPY_BLOCKS else _with_blocks(jmicro,
+                                                                 "E5", C)
     want = np.asarray(kern(_steps(steps), jnp.asarray(blocks)))
     got = um.copy_chain(torch.from_numpy(blocks), steps)
     assert got.shape == (1, 128)
@@ -178,7 +180,7 @@ def _exact(blocks, ox, chain):
     numerator's and a's sums of |terms| over |result|: a float32
     evaluation in any order, with or without FMAs, is within a few eps
     kappa of it), and whether some triangle has its u, v, u + v, t or |a|
-    within 2^-20 of an accept bound."""
+    within 2^-20 of an accept bound; and every (triangle, lane)'s kappa."""
     q = torch.cat([blocks[c, :9] for c in chain], dim=1).double()
     o = ox.reshape(1, -1).double()
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = q[:, :, None]
@@ -208,7 +210,61 @@ def _exact(blocks, ox, chain):
     near = ((u.abs() <= d) | (v.abs() <= d) | ((u + v - 1).abs() <= d)
             | ((t - um.T_MIN).abs() <= d * um.T_MIN)
             | ((a.abs() - um.EPS_A).abs() <= d * um.EPS_A)).any(0)
-    return best.numpy(), kappa[w, lanes].numpy(), near.numpy()
+    return best.numpy(), kappa[w, lanes].numpy(), near.numpy(), kappa
+
+
+def _hold_leaf_to_jax(kern, blocks, x, steps, exp, hits=True, bound=None):
+    """The plain version of ``exp`` against its TPU kernel ``kern`` (in
+    interpret mode) on ``blocks`` and lanes ``x`` over ``steps`` leaves:
+    the same chain of clusters (the TPU kernel's read from its best after
+    each step) and best within the stated tolerance; ``hits``: some lanes
+    hit and some miss. ``bound``: {lane: triangle (its index along the
+    chain's clusters)} whose t is 0.001 exactly in float32, which the
+    plain version excludes; XLA's FMAs (ROADMAP C-2) may put that t above
+    it and accept it, so on those lanes the TPU kernel's best is either the
+    plain version's or within 4 eps kappa of 0.001, kappa that triangle's
+    condition number. Returns the plain version's chain."""
+    C = blocks.shape[0]
+    jb, jx = _j(blocks), _j(x)
+    # the TPU kernel's best after each step: its chain of clusters
+    jbest = [np.asarray(kern(_steps(s), jb, jx)).reshape(-1)
+             for s in range(1, steps + 1)]
+    trail = []
+    got = um._leaf_ref(blocks, x, steps, um.LEAF_MODES[exp], trail)
+    assert torch.equal(um.leaf_chain(blocks, x, steps, exp), got)
+    chain = [int(c) for c in trail]
+    jchain = [0][:steps]
+    for b in jbest[:-1]:
+        lane0 = 2 ** 31 - 1 if b[0] >= 2.0 ** 31 else int(b[0])
+        jchain.append((jchain[-1] * 5 + lane0 % 3 + 1) % C)
+    assert chain == jchain
+    got = got.reshape(-1).numpy()
+    if not steps:
+        want = np.asarray(kern(_steps(0), jb, jx)).reshape(-1)
+        assert (got == um.FAR).all() and (want == um.FAR).all()
+        return chain
+    want = jbest[-1]
+    exact, kappa, near, kappas = _exact(blocks, x, chain)
+    free = np.zeros(got.shape, bool)
+    bound = bound or {}
+    free[list(bound)] = True
+    for lane, w in bound.items():  # that triangle's kappa sets the room
+        room = 4 * 2.0 ** -24 * kappas[w, lane].item() * um.T_MIN
+        assert got[lane] > um.T_MIN
+        assert (abs(want[lane] - um.T_MIN) <= room
+                or abs(got[lane] - want[lane]) <= T_RTOL * got[lane])
+    hit_j, hit_p = want < um.FAR, got < um.FAR
+    both = hit_j & hit_p & ~free
+    rtol = np.maximum(T_RTOL, 4 * 2.0 ** -24 * kappa)[both]
+    assert (np.abs(got - want)[both] <= rtol * want[both]).all()
+    assert (np.abs(got - exact)[both] <= rtol * exact[both]).all()
+    assert (got[~hit_p] == um.FAR).all()
+    assert not hits or 0 < both.sum() < both.size
+    differ = (hit_j != hit_p) & ~free
+    assert differ.sum() <= 8 and not (differ & ~near).any(), \
+        f"{differ.sum()} lanes' hits differ, {(differ & ~near).sum()} " \
+        "with no triangle near an accept bound"
+    return chain
 
 
 @pytest.mark.parametrize("miss", [False, True])
@@ -219,32 +275,89 @@ def test_leaf_matches_jax_kernel(jmicro, inp, exp, miss):
     blocks, x = inp["blocks"][:um.LEAF_CLUSTERS], inp["x"].clone()
     if miss:
         x[0, 0] = float("nan")
-    jb, jx = _j(blocks), _j(x)
-    # the TPU kernel's best after each step: its chain of clusters
-    jbest = [np.asarray(jmicro[exp](_steps(s), jb, jx)).reshape(-1)
-             for s in range(1, STEPS + 1)]
-    trail = []
-    got = um._leaf_ref(blocks, x, STEPS, um.LEAF_MODES[exp], trail)
-    assert torch.equal(um.leaf_chain(blocks, x, STEPS, exp), got)
-    chain = [int(c) for c in trail]
-    jchain = [0]
-    for b in jbest[:-1]:
-        lane0 = 2 ** 31 - 1 if b[0] >= 2.0 ** 31 else int(b[0])
-        jchain.append((jchain[-1] * 5 + lane0 % 3 + 1) % um.LEAF_CLUSTERS)
-    assert chain == jchain and len(set(chain)) == STEPS
+    chain = _hold_leaf_to_jax(jmicro[exp], blocks, x, STEPS, exp)
+    assert len(set(chain)) == STEPS
     assert (chain[1] == (2 ** 31 - 1) % 3 + 1) == miss
-    want, got = jbest[-1], got.reshape(-1).numpy()
-    exact, kappa, near = _exact(blocks, x, chain)
-    hit_j, hit_p = want < um.FAR, got < um.FAR
-    both = hit_j & hit_p
-    rtol = np.maximum(T_RTOL, 4 * 2.0 ** -24 * kappa)[both]
-    assert (np.abs(got - want)[both] <= rtol * want[both]).all()
-    assert (np.abs(got - exact)[both] <= rtol * exact[both]).all()
-    assert (got[~hit_p] == um.FAR).all() and 0 < both.sum() < both.size
-    differ = hit_j != hit_p
-    assert differ.sum() <= 8 and not (differ & ~near).any(), \
-        f"{differ.sum()} lanes' hits differ, {(differ & ~near).sum()} " \
-        "with no triangle near an accept bound"
+
+
+@pytest.mark.parametrize("name", list(leaf_cases.LEAF_CASES))
+@pytest.mark.parametrize("exp", ["E8", "E9"])
+def test_leaf_edge_cases_match_jax_kernel(jmicro, exp, name):
+    """K19's and K20's plain versions on tests/leaf_cases.py's edge inputs
+    against E8's and E9's TPU kernels (at the case's C): a chain on
+    2^31 - 1, a tie across lanes of a split, the f = 1 path, t at 0.001
+    (lane 29: the plain version excludes it; XLA's FMAs may not, C-2),
+    C = 1, 0 and 1 leaves."""
+    blocks, x, steps = leaf_cases.leaf_case(name)
+    C = blocks.shape[0]
+    kern = jmicro[exp] if C == um.LEAF_CLUSTERS else _with_blocks(jmicro,
+                                                                 exp, C)
+    bound = ({leaf_cases.T_MIN_LANE: leaf_cases.T_MIN_W} if name == "t_min"
+             else None)  # cluster 0 leads the chain: its triangles first
+    chain = _hold_leaf_to_jax(kern, torch.from_numpy(blocks),
+                              torch.from_numpy(x), steps, exp,
+                              hits=steps > 0, bound=bound)
+    assert len(chain) == steps
+    if name == "ray0_misses":
+        assert chain == [*leaf_cases.MISS_CHAIN, 312, 537]
+    if name == "one_cluster":
+        assert chain == [0] * steps
+
+
+def _lane_test(blocks, x, c, lane, w):
+    """(t, accepted, u, v, a) of lane ``lane`` against triangle ``w`` of
+    cluster ``c``, in float32 in the plain version's order."""
+    o = np.float32(x.reshape(-1)[lane])
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = blocks[c, :9, w]
+    hx, hy, hz = o * e2z - v0y * e2y, o * e2x - v0z * e2z, o * e2y - v0x * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    f = np.float32(1) / (np.float32(1) if abs(a) < um.EPS_A else a)
+    sx, sy, sz = o - v0x, o - v0y, o - v0z
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx, qy, qz = sy * e1z - sz * e1y, sz * e1x - sx * e1z, sx * e1y - sy * e1x
+    v = f * (o * qx + o * qy + o * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    ok = u > 0 and v > 0 and u + v < 1 and t > np.float32(um.T_MIN)
+    t_torch, ok_torch = um.mt_ish(torch.tensor([o]),
+                                  torch.from_numpy(blocks[c, :9, w:w + 1]))
+    assert t_torch.item() == t and ok_torch.item() == ok
+    return t, ok, u, v, a
+
+
+@pytest.mark.parametrize("name", ["ray0_misses", "tie", "flat", "t_min"])
+def test_leaf_cases_hold_what_they_say(name):
+    """Each edge input holds its edge, in float32 in the plain version's
+    order (and by ``mt_ish``)."""
+    blocks, x, _ = leaf_cases.leaf_case(name)
+    tb, tx = torch.from_numpy(blocks), torch.from_numpy(x)
+    if name == "ray0_misses":
+        for c in leaf_cases.MISS_CHAIN:
+            _, ok = um.mt_ish(tx.reshape(-1)[:1], tb[c, :9])
+            assert not ok.any()
+        _, ok = um.mt_ish(tx.reshape(-1)[:1], tb[312, :9])
+        assert ok.any()
+    elif name == "tie":
+        t, ok = um.mt_ish(tx.reshape(-1)[:1], tb[0, :9])
+        ts = torch.where(ok, t, torch.full_like(t, um.FAR))[:, 0]
+        ws = [leaf_cases.TIE_W, *leaf_cases.TIE_COPIES]
+        assert (ts[ws] == ts.min()).all() and int((ts == ts.min()).sum()) == 4
+        for split in (8, 16, 32):
+            assert len({w % split for w in ws}) > 1
+    elif name == "flat":
+        t, ok, _, _, a = _lane_test(blocks, x, 0, leaf_cases.FLAT_LANE,
+                                    leaf_cases.FLAT_W)
+        assert ok and abs(a) < um.EPS_A
+        ts, oks = um.mt_ish(tx.reshape(-1)[leaf_cases.FLAT_LANE:][:1],
+                            tb[0, :9])
+        assert torch.where(oks, ts, um.FAR).min().item() == t
+    else:
+        t, ok, u, v, _ = _lane_test(blocks, x, 0, leaf_cases.T_MIN_LANE,
+                                    leaf_cases.T_MIN_W)
+        assert t == np.float32(um.T_MIN) and not ok
+        assert u > 0 and v > 0 and u + v < 1
+        ts, oks = um.mt_ish(tx.reshape(-1)[leaf_cases.T_MIN_LANE:][:1],
+                            tb[0, :9])
+        assert torch.where(oks, ts, um.FAR).min().item() > t
 
 
 def test_leaf_plain_versions_equal(inp):

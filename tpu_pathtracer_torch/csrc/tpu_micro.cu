@@ -41,6 +41,39 @@
 //     the cluster's words itself (__ldg: L1/L2) and takes the min of each
 //     chunk of 32. t > 0.001 excludes NaN and 1e30 never beats best, so
 //     this is E8's function and the two outputs are bit-equal.
+//   Both chain their leaves: the next cluster is c = (c * 5 + int(best[0,
+//   0]) % 3 + 1) % C, learned from the leaf just tested, with no lead.
+//   The first forms ran the TPU's one-core shape, one block of 1024
+//   threads on 1 of 132 SMs. Here the 1024 lanes spread over the card:
+//   kTile / R blocks of R rays at L lanes a ray (LeafGrid), lane s of a
+//   ray testing triangles s, s + L, ... and the ray's lanes merging the
+//   least accepted t (exact and order-free, so bit-equal to both TPU
+//   forms). Each block's warp 0 (the producer) tests ray 0 itself, 4
+//   triangles a lane and one REDUX (positive floats order as their
+//   bits), and derives every next c in the block: no block waits on
+//   another. K19 (E8) stages rows 0-8 of each cluster (4,608 B,
+//   kLeafCopyRows) by one cp.async.bulk on an mbarrier into a ring of
+//   kLeafStages stages, issued by the producer as soon as ray 0's test of
+//   the leaf before gives c, the consumer warps reading the stage as
+//   shared-memory broadcasts and releasing it on its empty mbarrier; K20
+//   (E9) hands c to its consumer warps through a ring of kChainRing slots
+//   in shared memory behind named barriers. A lane's tests are
+//   split at their IEEE divisions (mt_split, mt_finish) so that the
+//   divisions, each a branch to a slow path, sit back to back and the
+//   rest of the tests interleave.
+//
+//   The constants are the A/B's (experiments/tpu_micro.py leaf_ab; PERF.md
+//   §6 K19/K20 has the readings, ns a leaf, the slope from 200 to 5,200
+//   leaves, device time in CUDA graphs in turns): K19 at 16 lanes a ray
+//   (8: 1,354; 32: 1,047) and 8 rays a block (4: 1,011; 16: 1,156), 3
+//   stages (1, 2, 4: 1,090, 961, 977), rows 0-8 (the whole 8 KB block
+//   ties, 915), 914; K20 at 32 lanes (16: 1,397) and 8 rays (4: 1,098;
+//   16: 1,640), a ring of 4 slots (1: 991; 2 ties, 976), 977. Yardsticks
+//   outside the package: a thread-block cluster of 4 (one block's warp
+//   walks the chain, one multicast copy feeds the cluster, c by
+//   distributed shared memory) 1,482 and 2,096; K20 with every warp
+//   testing ray 0 and no barrier 1,355; K19 with all three candidate
+//   clusters copied a leaf ahead 1,059.
 //
 // Arithmetic follows the TPU source's order (the "MT-ish" test of
 // :309-327 is not real Moller-Trumbore: v uses o1 three times), built with
@@ -55,7 +88,15 @@
 // read once, or the bytes copied; E8/E9's FP32 operations) are far below.
 // E5's one warp issues a step's chain loop (its SASS counted by
 // experiments/tpu_micro.py copy_sass) far faster than the copy's round
-// trip, which is the number to read.
+// trip, which is the number to read. E8/E9 run at 2-3x their issue-rate
+// floor (leaf_sass, leaf_floor: each block's consumer warps' leaf loops
+// and its producer's chain step): K19 above both its chain alone (a
+// copy's round trip after ray 0's test, 740 ns a leaf with the
+// consumers' tests left out) and its consumers alone (819 ns with ray
+// 0's test left out), which overlap; K20 at either alone (1,041 and
+// 1,001 ns: ray 0's loads from the L2, its test and the hand-off, or the
+// consumers' loads and tests). The card-wide FP32 bound, 1024 x 128 x 46
+// operations a leaf, is 90 ns.
 
 #include <cstdint>
 
@@ -74,15 +115,21 @@ constexpr int kCols = 8;                // E7's table columns
 constexpr int kBlockRows = 16, kBlockW = 128;  // a (16, 128) f32 block
 constexpr int kBlockFloats = kBlockRows * kBlockW;
 constexpr int kCopyThreads = 32;        // E5: one warp, 4 of acc's 128 a lane
-constexpr int kProxyFence = 1;          // E5: fence.proxy.async before a copy
-constexpr int kChunk = 32;              // E9's chunk of triangles
+constexpr int kProxyFence = 1;          // E5, E8: proxy fence before a copy
+constexpr int kE8Lanes = 16;            // E8: lanes that test one ray
+constexpr int kE8Rays = 8;              // E8: rays a block
+constexpr int kE9Lanes = 32;            // E9: lanes that test one ray
+constexpr int kE9Rays = 8;              // E9: rays a block
+constexpr int kLeafStages = 3;          // E8: the ring's stages
+constexpr int kLeafCopyRows = 9;        // E8: rows a copy stages (9 or 16)
+constexpr int kChainRing = 4;           // E9: the ring of c's slots
 constexpr float kFar = 1e30f;
 constexpr float kTMin = 1e-3f;
 constexpr float kEpsA = 1e-7f;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum GatherMode : int { kL2 = 0, kSmem = 1 };
-enum LeafMode : int { kLeafSmem = 0, kLeafLanes = 1 };
+enum LeafMode : int { kModeSmem = 0, kModeLanes = 1 };
 
 __device__ __forceinline__ int floor_mod(int a, int m) {
   const int r = a % m;
@@ -219,23 +266,36 @@ struct Tri {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
 
-// The source's test for one lane (o1) and one triangle, in its order:
-// 46 FP32 operations (the division one), compares not counted.
-__device__ __forceinline__ float mt_ish(float o1, const Tri& q, bool& ok) {
+// The source's test for one lane (o1) and one triangle, in its order (46
+// FP32 operations, the division one; compares not counted), split at its
+// division so that a lane's tests can share one stretch of code between
+// their divisions: mt_split computes the three sums that f scales and f's
+// denominator (a, or 1 where |a| < 1e-7); mt_finish takes f = 1 / den and
+// returns the accepted t or 1e30. Each IEEE division is a branch to its
+// slow path, across which the compiler moves no other work: with the
+// divisions of a lane's tests back to back, the rest of the tests
+// interleave.
+struct Part {
+  float den, su, sv, st;
+};
+
+__device__ __forceinline__ Part mt_split(float o1, const Tri& q) {
   const float hx = o1 * q.e2z - q.v0y * q.e2y;
   const float hy = o1 * q.e2x - q.v0z * q.e2z;
   const float hz = o1 * q.e2y - q.v0x * q.e2x;
   const float a = q.e1x * hx + q.e1y * hy + q.e1z * hz;
-  const float f = 1.0f / (fabsf(a) < kEpsA ? 1.0f : a);
   const float sx = o1 - q.v0x, sy = o1 - q.v0y, sz = o1 - q.v0z;
-  const float u = f * (sx * hx + sy * hy + sz * hz);
   const float qx = sy * q.e1z - sz * q.e1y;
   const float qy = sz * q.e1x - sx * q.e1z;
   const float qz = sx * q.e1y - sy * q.e1x;
-  const float v = f * (o1 * qx + o1 * qy + o1 * qz);
-  const float t = f * (q.e2x * qx + q.e2y * qy + q.e2z * qz);
-  ok = (u > 0.f) & (v > 0.f) & (u + v < 1.f) & (t > kTMin);
-  return t;
+  return {fabsf(a) < kEpsA ? 1.0f : a, sx * hx + sy * hy + sz * hz,
+          o1 * qx + o1 * qy + o1 * qz, q.e2x * qx + q.e2y * qy + q.e2z * qz};
+}
+
+__device__ __forceinline__ float mt_finish(const Part& p, float f) {
+  const float u = f * p.su, v = f * p.sv, t = f * p.st;
+  const bool ok = (u > 0.f) & (v > 0.f) & (u + v < 1.f) & (t > kTMin);
+  return ok ? t : kFar;
 }
 
 template <typename Load>
@@ -251,58 +311,193 @@ __device__ __forceinline__ int next_cluster(int c, float best, int C) {
   return floor_mod(c * 5 + floor_mod(__float2int_rz(best), 3) + 1, C);
 }
 
-__global__ void __launch_bounds__(kTile)
-leaf_smem_kernel(const float2* __restrict__ blocks, int C,
-                 const float* __restrict__ ox, int steps,
-                 float* __restrict__ out) {
-  __shared__ float2 buf[kBlockFloats / 2];  // one (16, 128) cluster
-  __shared__ int next;
-  const int t = threadIdx.x;
-  const float o1 = ox[t];
-  const float* s = reinterpret_cast<const float*>(buf);
-  float best = kFar;
-  int c = 0;
-  for (int step = 0; step < steps; ++step) {
-    buf[t] = blocks[static_cast<size_t>(c) * (kBlockFloats / 2) + t];
-    __syncthreads();  // the cluster is in
-    for (int w = 0; w < kBlockW; ++w) {
-      bool ok;
-      const float tt = mt_ish(o1, tri_at([s](int k) { return s[k]; }, w), ok);
-      if (ok && tt < best) best = tt;
-    }
-    if (t == 0) next = next_cluster(c, best, C);
-    __syncthreads();  // every lane is done with buf; next is written
-    c = next;
-  }
-  out[t] = best;
+// The least accepted t (1e30 where none) of one ray over a cluster's 128
+// triangles, on an aligned group of L lanes of the warp: lane s of the
+// group tests triangles s, s + L, ... (128 / L of them, unrolled), then the
+// group merges by fminf over log2(L) __shfl_xor_sync steps. A test that is
+// not accepted gives 1e30 and an accepted t is never NaN (t > 0.001), so
+// the minimum is exact and independent of order: E8's triangle-by-triangle
+// update and E9's chunk minima, bit for bit. Every lane of the group
+// returns it.
+template <int L, typename Load>
+__device__ __forceinline__ float group_min(float o1, int s, Load load) {
+  static_assert(L == 8 || L == 16 || L == 32, "a group divides the warp");
+  constexpr int K = kBlockW / L;
+  Part p[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) p[k] = mt_split(o1, tri_at(load, s + k * L));
+  float f[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) f[k] = 1.0f / p[k].den;
+  float m = kFar;
+#pragma unroll
+  for (int k = 0; k < K; ++k) m = fminf(m, mt_finish(p[k], f[k]));
+  if (L == 32)  // positive floats order as their bits: one REDUX
+    return __uint_as_float(__reduce_min_sync(kFull, __float_as_uint(m)));
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    m = fminf(m, __shfl_xor_sync(kFull, m, off));
+  return m;
 }
 
-__global__ void __launch_bounds__(kTile)
+// Named barrier `id` (1-15; 0 is __syncthreads') of `n` threads: arrive
+// without waiting, or arrive and wait. An arrive synchronizes with the
+// syncs of the same phase (PTX's barrier rules), so what a thread wrote
+// before its arrive is visible to the waiters after their sync.
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// E8/E9 over the card: kTile / R blocks, each R rays of L lanes (the
+// consumer warps) and, in front of them, one warp that walks the chain
+// (the producer, warp 0): it tests ray 0 itself (32 lanes, 4 triangles a
+// lane) and derives each next cluster in the block, so no block waits on
+// another.
+template <int L, int R>
+struct LeafGrid {
+  static_assert((R == 2 || R == 4 || R == 8 || R == 16) && R * L % 32 == 0,
+                "2 to 16 rays a block, whole warps of rays");
+  static constexpr int kConsumers = R * L / 32;  // consumer warps a block
+  static constexpr int kThreads = 32 + R * L;
+  static constexpr int kBlocks = kTile / R;
+};
+using E8Grid = LeafGrid<kE8Lanes, kE8Rays>;
+using E9Grid = LeafGrid<kE9Lanes, kE9Rays>;
+constexpr int kCopyFloats = kLeafCopyRows * kBlockW;
+constexpr unsigned kCopyBytes = kCopyFloats * 4;
+static_assert(kLeafCopyRows == 9 || kLeafCopyRows == 16,
+              "the test's 9 rows or the whole block");
+static_assert(kLeafStages >= 1 && kChainRing >= 1 && kChainRing <= 7,
+              "a ring; named barriers 1-14");
+
+// K19: the cluster staged in shared memory by the bulk-copy engine, a
+// ring of kLeafStages stages with a full and an empty mbarrier each. The
+// producer waits on leaf i's stage, tests ray 0 from it, learns c and at
+// once issues leaf i + 1's copy into the next stage (lane 0: expect_tx,
+// then one cp.async.bulk of rows 0 to kLeafCopyRows - 1 of cluster c),
+// after the consumers released that stage's last use. The consumers wait
+// on leaf i's stage, test their rays from it as broadcasts, and release it
+// (one arrive a warp on its empty barrier).
+__global__ void __launch_bounds__(E8Grid::kThreads)
+leaf_smem_kernel(const float* __restrict__ blocks, int C,
+                 const float* __restrict__ ox, int steps,
+                 float* __restrict__ out) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ __align__(8) uint64_t full[kLeafStages], empty[kLeafStages];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kLeafStages; ++j) {
+      pt::bar_init(&full[j], 1);
+      pt::bar_init(&empty[j], E8Grid::kConsumers);
+    }
+    pt::bar_init_fence();
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const float o0 = ox[0];
+    float best0 = kFar;
+    int c = 0;
+    if (steps > 0 && lane == 0) {  // leaf 0 is cluster 0
+      pt::arrive_expect_tx(&full[0], kCopyBytes);
+      pt::bulk_copy(ring, blocks, kCopyBytes, &full[0]);
+    }
+    for (int i = 0; i < steps; ++i) {
+      const int st = i % kLeafStages;
+      pt::bar_wait(&full[st], (i / kLeafStages) & 1);
+      const float* r = ring + st * kCopyFloats;
+      best0 = fminf(best0, group_min<32>(o0, lane,
+                                         [r](int k) { return r[k]; }));
+      c = next_cluster(c, best0, C);
+      if (i + 1 < steps) {
+        const int nx = (i + 1) % kLeafStages;
+        if (i + 1 >= kLeafStages)
+          pt::bar_wait(&empty[nx], ((i + 1) / kLeafStages - 1) & 1);
+        __syncwarp();  // the warp has read the stage it may refill
+        if (lane == 0) {
+          if (kProxyFence) pt::proxy_fence();
+          pt::arrive_expect_tx(&full[nx], kCopyBytes);
+          pt::bulk_copy(ring + nx * kCopyFloats,
+                        blocks + static_cast<size_t>(c) * kBlockFloats,
+                        kCopyBytes, &full[nx]);
+        }
+      }
+    }
+    return;
+  }
+  const int t = threadIdx.x - 32, s = t % kE8Lanes;
+  const int ray = blockIdx.x * kE8Rays + t / kE8Lanes;
+  const float o1 = ox[ray];
+  float best = kFar;
+  for (int i = 0; i < steps; ++i) {
+    const int st = i % kLeafStages;
+    pt::bar_wait(&full[st], (i / kLeafStages) & 1);
+    const float* r = ring + st * kCopyFloats;
+    best = fminf(best, group_min<kE8Lanes>(o1, s,
+                                             [r](int k) { return r[k]; }));
+    __syncwarp();  // every lane has read the stage
+    if (lane == 0 && i + kLeafStages < steps) pt::bar_arrive(&empty[st]);
+  }
+  if (s == 0) out[ray] = best;
+}
+
+// K20: every lane reads its triangles' words itself (__ldg: L1, L2). The
+// producer hands each c to the consumers through a ring of kChainRing
+// slots in shared memory, named barriers 1 to kChainRing (slot j written)
+// and kChainRing + 1 on (slot j read): it publishes c_i, then tests ray 0
+// on cluster c_i for c_{i+1}, running up to kChainRing leaves ahead of the
+// consumers.
+__global__ void __launch_bounds__(E9Grid::kThreads)
 leaf_lanes_kernel(const float* __restrict__ blocks, int C,
                   const float* __restrict__ ox, int steps,
                   float* __restrict__ out) {
-  __shared__ int next[2];  // by step parity: one barrier a step
-  const int t = threadIdx.x;
-  const float o1 = ox[t];
-  float best = kFar;
-  int c = 0;
-  for (int step = 0; step < steps; ++step) {
-    const float* cl = blocks + static_cast<size_t>(c) * kBlockFloats;
-    for (int k = 0; k < kBlockW; k += kChunk) {
-      float m = kFar;
-      for (int w = k; w < k + kChunk; ++w) {
-        bool ok;
-        const float tt =
-            mt_ish(o1, tri_at([cl](int j) { return __ldg(cl + j); }, w), ok);
-        m = fminf(m, ok ? tt : kFar);
-      }
-      best = fminf(best, m);
+  __shared__ int cring[kChainRing];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0) {
+    const float o0 = ox[0];
+    float best0 = kFar;
+    int c = 0;
+    for (int i = 0; i < steps; ++i) {
+      const int j = i % kChainRing;
+      if (i >= kChainRing) named_sync(1 + kChainRing + j, E9Grid::kThreads);
+      if (lane == 0) cring[j] = c;
+      named_arrive(1 + j, E9Grid::kThreads);
+      const float* cl = blocks + static_cast<size_t>(c) * kBlockFloats;
+      const auto load = [cl](int k) { return __ldg(cl + k); };
+      best0 = fminf(best0, group_min<32>(o0, lane, load));
+      c = next_cluster(c, best0, C);
     }
-    if (t == 0) next[step & 1] = next_cluster(c, best, C);
-    __syncthreads();
-    c = next[step & 1];
+    return;
   }
-  out[t] = best;
+  const int t = threadIdx.x - 32, s = t % kE9Lanes;
+  const int ray = blockIdx.x * kE9Rays + t / kE9Lanes;
+  const float o1 = ox[ray];
+  float best = kFar;
+  for (int i = 0; i < steps; ++i) {
+    const int j = i % kChainRing;
+    named_sync(1 + j, E9Grid::kThreads);
+    const float* cl = blocks + static_cast<size_t>(cring[j]) * kBlockFloats;
+    if (i + kChainRing < steps)
+      named_arrive(1 + kChainRing + j, E9Grid::kThreads);
+    best = fminf(best, group_min<kE9Lanes>(
+                           o1, s, [cl](int k) { return __ldg(cl + k); }));
+  }
+  if (s == 0) out[ray] = best;
+}
+
+// The launch of E8 (mode 0) or E9 (mode 1): blocks, threads a block and
+// dynamic shared memory.
+struct LeafLaunch {
+  int grid, threads, smem;
+};
+
+inline LeafLaunch leaf_launch(int mode) {
+  if (mode == kModeSmem)
+    return {E8Grid::kBlocks, E8Grid::kThreads,
+            kLeafStages * static_cast<int>(kCopyBytes)};
+  return {E9Grid::kBlocks, E9Grid::kThreads, 0};
 }
 
 inline bool pow2(int T) { return T > 0 && (T & (T - 1)) == 0; }
@@ -371,23 +566,40 @@ extern "C" int tpu_micro_copy(const float* blocks, int C, int steps,
   return static_cast<int>(cudaGetLastError());
 }
 
-// E8 (mode 0) and E9 (mode 1): blocks [C, 16, 128], 8-byte aligned; ox
-// and out [1024].
+// E8 (mode 0) and E9 (mode 1): blocks [C, 16, 128], 16-byte aligned in
+// mode 0 (the bulk copy's source); ox and out [1024]. Returns the CUDA
+// error of the shared-memory opt-in or of the launch.
 extern "C" int tpu_micro_leaf(int mode, const float* blocks, int C,
                               const float* ox, int steps, float* out,
                               void* stream) {
-  if (C < 1 || steps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C < 1 || steps < 0 || (mode != kModeSmem && mode != kModeLanes) ||
+      (mode == kModeSmem && reinterpret_cast<uintptr_t>(blocks) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kLeafSmem:
-      leaf_smem_kernel<<<1, kTile, 0, st>>>(
-          reinterpret_cast<const float2*>(blocks), C, ox, steps, out);
-      break;
-    case kLeafLanes:
-      leaf_lanes_kernel<<<1, kTile, 0, st>>>(blocks, C, ox, steps, out);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const LeafLaunch l = leaf_launch(mode);
+  if (mode == kModeSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        leaf_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        l.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    leaf_smem_kernel<<<l.grid, l.threads, l.smem, st>>>(blocks, C, ox, steps,
+                                                       out);
+  } else {
+    leaf_lanes_kernel<<<l.grid, l.threads, 0, st>>>(blocks, C, ox, steps,
+                                                   out);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// E8/E9's launch in `mode`: its blocks, threads a block and bytes of
+// dynamic shared memory, for the records and the checks.
+extern "C" int tpu_micro_leaf_shape(int mode, int* grid, int* threads,
+                                    int* smem) {
+  if (mode != kModeSmem && mode != kModeLanes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const LeafLaunch l = leaf_launch(mode);
+  *grid = l.grid;
+  *threads = l.threads;
+  *smem = l.smem;
+  return 0;
 }

@@ -265,8 +265,9 @@ def noleaf(text: str, loops=HEAP_LEAF_LOOPS) -> str:
     raise ValueError("no known leaf loop in the source")
 
 
-def build(name: str, text: str, out: Path | None):
-    """(library path, ptxas lines) of ``text`` built as ``name``."""
+def build(name: str, text: str, out: Path | None, keep: bool = False):
+    """(library path, ptxas lines) of ``text`` built as ``name``, and with
+    ``keep`` the compiler's whole output third."""
     src = _build.BUILD_DIR / "ab" / f"{name}.cu"
     src.parent.mkdir(parents=True, exist_ok=True)
     src.write_text(text)
@@ -281,7 +282,7 @@ def build(name: str, text: str, out: Path | None):
         out.mkdir(parents=True, exist_ok=True)
         (out / f"{name}.ptxas.txt").write_text(log)
         (out / f"{name}.sass").write_text(sass_dump(lib))
-    return lib, ptxas_lines(log)
+    return (lib, ptxas_lines(log), log) if keep else (lib, ptxas_lines(log))
 
 
 def ptxas_lines(log: str) -> List[str]:
@@ -383,6 +384,43 @@ def body_loops(code: List[tuple]) -> List[tuple]:
     body close no loop of it."""
     last = max(k for k, (_, i) in enumerate(code) if opcode(i) == "EXIT")
     return [s for s in backward_loops(code) if s[1] < last]
+
+
+def natural_loops(code: List[tuple]) -> List[tuple]:
+    """:func:`backward_loops` whose head dominates the branch back to it:
+    every path from the entry to the branch passes the head. An
+    out-of-line stub (a divergent warp's shuffles, an mbarrier wait's
+    retries) is entered by a branch from before the head it returns to,
+    so it closes no loop; a loop that ends in a predicated EXIT (a warp's
+    branch that returns after its loop) is kept, where :func:`body_loops`
+    would drop every loop after the last EXIT."""
+    addr = {a: k for k, (a, _) in enumerate(code)}
+    succ = []
+    for k, (_, ins) in enumerate(code):
+        op, t = opcode(ins), branch_target(ins)
+        nxt = [] if (op in ("EXIT", "RET") or op.startswith("BRA")) \
+            and not ins.startswith("@") else [k + 1]
+        if t is not None and t in addr:
+            nxt.append(addr[t])
+        m = re.search(r"\bCALL\.REL\S*\s+(0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) in addr:
+            nxt.append(addr[int(m.group(1), 16)])
+        succ.append([j for j in nxt if j < len(code)])
+
+    def reaches(target: int, cut: int) -> bool:
+        seen, todo = {0}, [0]
+        while todo:
+            k = todo.pop()
+            if k == target:
+                return True
+            for j in succ[k]:
+                if j != cut and j not in seen:
+                    seen.add(j)
+                    todo.append(j)
+        return False
+
+    return [(h, k) for h, k in backward_loops(code)
+            if h != 0 and not reaches(k, h)]
 
 
 def slow_paths(code: List[tuple], lo: int, hi: int) -> set:
