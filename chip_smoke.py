@@ -210,10 +210,20 @@ line each; any failure raises and exits non-zero:
      K22 (``leafround_probe``, LEAF_MODE 0, 1, 2 at w = 32, 64; 256 and
      2048 rounds), K23 (``multirow_probe``, fixed and assemble; 64 and 512
      steps) and K24 (``gather_probe``, lanes and shfl at S = 8 to 128; 1024
-     and 8192 steps), each bit-equal to its plain version (K23/K24 also on
-     every step's idx and bs) at the pair's lower count and below, then
-     timed in turns at the pair: us a window and ns a pair, ns an 8-row
-     leaf round, ns an 8-row node step;
+     and 8192 steps), first their SASS (``multirow_probe.round_sass``,
+     ``walk_sass``; K22's mode 2 with UBLKCP and SYNCS, modes 0/1 with
+     neither), every launch over more than one block, and every case of
+     tests/multirow_cases.py (``multirow_checks``), then each bit-equal to
+     its plain version (K23/K24 also on every step's idx and bs) at 0, 1,
+     3, 17 (and 64) and the pair's lower count, timed in turns at the
+     pair: us a window and ns a pair, ns an 8-row leaf round, ns an 8-row
+     node step, beside the bound (the FP32 operations; bytes with each
+     distinct cluster or node pair once), the issue-rate floor of the
+     build's SASS and the chains' latency floors (K22: the producer's
+     step, + K15a's copy round trip in mode 2; the walk: a step's issue on
+     one warp, + K17a smem's dependent on-chip load but in fixed, K17a
+     l2's beside it; the trips from phases 15 and 16 of this run); K22's
+     mode 0 must read no slower a round than its mode 2 at each width;
  18. the sphere layout and shape-cast probes, counts from 0: K25a
      (``sphere_layout_probe.spheres_sb``, the sphere table in constant
      memory) and K25b (``spheres_sbf``, + the feature fetch) on the TPU
@@ -2338,6 +2348,7 @@ def leaf_probe_phase(dev):
           f"resident blocks an SM {k14['blocks_per_sm']}")
     lo, hi = dm.COPIES
     per = k15["per_copy"]
+    ROUND_TRIPS["k15a"] = per["sync"]  # K22's latency floor (phase 17)
     for m, line in zip(dm.MODES, ("experiments/dma_probe.py:36",
                                   "experiments/dma_probe.py:50")):
         copies = lo + (m == "db")  # db drains one copy past the chain
@@ -2390,13 +2401,14 @@ def micro_bound(key, lanes, steps, clusters=0):
     return bound(flops, nbytes)
 
 
-def leaf_cases_module():
-    """tests/leaf_cases.py of this checkout (K19/K20's edge inputs; it
-    imports no JAX), loaded by its path."""
+def cases_module(name):
+    """tests/<name>.py of this checkout (a kernel's edge inputs, such as
+    K19/K20's leaf_cases or K22-K24's multirow_cases; they import no JAX),
+    loaded by its path."""
     import importlib.util
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "leaf_cases.py")
-    spec = importlib.util.spec_from_file_location("leaf_cases", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2424,7 +2436,7 @@ def leaf_checks(dev):
     for exp, (blocks, threads, _) in shapes.items():
         if blocks <= 1:
             raise AssertionError(f"{exp} launches {blocks} block")
-    cases = leaf_cases_module()
+    cases = cases_module("leaf_cases")
     for name in cases.LEAF_CASES:
         blocks, x, steps = cases.leaf_case(name)
         blocks = torch.from_numpy(blocks).to(dev)
@@ -2468,6 +2480,10 @@ def micro_phase(dev):
     bench.reset_launches((um,))
     r = um.measure(inp, rounds=1)
     launches = {f"tpu_micro.{k}": v for k, v in r["launches"].items()}
+    for mode in ("l2", "smem"):  # the walk's latency floor and its context
+        if (f"e3_{mode}", um.TILE) in r["kernels"]:
+            ROUND_TRIPS[f"k17a_{mode}"] = r["kernels"][f"e3_{mode}",
+                                                       um.TILE]["ns"]
     if min(launches.values()) <= 0:
         raise AssertionError(f"the micro-benchmark path launched {launches}")
     recs = []
@@ -2535,6 +2551,102 @@ def micro_phase(dev):
 
 # K23/K24: two slab tests and two acc adds a lane-step
 WALK_FLOPS = 2 * SLAB_FLOPS + 2
+# round trips measured earlier in this run, ns: K15a's 4 KB bulk copy
+# (phase 15, "k15a") and K17a's dependent load a step at 1,024 lanes from
+# shared memory and from the L2 (phase 16, "k17a_smem", "k17a_l2"): the
+# chains' latency floors in phase 17 (the walk's node pairs stay on chip,
+# so its floor takes the smem trip; the L2's stands beside it)
+ROUND_TRIPS: dict = {}
+
+
+def multirow_checks(dev):
+    """K22-K24 before phase 17's run: the build's SASS (``round_sass``,
+    ``walk_sass``: raise on another form; K22's mode 2 holds the bulk copy
+    and the mbarrier wait, modes 0 and 1 neither), each launch over more
+    than one block, and every mode bit-equal to its plain version on the
+    seeded inputs (K22 at 0, 1 and 17 rounds, K23/K24 at 0, 1, 17 and 64
+    steps, acc and trajectory; ``measure`` adds 3 and the pair's lower
+    count) and on every case of tests/multirow_cases.py. Returns (K22's
+    SASS, the walk's SASS, K22's launch shapes, the walk's, ptxas lines by
+    kernel, by ``multirow_probe.round_key`` and ``walk_key``; the walk's
+    shapes by fetch mode)."""
+    lib = _build.build("multirow_probes")
+    dump = common.sass_dump(lib)
+    lanes = mr.source_constant(
+        (_build.CSRC_DIR / "multirow_probes.cu").read_text(), "kRoundLanes")
+    k22_sass, walk_sass = mr.round_sass(dump, lanes), mr.walk_sass(dump)
+    for name, code in common.sass_functions(dump).items():
+        if "leafround_kernel" not in name:
+            continue
+        ops = {common.opcode(i) for _, i in code}
+        staged = "leafround_kernelILi2E" in name
+        for op in (common.BULK_COPY, common.BARRIER_WAIT):
+            if any(o.startswith(op) for o in ops) != staged:
+                raise AssertionError(f"K22 {name}: {op} "
+                                     f"{'missing' if staged else 'present'}")
+    k22_shapes = {(m, w): lr.round_shape(m, w) for m in lr.MODES
+                  for w in lr.WIDTHS}
+    walk_shapes = {m: mr.walk_shape(m) for m in ("fixed", "assemble",
+                                                  "shfl", "lanes")}
+    for key, shape in [*k22_shapes.items(), *walk_shapes.items()]:
+        if shape[0] <= 1:
+            raise AssertionError(f"{key} launches {shape[0]} block")
+
+    def held(what, got, want):
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(g, q) for g, q in zip(got, want)):
+            raise AssertionError(f"{what}: kernel != plain")
+
+    rays, blocks = lr.probe_inputs(device=dev)
+    for w, b in blocks.items():
+        for m in lr.MODES:
+            for n in (0, 1, 17):
+                held(f"K22 mode {m} w={w} at {n} rounds",
+                     lr.leafround_run(rays, b, n, m),
+                     lr._leafround_ref(rays, b, n, m))
+    ntab, mrays = mr.probe_inputs(device=dev)
+    grays, tabs = gp.probe_inputs(device=dev)
+    for n in (0, 1, 17, 64):
+        for m in mr.MODES:
+            held(f"K23 {m} at {n} steps", mr.multirow_run(mrays, ntab, n, m,
+                                                          True),
+                 mr._multirow_ref(mrays, ntab, n, m))
+        for size, tab in tabs.items():
+            want = gp._gather_ref(grays, tab, n)
+            for m in gp.MODES:
+                held(f"K24 {m} S={size} at {n} steps",
+                     gp.gather_run(grays, tab, n, m, True), want)
+    cases = cases_module("multirow_cases")
+    for name in cases.ROUND_CASES:
+        for w in lr.WIDTHS:
+            r, b, n = (torch.from_numpy(a).to(dev) if hasattr(a, "shape")
+                       else a for a in cases.round_case(name, w))
+            for m in lr.MODES:
+                for k in sorted({0, 1, n, 17}):
+                    held(f"K22 mode {m} w={w} on the edge case {name} at "
+                         f"{k} rounds", lr.leafround_run(r, b, k, m),
+                         lr._leafround_ref(r, b, k, m))
+    for name in cases.WALK_CASES:
+        for kern in ("K23", "K24"):
+            r, t, n = (torch.from_numpy(a).to(dev) if hasattr(a, "shape")
+                       else a for a in cases.walk_case(name, kern))
+            for k in (0, 1, 3, 17, n):
+                if kern == "K23":
+                    for m in mr.MODES:
+                        held(f"K23 {m} on the edge case {name} at {k} steps",
+                             mr.multirow_run(r, t, k, m, True),
+                             mr._multirow_ref(r, t, k, m))
+                else:
+                    want = gp._gather_ref(r, t, k)
+                    for m in gp.MODES:
+                        held(f"K24 {m} on the edge case {name} at {k} steps",
+                             gp.gather_run(r, t, k, m, True), want)
+    log = lib.with_suffix(".log").read_text()
+    ptx = {**mr.ptxas_by_kernel(log, mr.round_key),
+           **mr.ptxas_by_kernel(log, mr.walk_key)}
+    return k22_sass, walk_sass, k22_shapes, walk_shapes, ptx
 
 
 def regroup_bound(upto, pairs, windows, blocks=1):
@@ -2558,6 +2670,8 @@ def packet8_phase(dev):
     the FP32 operations and the bytes of that run. Returns the JSON
     records."""
     t_phase = time.perf_counter()
+    k22_sass, walk_sass, k22_shapes, walk_shapes, mr_ptx = \
+        multirow_checks(dev)
     k21_sass = rp.mode_sass(common.sass_dump(_build.build("regroup_probe")))
     lanes = rp.source_lanes(
         (_build.CSRC_DIR / "regroup_probe.cu").read_text())
@@ -2615,19 +2729,46 @@ def packet8_phase(dev):
           f"(UBLKCP, SYNCS) and no shared-memory atomic: {k21_sass}; the "
           f"ring {rp.ring_bytes()} B of dynamic shared memory a block")
     lo, hi = lr.ROUNDS_PAIR
+    copy_trip = ROUND_TRIPS.get("k15a", float("nan"))
     for (m, w), v in k22["modes"].items():
-        fetched = 8 * 16 * w * 4 * lo if m == 2 else 0
+        clusters = (lr.clusters_visited(lr_rays, lr_blocks[w], lo) if m == 2
+                    else 0)
         bnd = bound(MT_FLOPS * mr.TILE * w * lo,
-                    fetched + 4 * (6 + 1) * mr.TILE)
-        recs.append(record(f"leafround_m{m}_w{w}", "multirow_probes.cu",
-                           "experiments/leafround_probe.py:39",
-                           launches[f"leafround_probe.{m}"], 0.0, v["t"][0],
-                           v["plain_ms"], bnd))
+                    lr.round_bytes(m, w, clusters))
+        sass, shape = k22_sass[m, w], k22_shapes[m, w]
+        floor = mr.round_floor(sass, shape)
+        chain = sass[2] / mr.WARP_ISSUE_RATE * 1e9
+        latency = (chain + (copy_trip if m == 2 else 0.0) if m else None)
+        ptx = mr_ptx.get((m, w), "")
+        rec = record(f"leafround_m{m}_w{w}", "multirow_probes.cu",
+                     "experiments/leafround_probe.py:39",
+                     launches[f"leafround_probe.{m}"], 0.0, v["t"][0],
+                     v["plain_ms"], bnd)
+        rec.update(ns_a_round=v["ns"], sass=sass, shape=shape, ptxas=ptx,
+                   clusters=clusters, floor_ms=floor * lo / 1e6,
+                   chain_ns=chain, latency_floor_ns=latency)
+        recs.append(rec)
+        lat = ("no chain" if latency is None else
+               f"latency floor {latency:.1f} ns a round (the chain step's "
+               f"issue {chain:.1f} ns" + (f" + K15a's copy {copy_trip:.1f} "
+                                          f"ns" if m == 2 else "") + ")")
         phase("kernel", f"K22 LEAF_MODE {m} w={w}: bit-equal to plain at "
               f"{lr.CHECK_STEPS} and {lo} rounds; {v['ns']:.1f} ns an 8-row "
               f"leaf round (t({lo}) {v['t'][0]:.4f} ms, t({hi}) "
-              f"{v['t'][1]:.4f} ms, 1 SM); plain t({lo}) {v['plain_ms']:.3f} "
-              f"ms; bound {bnd[0]:.5f} ms by {bnd[1]}")
+              f"{v['t'][1]:.4f} ms; {shape[0]} blocks of {shape[1]} threads, "
+              f"{shape[2]} B of dynamic shared memory, {ptx}); plain "
+              f"t({lo}) {v['plain_ms']:.3f} ms; bound {bnd[0]:.5f} ms by "
+              f"{bnd[1]} ({clusters} distinct clusters); SASS {sass} (a "
+              f"consumer warp's round, its tests a lane, the producer's chain "
+              f"step), issue-rate floor {floor:.1f} ns a round "
+              f"({rec['floor_ms']:.5f} ms); {lat}")
+    for w in lr.WIDTHS:  # the division repair's witness
+        ns0, ns2 = k22["modes"][0, w]["ns"], k22["modes"][2, w]["ns"]
+        if ns0 > ns2:
+            raise AssertionError(f"K22 w={w}: mode 0 reads {ns0:.1f} ns a "
+                                 f"round, slower than mode 2's {ns2:.1f}")
+    trip = ROUND_TRIPS.get("k17a_smem", float("nan"))
+    l2_trip = ROUND_TRIPS.get("k17a_l2", float("nan"))
     for k_id, res, mod, line, pair in (
             ("K23", k23, mr, "experiments/multirow_probe.py:57", mr.STEPS),
             ("K24", k24, gp, "experiments/gather_probe.py:49", gp.STEPS)):
@@ -2636,19 +2777,47 @@ def packet8_phase(dev):
             m = key if k_id == "K23" else key[0]
             name = (f"multirow_{m}" if k_id == "K23" else
                     f"gather_{m}_S{key[1]}")
-            rows = 0 if m == "fixed" else 12 * mr.ROWS * 4 * lo
-            bnd = bound(WALK_FLOPS * mr.TILE * lo,
-                        rows + 4 * 7 * mr.TILE + 4 * mr.TILE)
+            if m == "fixed":
+                pairs = 0
+            elif k_id == "K23":  # the trajectory by the kernel, uncounted
+                n = ntab.numel() // 6
+                _, idx, _ = mr._multirow(mr_rays, ntab, lo, m, True,
+                                         mr._lib())
+                pairs = mr.pairs_visited(
+                    torch.arange(mr.ROWS, device=dev) % (n // 2 - 1) + 1,
+                    idx)
+            else:
+                tab = gp_tabs[key[1]]
+                _, idx, _ = gp._gather(gp_rays, tab, lo, m, True, mr._lib())
+                pairs = mr.pairs_visited(gp.start_pairs(tab), idx)
+            bnd = bound(WALK_FLOPS * mr.TILE * lo, mr.walk_bytes(pairs))
+            sass = walk_sass[m, k_id == "K24"]
+            walk_shape = walk_shapes[m]
+            card_ns, warp_ns = mr.walk_floor(sass[0], walk_shape)
+            latency = warp_ns + (0.0 if m == "fixed" else trip)
+            ptx = mr_ptx.get((m, k_id == "K24"), "")
             mod_name = mod.__name__.rsplit(".", 1)[1]
-            recs.append(record(name, "multirow_probes.cu", line,
-                               launches[f"{mod_name}.{m}"], 0.0, v["t"][0],
-                               v["plain_ms"], bnd))
+            rec = record(name, "multirow_probes.cu", line,
+                         launches[f"{mod_name}.{m}"], 0.0, v["t"][0],
+                         v["plain_ms"], bnd)
+            rec.update(ns_a_step=v["ns"], sass=sass, shape=walk_shape,
+                       ptxas=ptx, pairs=pairs, floor_ms=card_ns * lo / 1e6,
+                       step_issue_ns=warp_ns, latency_floor_ns=latency,
+                       l2_trip_ns=l2_trip)
+            recs.append(rec)
             phase("kernel", f"{k_id} {name}: bit-equal to plain (acc, every "
                   f"step's idx and bs) at {mr.CHECK_STEPS} and {lo} steps; "
                   f"{v['ns']:.1f} ns an 8-row node step (t({lo}) "
-                  f"{v['t'][0]:.4f} ms, t({hi}) {v['t'][1]:.4f} ms, 1 SM); "
-                  f"plain t({lo}) {v['plain_ms']:.3f} ms; bound "
-                  f"{bnd[0]:.6f} ms by {bnd[1]}")
+                  f"{v['t'][0]:.4f} ms, t({hi}) {v['t'][1]:.4f} ms; "
+                  f"{walk_shape[0]} blocks of {walk_shape[1]} threads, {ptx});"
+                  f" plain t({lo}) {v['plain_ms']:.3f} ms; bound "
+                  f"{bnd[0]:.6f} ms by {bnd[1]} ({pairs} distinct pairs); "
+                  f"SASS {sass} (a warp's step, REDUX.SUM, BAR), issue-rate "
+                  f"floor {card_ns:.2f} ns a step card-wide, a step's issue "
+                  f"{warp_ns:.1f} ns, latency floor {latency:.1f} ns (+ "
+                  + ("none: constant boxes" if m == "fixed" else
+                     f"K17a smem's on-chip load {trip:.1f} ns; K17a l2's "
+                     f"{l2_trip:.1f} ns beside it") + ")")
     phase("kernel", f"packet probes: {k21['hits']} of {rp.R} rays hit in "
           f"K21's window; K22 lanes hit after {lr.ROUNDS_PAIR[0]} rounds "
           f"of mode 2: {k22['hits']}; launches {launches}; phase 17 in "

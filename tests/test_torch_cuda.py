@@ -58,6 +58,7 @@ import leaf_cases
 import leafmt_cases
 import micro_cases
 import mr_cases
+import multirow_cases
 import regroup_cases
 import rg_cases
 import sphere_cases
@@ -1653,14 +1654,129 @@ def test_regroup_wrapper_refuses_what_the_kernel_does_not_take(dev):
 def test_leafround_kernel_bit_equal(dev, mode, w):
     rays, blocks = lr.probe_inputs((w,), dev)
     before = lr.LAUNCHES[mode]
-    for rounds in (0, 1, 3, 17):
-        got = lr.leafround_run(rays, blocks[w], rounds, mode)
+    counts = (0, 1, 3, 17, lr.ROUNDS_PAIR[0])
+    got = {}
+    for rounds in counts:
+        got[rounds] = lr.leafround_run(rays, blocks[w], rounds, mode)
         want = lr._leafround_ref(rays, blocks[w], rounds, mode)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), rounds
-    assert lr.LAUNCHES[mode] == before + 4
-    if mode == 2:
-        assert (got < mr.FAR).any() and (got == mr.FAR).any()
+        assert torch.equal(got[rounds], want), rounds
+    assert lr.LAUNCHES[mode] == before + len(counts)
+    if mode == 2:  # after 17 rounds some lanes hit and some miss
+        assert (got[17] < mr.FAR).any() and (got[17] == mr.FAR).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", lr.WIDTHS)
+@pytest.mark.parametrize("name", list(multirow_cases.ROUND_CASES))
+def test_leafround_cases_kernel_bit_equal(dev, name, w):
+    """tests/multirow_cases.py's K22 cases on the card: the chain's two
+    branches, a tie across the split, a = 0 and |a| < 1e-7, t = 0.001, a
+    NaN origin, 0 and 1 rounds; every mode bit-equal to the plain version
+    at 0, 1, the case's rounds and 17."""
+    rays, blocks, n = multirow_cases.round_case(name, w)
+    rays = torch.from_numpy(rays).to(dev)
+    blocks = torch.from_numpy(blocks).to(dev)
+    for mode in lr.MODES:
+        for rounds in sorted({0, 1, n, 17}):
+            got = lr.leafround_run(rays, blocks, rounds, mode)
+            want = lr._leafround_ref(rays, blocks, rounds, mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (mode, rounds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K23", "K24"])
+@pytest.mark.parametrize("name", multirow_cases.WALK_CASES)
+def test_walk_cases_kernel_bit_equal(dev, name, kernel):
+    """tests/multirow_cases.py's walk cases on the card: the packed vote's
+    extremes (pref -128, +128, 0; a pop; one child on each side), the
+    bitstack through 0xFFFF and 0, the smallest tables; every fetch mode
+    bit-equal to the plain version, acc and every step's idx and bs."""
+    rays, tab, n = multirow_cases.walk_case(name, kernel)
+    rays, tab = torch.from_numpy(rays).to(dev), torch.from_numpy(tab).to(dev)
+    for mode in mr.MODES if kernel == "K23" else gp.MODES:
+        for steps in (0, 1, 3, 17, n):
+            if kernel == "K23":
+                got = mr.multirow_run(rays, tab, steps, mode, trace=True)
+                want = mr._multirow_ref(rays, tab, steps, mode)
+            else:
+                got = gp.gather_run(rays, tab, steps, mode, trace=True)
+                want = gp._gather_ref(rays, tab, steps)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, q) for g, q in zip(got, want)), (
+                mode, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["kRoundLanes:16,kRoundRays:8",
+                                  "kRoundLanes:8,kRoundRays:8",
+                                  "kRoundStages:1", "kRoundWhole:1",
+                                  "kWalkWarps:1", "kWalkWarps:2",
+                                  "kWalkWarpsFixed:4"])
+def test_multirow_variants_bit_equal(dev, spec):
+    """The variants the A/Bs time, built through ``common.variant``: K22
+    at other splits (a partial-warp merge), one stage, the whole block
+    copied; the walk at 1 and 2 warps a row, and K23 fixed at 4 (its
+    vote across warps); each bit-equal to the plain version in every mode,
+    not counted in LAUNCHES."""
+    own = (_build.CSRC_DIR / "multirow_probes.cu").read_text()
+    name = "test_" + spec.replace(":", "").replace(",", "_")
+    lib = mr.source_lib(name, common.variant(own, spec))[0]
+    before = (dict(lr.LAUNCHES), dict(mr.LAUNCHES), dict(gp.LAUNCHES))
+    rays, blocks = lr.probe_inputs(lr.WIDTHS, dev)
+    for w, b in blocks.items():
+        for mode in lr.MODES:
+            for rounds in (0, 1, 17, 256):
+                got = lr._leafround(rays, b, rounds, mode, lib)
+                want = lr._leafround_ref(rays, b, rounds, mode)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (w, mode, rounds)
+    ntab, mrays = mr.probe_inputs(device=dev)
+    grays, tabs = gp.probe_inputs((8, 128), dev)
+    for steps in (0, 1, 17, 100):
+        for mode in mr.MODES:
+            got = mr._multirow(mrays, ntab, steps, mode, True, lib)
+            want = mr._multirow_ref(mrays, ntab, steps, mode)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, q) for g, q in zip(got, want))
+        for tab in tabs.values():
+            want = gp._gather_ref(grays, tab, steps)
+            for mode in gp.MODES:
+                got = gp._gather(grays, tab, steps, mode, True, lib)
+                torch.cuda.synchronize()
+                assert all(torch.equal(g, q) for g, q in zip(got, want))
+    assert (dict(lr.LAUNCHES), dict(mr.LAUNCHES), dict(gp.LAUNCHES)) == before
+
+
+@pytest.mark.gpu
+def test_multirow_sass_and_launch_forms(dev):
+    """The build's SASS and launches: K22 in the spread form
+    (``round_sass``: a consumer's and the producer's round loops, one
+    REDUX.MIN each), mode 2 with the bulk copy and the mbarrier wait and
+    modes 0/1 with neither; the walk's step loop with one REDUX.SUM
+    (``walk_sass``); every launch over more than one block."""
+    dump = common.sass_dump(_build.build("multirow_probes"))
+    lanes = mr.source_constant(
+        (_build.CSRC_DIR / "multirow_probes.cu").read_text(), "kRoundLanes")
+    rounds = mr.round_sass(dump, lanes)
+    assert set(rounds) == {(m, w) for m in lr.MODES for w in lr.WIDTHS}
+    assert all(rounds[0, w][2] == 0 < rounds[2, w][2] for w in lr.WIDTHS)
+    assert set(mr.walk_sass(dump)) == {("fixed", False),
+                                       ("assemble", False),
+                                       ("shfl", True), ("lanes", True)}
+    for name, code in common.sass_functions(dump).items():
+        if "leafround_kernel" not in name:
+            continue
+        ops = {common.opcode(i) for _, i in code}
+        staged = "leafround_kernelILi2E" in name
+        for op in (common.BULK_COPY, common.BARRIER_WAIT):
+            assert any(o.startswith(op) for o in ops) == staged, (name, op)
+    for mode in lr.MODES:
+        for w in lr.WIDTHS:
+            assert lr.round_shape(mode, w)[0] > 1
+    for fetch in ("fixed", "assemble", "shfl", "lanes"):
+        assert mr.walk_shape(fetch)[0] > 1
 
 
 @pytest.mark.gpu
@@ -1675,6 +1791,18 @@ def test_leafround_wrapper_refuses_what_the_kernel_does_not_take(dev):
         lr.leafround_run(rays.double(), b, 1)
     with pytest.raises(ValueError, match="devices"):
         lr.leafround_run(rays.cpu(), b, 1)
+    # mode 2's bulk copy reads 16-byte aligned clusters
+    shifted = torch.empty(b.numel() + 1, device=dev)[1:].view(b.shape)
+    shifted.copy_(b)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lr.leafround_run(rays, shifted, 1, 2)
+    assert torch.equal(lr.leafround_run(rays, shifted, 3, 0),
+                       lr._leafround_ref(rays, shifted, 3, 0))
+    with pytest.raises(ValueError, match="2\\^31"):
+        lr.leafround_run(rays, b, 2 ** 31, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        lr.leafround_run(rays.transpose(1, 2).contiguous().transpose(1, 2),
+                         b, 1)
 
 
 @pytest.mark.gpu
@@ -1697,7 +1825,7 @@ def test_multirow_kernel_bit_equal(dev, mode):
 @pytest.mark.parametrize("s", [8, 16, 128])
 def test_gather_kernel_bit_equal(dev, mode, s):
     rays, tabs = gp.probe_inputs((s,), dev)
-    for steps in (0, 1, 3, 17, 100):
+    for steps in (0, 1, 3, 17, 64, 100, gp.STEPS[0]):
         got = gp.gather_run(rays, tabs[s], steps, mode, trace=True)
         want = gp._gather_ref(rays, tabs[s], steps)
         torch.cuda.synchronize()
@@ -1721,6 +1849,14 @@ def test_walk_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gp.gather_run(rays, tabs[8].reshape(12, -1), 1)
     with pytest.raises(ValueError, match="steps"):
         gp.gather_run(rays, tabs[8], -1)
+    # the C entry takes the steps as an int
+    with pytest.raises(ValueError, match="2\\^31"):
+        gp.gather_run(rays, tabs[8], 2 ** 31)
+    with pytest.raises(ValueError, match="2\\^31"):
+        mr.multirow_run(rays, ntab, 2 ** 31)
+    with pytest.raises(ValueError, match="contiguous"):
+        gp.gather_run(rays, tabs[8].transpose(2, 3).contiguous()
+                      .transpose(2, 3), 1)
 
 
 @pytest.mark.gpu

@@ -4,7 +4,14 @@ experiments``): K22's leaf round (``leafround_probe``), K23's node step
 (``gather_probe``), their plain versions against the JAX probes' TPU
 kernels in interpret mode (``experiments/leafround_probe.py``,
 ``multirow_probe.py`` and ``gather_probe.py``, each ``_kernel`` through
-its ``run``), on the TPU files' own seeded inputs.
+its ``run``), on the TPU files' own seeded inputs and on the edge cases
+of ``tests/multirow_cases.py`` (K22: the chain's two branches, a tie
+across a split's lanes, a = 0 and |a| < 1e-7 in a mode-2 cluster, t =
+0.001 exactly, a NaN origin, 0 and 1 rounds, at w = 32 and 64; the walks:
+all 128 lanes in both boxes with the right nearer and with the left
+nearer, the packed vote's extremes, pref = 0, a pop, one child on each
+side, the bitstack passing 0xFFFF and falling to 0, the smallest tables,
+K23 N = 32 and K24 S = 8).
 
 The three TPU files run their probe at import and read ``sys.argv`` there,
 so only their functions are compiled from the source, into a namespace
@@ -18,6 +25,10 @@ trajectory: the JAX kernel runs with its ``fori_loop`` wrapped to write
 each step's idx and bs of every row into the first lanes of its output
 (exact: they are below 2^24); acc is held on the other lanes. K22's loop
 is wrapped the same way to give each round's ids and lane 0's closest.
+The lanes follow the loop's step count, an input of the kernel, so one
+compile of a probe serves every count: K22's namespaces are kept by mode
+and rays (``_leafround_ns``), which every edge case shares but the seeded
+0 and 1 rounds.
 
 Tolerances. K23 and K24: the same float32 operations in the same order
 (no multiply-add to contract), so acc and the trajectories are exact. K22:
@@ -27,8 +38,13 @@ is held at rtol 1e-5 on the same lanes hit; a row's next cluster follows
 the last bit of lane 0's t, so a row whose chain parts from JAX's must
 part where that t differs. Modes 0 and 1 read a cluster scratch that
 nothing writes (ROADMAP C-18), and every lane misses on both sides. The
-CUDA kernels run only on a card: ``tests/test_torch_cuda.py`` holds them
-bit for bit against these plain versions.
+edge cases' constructed rays and triangles use exact arithmetic, so their
+t is held exactly, and so is each case's point: the chain's parity
+(chain_bits), the tied t (tie), no hit on the parallel triangles' row
+(parallel), 0.002 and not 0.001 (t_min), 1e30 on the NaN lanes
+(nan_origin), the bitstack's edges (votes). The CUDA kernels run only on a
+card: ``tests/test_torch_cuda.py`` holds them bit for bit against these
+plain versions, on the same cases in every mode.
 """
 
 import functools
@@ -41,6 +57,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import multirow_cases as mc
 from test_torch_probes_walk import _kernel_defs
 from tpu_pathtracer_torch.experiments import gather_probe as gp
 from tpu_pathtracer_torch.experiments import leafround_probe as lr
@@ -50,6 +67,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 STEPS = 5          # node steps of K23 and K24
 ROUNDS = 3         # leaf rounds of K22
 T_RTOL = 1e-5
+FAR = np.float32(mr.FAR)
 
 
 class _Over:
@@ -64,40 +82,40 @@ class _Over:
 
 
 def _traced_fori(lo, hi, body, init):
-    """A walk's ``fori_loop`` over its (idx, bs, acc) carry that returns,
-    in place of acc, step i's idx (8, 1) in lane i and its bs in lane
-    STEPS + i, and acc in lanes 2 STEPS to 127."""
+    """A walk's ``fori_loop`` (from 0 to its ``hi`` steps) over its (idx,
+    bs, acc) carry that returns, in place of acc, step i's idx (8, 1) in
+    lane i and its bs in lane hi + i, and acc in lanes 2 hi to 127."""
     lane = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1)
 
     def step(i, c):
         carry, tr = c
         carry = body(i, carry)
         tr = jnp.where(lane == i, carry[0].astype(jnp.float32), tr)
-        tr = jnp.where(lane == STEPS + i, carry[1].astype(jnp.float32), tr)
+        tr = jnp.where(lane == hi + i, carry[1].astype(jnp.float32), tr)
         return carry, tr
 
     (idx, bs, acc), tr = jax.lax.fori_loop(
         lo, hi, step, (init, jnp.zeros((8, 128), jnp.float32)))
-    return idx, bs, jnp.where(lane < 2 * STEPS, tr, acc)
+    return idx, bs, jnp.where(lane < 2 * hi, tr, acc)
 
 
 def _traced_rounds(lo, hi, body, init):
-    """K22's ``fori_loop`` over its (ids, closest) carry that returns, in
-    place of closest, the ids after round i in lane i, lane 0's closest
-    after round i in lane ROUNDS + i, and closest in lanes 2 ROUNDS to
-    127."""
+    """K22's ``fori_loop`` (from 0 to its ``hi`` rounds) over its (ids,
+    closest) carry that returns, in place of closest, the ids after round
+    i in lane i, lane 0's closest after round i in lane hi + i, and
+    closest in lanes 2 hi to 127."""
     lane = jax.lax.broadcasted_iota(jnp.int32, (8, 128), 1)
 
     def step(i, c):
         carry, tr = c
         ids, cl = body(i, carry)
         tr = jnp.where(lane == i, ids.astype(jnp.float32), tr)
-        tr = jnp.where(lane == ROUNDS + i, cl[:, :1], tr)
+        tr = jnp.where(lane == hi + i, cl[:, :1], tr)
         return (ids, cl), tr
 
     (ids, cl), tr = jax.lax.fori_loop(
         lo, hi, step, (init, jnp.zeros((8, 128), jnp.float32)))
-    return ids, jnp.where(lane < 2 * ROUNDS, tr, cl)
+    return ids, jnp.where(lane < 2 * hi, tr, cl)
 
 
 def _namespace(traced=None, **glob):
@@ -111,16 +129,29 @@ def _namespace(traced=None, **glob):
                 **glob)
 
 
-def _held(out, port):
+def _held(out, port, steps=STEPS):
     """A traced walk's output against the port's (acc, idx, bs): the
-    trajectory exact, and acc exact on lanes 2 STEPS to 127."""
+    trajectory exact, and acc exact on lanes 2 steps to 127. Returns the
+    port's (idx, bs)."""
     out = np.asarray(out)
     acc, idx, bs = (a.numpy() for a in port)
-    np.testing.assert_array_equal(out[:, :STEPS].T.astype(np.int32), idx)
-    np.testing.assert_array_equal(out[:, STEPS:2 * STEPS].T.astype(np.int32),
+    np.testing.assert_array_equal(out[:, :steps].T.astype(np.int32), idx)
+    np.testing.assert_array_equal(out[:, steps:2 * steps].T.astype(np.int32),
                                   bs)
-    np.testing.assert_array_equal(out[:, 2 * STEPS:], acc[:, 2 * STEPS:])
-    assert len(np.unique(idx)) > 4  # the rows walk somewhere
+    np.testing.assert_array_equal(out[:, 2 * steps:], acc[:, 2 * steps:])
+    return idx, bs
+
+
+def _bitstack_edges(case, idx, bs):
+    """The seeded rows walk somewhere; in ``votes`` rows 0-2 (both
+    children every step) reach 0xFFFF and stay there, rows 3-4 (one child
+    every step) fall to 0 and restart at 1, row 5 pops every step."""
+    if case is None:
+        assert len(np.unique(idx)) > 4
+    elif case == "votes":
+        assert (bs[-4:, :3] == 0xFFFF).all()
+        assert (bs[:, 3:5] == 1).any(0).all()
+        assert (bs[:, 5] < 0x15 + 1).all()
 
 
 @pytest.fixture(scope="module")
@@ -128,16 +159,29 @@ def multirow():
     return mr.probe_inputs(device="cpu")
 
 
-@pytest.mark.parametrize("mode", mr.MODES)
-def test_multirow_matches_jax_kernel(multirow, mode):
-    ntab, rays = multirow
+# the seeded inputs under their own ids, then each edge case
+WALK_K23 = [pytest.param(None, m, id=m) for m in mr.MODES] + [
+    pytest.param(c, m, id=f"{c}-{m}") for m in mr.MODES
+    for c in mc.WALK_CASES]
+
+
+@pytest.mark.parametrize("case, mode", WALK_K23)
+def test_multirow_matches_jax_kernel(multirow, case, mode):
+    if case is None:
+        (ntab, rays), steps = multirow, STEPS
+    else:
+        rays_np, ntab_np, steps = mc.walk_case(case, "K23")
+        rays, ntab = torch.from_numpy(rays_np), torch.from_numpy(ntab_np)
     names = ("_vec8", "_ctz8", "_kernel", "run")
 
     ns = _kernel_defs("multirow_probe", names, _namespace(
-        _traced_fori, N=mr.N, ntab=jnp.asarray(ntab.numpy()),
+        _traced_fori, N=ntab.numel() // 6, ntab=jnp.asarray(ntab.numpy()),
         rays=jnp.asarray(rays.numpy()), _ROWI=None))
-    _held(ns["run"](STEPS, mode),
-          mr.multirow_run(rays, ntab, STEPS, mode, trace=True))
+    idx, bs = _held(ns["run"](steps, mode),
+                    mr.multirow_run(rays, ntab, steps, mode, trace=True),
+                    steps)
+    if case is None or mode == "assemble":
+        _bitstack_edges(case, idx, bs)
 
 
 @pytest.fixture(scope="module")
@@ -145,15 +189,34 @@ def gather():
     return gp.probe_inputs((8, 16), device="cpu")
 
 
-@pytest.mark.parametrize("s", [8, 16])
-def test_gather_matches_jax_kernel(gather, s):
-    rays, tabs = gather
+WALK_K24 = [pytest.param(s, None, id=str(s)) for s in (8, 16)] + [
+    pytest.param(None, c, id=c) for c in mc.WALK_CASES]
+
+
+@pytest.mark.parametrize("s, case", WALK_K24)
+def test_gather_matches_jax_kernel(gather, s, case):
+    if case is None:
+        (rays, tabs), steps = gather, STEPS
+        tab = tabs[s]
+    else:
+        rays_np, tab_np, steps = mc.walk_case(case, "K24")
+        rays, tab = torch.from_numpy(rays_np), torch.from_numpy(tab_np)
+        s = tab.shape[1] * 8
     names = ("_ctz8v", "_kernel", "run")
 
     ns = _kernel_defs("gather_probe", names, _namespace(
         _traced_fori, rays=jnp.asarray(rays.numpy())))
-    _held(ns["run"](STEPS, jnp.asarray(tabs[s].numpy()), s),
-          gp.gather_run(rays, tabs[s], STEPS, "shfl", trace=True))
+    idx, bs = _held(ns["run"](steps, jnp.asarray(tab.numpy()), s),
+                    gp.gather_run(rays, tab, steps, "shfl", trace=True),
+                    steps)
+    _bitstack_edges(case, idx, bs)
+
+
+def test_votes_case_reaches_the_vote_extremes():
+    """The ``votes`` rows' first votes: pref -128 and +128 with every lane
+    in both boxes, 0, one child on each side, a pop and a mix."""
+    rays, _, _ = mc.walk_case("votes", "K24")
+    assert mc.first_votes(rays)[:7] == list(mc.VOTES)
 
 
 def test_gather_inputs_follow_the_tpu_draw_order(gather):
@@ -170,43 +233,102 @@ def leafround():
     return lr.probe_inputs((32,), device="cpu")
 
 
-@pytest.mark.parametrize("mode", [0, 2])
-def test_leafround_matches_jax_kernel(leafround, mode):
+_LEAFROUND_NS = {}
+
+
+def _leafround_ns(mode, rays):
+    """The JAX K22 probe's namespace in ``mode`` over ``rays`` ((7, 8, 128)
+    f32, a module constant of the TPU file), kept by both: its ``run`` is
+    jitted on the width, and the rounds are an input, so each (mode, rays,
+    w) compiles once."""
+    key = (mode, rays.tobytes())
+    if key not in _LEAFROUND_NS:
+        _LEAFROUND_NS[key] = _kernel_defs(
+            "leafround_probe", ("_kernel", "run"), _namespace(
+                _traced_rounds, MODE=mode, C=lr.C, rays=jnp.asarray(rays)))
+    return _LEAFROUND_NS[key]
+
+
+# the seeded inputs at w = 32 under their own ids, then each edge case in
+# mode 2 at both widths
+ROUND_PARAMS = [pytest.param(m, None, 32, id=str(m)) for m in (0, 2)] + [
+    pytest.param(2, c, w, id=f"{c}-{w}") for c in mc.ROUND_CASES
+    for w in lr.WIDTHS]
+
+
+@pytest.mark.parametrize("mode, case, w", ROUND_PARAMS)
+def test_leafround_matches_jax_kernel(leafround, mode, case, w):
     """Per round, the ids and lane 0's closest of each row, and closest
-    after ROUNDS rounds. A row's chain follows the parity of lane 0's t,
+    after the rounds. A row's chain follows the parity of lane 0's t,
     which XLA's FMAs flip on some rows: each row the two sides walk apart
     must part where lane 0's t differs between them, within T_RTOL; the
-    other rows end on the same hits, t within T_RTOL."""
-    rays, blocks = leafround
-    w, b = 32, blocks[32]
-    ns = _kernel_defs("leafround_probe", ("_kernel", "run"), _namespace(
-        _traced_rounds, MODE=mode, C=lr.C, rays=jnp.asarray(rays.numpy())))
-    out = np.asarray(ns["run"](ROUNDS, jnp.asarray(b.numpy()), b.shape[1],
+    other rows end on the same hits, t within T_RTOL. An edge case also
+    holds its point (``_round_case_point``)."""
+    if case is None:
+        (rays, blocks), rounds = leafround, ROUNDS
+        b = blocks[w]
+    else:
+        rays_np, b_np, rounds = mc.round_case(case, w)
+        rays, b = torch.from_numpy(rays_np), torch.from_numpy(b_np)
+    ns = _leafround_ns(mode, rays.numpy())
+    out = np.asarray(ns["run"](rounds, jnp.asarray(b.numpy()), b.shape[1],
                                w))
-    j_ids = out[:, :ROUNDS].T.astype(np.int64)          # [ROUNDS, 8]
-    j_l0 = out[:, ROUNDS:2 * ROUNDS].T                  # [ROUNDS, 8]
+    j_ids = out[:, :rounds].T.astype(np.int64)          # [rounds, 8]
+    j_l0 = out[:, rounds:2 * rounds].T                  # [rounds, 8]
     trail = []
-    lr._leafround_ref(rays, b, ROUNDS + 1, mode, trail)
-    p_ids = torch.stack(trail[1:]).numpy()
+    lr._leafround_ref(rays, b, rounds + 1, mode, trail)
+    p_ids = (torch.stack(trail[1:]).numpy() if rounds else
+             np.zeros((0, 8), np.int64))
     p_l0 = np.stack([lr.leafround_run(rays, b, r, mode)[:, 0].numpy()
-                     for r in range(1, ROUNDS + 1)])
-    p = lr.leafround_run(rays, b, ROUNDS, mode).numpy()
-    far = np.float32(mr.FAR)
+                     for r in range(1, rounds + 1)] or [np.zeros(8)])
+    p_all = lr.leafround_run(rays, b, rounds, mode).numpy()
     same = np.ones(8, bool)
-    for k in range(ROUNDS):
+    for k in range(rounds):
         part = same & (j_ids[k] != p_ids[k])
         assert (j_l0[k][part] != p_l0[k][part]).all()
         np.testing.assert_allclose(j_l0[k][same], p_l0[k][same],
                                    rtol=T_RTOL, atol=0)
         same &= ~part
-    j, p = out[same, 2 * ROUNDS:], p[same, 2 * ROUNDS:]
-    np.testing.assert_array_equal(j < far, p < far)
-    if mode == 2:
-        assert same.sum() >= 4 and 0 < (p < far).sum() < p.size
-        np.testing.assert_allclose(p[p < far], j[p < far], rtol=T_RTOL,
-                                   atol=0)
+    j, p = out[same, 2 * rounds:], p_all[same, 2 * rounds:]
+    np.testing.assert_array_equal(j < FAR, p < FAR)
+    np.testing.assert_allclose(p[p < FAR], j[p < FAR], rtol=T_RTOL, atol=0)
+    if case is not None:
+        _round_case_point(case, rounds, out, p_all, same, (j_ids, j_l0),
+                          (p_ids, p_l0))
+    elif mode == 2:
+        assert same.sum() >= 4 and 0 < (p < FAR).sum() < p.size
     else:
-        assert same.all() and (p == far).all()  # C-18: all miss
+        assert same.all() and (p == FAR).all()  # C-18: all miss
+
+
+def _round_case_point(case, rounds, out, p, same, jax_trail, port_trail):
+    """What a K22 edge case is for, on both sides: (ids, lane 0's t) a
+    round of the JAX kernel and of the port, closest after the rounds."""
+    (j_ids, j_l0), (p_ids, p_l0) = jax_trail, port_trail
+    lanes = np.arange(128) >= 2 * rounds
+    if rounds == 0:
+        assert (p == FAR).all() and (out[:, lanes] == FAR).all()
+    elif case == "chain_bits":
+        # lane 0's t after round 0 is exact on both sides, its low bit the
+        # chain's branch: row 0 takes + 1, row 1 + 2
+        for row, t in ((0, mc.T_EVEN), (1, mc.T_ODD)):
+            assert j_l0[0][row] == p_l0[0][row] == t
+        assert (j_ids[0][:2] == p_ids[0][:2]).all()
+        first = np.array([mc._first(0), mc._first(1)])
+        assert (p_ids[0][:2] == (first * 5 + 1 + np.array([0, 1])) & 1023
+                ).all()
+    elif case == "tie":
+        assert j_l0[0][mc.TIE_ROW] == p_l0[0][mc.TIE_ROW] == mc.T_TIE
+    elif case == "parallel":
+        assert (p[mc.PAR_ROW] == FAR).all() and same[mc.PAR_ROW]
+        assert (out[mc.PAR_ROW, lanes] == FAR).all()
+    elif case == "t_min":
+        assert p[mc.T_MIN_ROW, mc.T_MIN_LANE] == np.float32(2e-3)
+        assert out[mc.T_MIN_ROW, mc.T_MIN_LANE] == np.float32(2e-3)
+    elif case == "nan_origin":
+        for row, lane, _ in mc.NAN_LANES:
+            assert p[row, lane] == FAR
+        assert (p_l0[:, 6] == FAR).all() and (j_l0[:, 6] == FAR).all()
 
 
 def test_leafround_mode_1_equals_mode_0(leafround):
