@@ -180,8 +180,15 @@ line each; any failure raises and exits non-zero:
      and the latency the prefetch hides;
  16. the TPU micro-benchmarks on the TPU file's seeded inputs, counts from
      0 (``tpu_micro.measure``): K17a (the per-lane gather, modes l2 and
-     smem) and K17c (the one-hot fetch as a bf16 gather) at the TPU's
-     lanes and at 131,072, K17b (the row broadcast and block vote), K18
+     smem) and K17c (the one-hot fetch: the table's bf16 view built in
+     each call by its own kernel, then one 16 B row a lane a step) at the
+     TPU's lanes and at 131,072, K17b (the row broadcast and block vote:
+     one block, one barrier a step, every warp summing the group partials
+     itself; NaN-propagating maxima), first held bit-equal to their plain
+     versions (NaN equal to NaN) on every case of tests/micro_cases.py,
+     K17c's non-finite tables refused, K17b's step loop checked for one
+     block-wide barrier and K17c's for one 16 B load
+     (``tpu_micro.vote_sass``, ``onehot_sass``), K18
      (the 8 KB copy chain, the next block from the copied data: one warp,
      one bulk copy on an mbarrier a step; its chain loop's SASS checked
      for the bulk copy and the wait, ``tpu_micro.copy_sass``), K19 and K20
@@ -192,12 +199,16 @@ line each; any failure raises and exits non-zero:
      their SASS checked by ``tpu_micro.leaf_sass``, UBLKCP and
      SYNCS.PHASECHK in K19 and in K20 neither, and each launch more than
      one block), each bit-equal to its plain version at 3 steps and at the
-     lower count of its pair, then timed in turns at the TPU file's pairs:
-     ns a step, a lane-step, a copy (beside K18's issue-rate floor) and a
-     leaf (beside the issue-rate floor of the build's leaf loops and the
-     chain's latency floor: its step's issue and K18's copy or K17a's L2
-     round trip, both this run's); one torch.gather at the same lanes
-     beside K17a and K17c;
+     lower count of its pair, then timed in turns at the TPU file's pairs,
+     device time a call in a CUDA graph: ns a step, a lane-step (K17b and
+     K17c beside the issue-rate floor of their step loops and a latency
+     floor: one warp's step and K17a's round trip of the memory it reads,
+     this run's; K17b beside the bytes of the rows its chain visits, K17c
+     beside its view build's own time, a record of its own), a copy
+     (beside K18's issue-rate floor) and a leaf (beside the issue-rate
+     floor of the build's leaf loops and the chain's latency floor: its
+     step's issue and K18's copy or K17a's L2 round trip, both this
+     run's); one torch.gather at the same lanes beside K17a and K17c;
  17. the regrouped leaf phase and the 8-row packet probes on the TPU
      files' seeded inputs, counts from 0: K21 (``regroup_probe``, modes
      ct, g, ray, tri, mt, full; the clusters staged by the bulk-copy
@@ -507,6 +518,15 @@ BENCH_READINGS = {}
 
 def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
+
+
+def phase_seconds(number, t0):
+    """Print phase ``number``'s seconds since ``t0`` (the phases that do
+    not print their own: 1-14); returns the time now, the next phase's
+    start."""
+    now = time.perf_counter()
+    phase("seconds", f"phase {number} in {now - t0:.1f} s")
+    return now
 
 
 def cuda_ms(fn, reps=7):
@@ -1250,6 +1270,7 @@ def mx_path(sets, view, eps):
 def spheres_path(dev):
     """Phases 3-5 and 3b. Returns the headline's profile (phase 14, to run
     after config 4's frame) and the JSON records of K1, K2 and K3."""
+    t_phase = time.perf_counter()
     built = bench.build_frame(bench.FRAMES["headline"], dev)
     cfg, scene, cam = built.cfg, built.scene, built.cam
     view = wf.make_view(scene, cfg)
@@ -1270,12 +1291,15 @@ def spheres_path(dev):
     pool = {name: sphere_pool(f"spheres {name}", o, d, view, cfg.epsilon)
             for name, (o, d) in (("primary", (o1, d1)),
                                  ("bounce-2", (o2, d2)))}
+    t_phase = phase_seconds("3", t_phase)
     mx_recs = mx_path({"primary": (o1, d1), "bounce-2": (o2, d2)}, view,
                       cfg.epsilon)
+    t_phase = phase_seconds("3b", t_phase)
 
     scfg = RenderConfig(**SMALL)
     sscene, scam = random_spheres_scene(scfg.nx, scfg.ny, device=dev)
     small_renders("spheres", sscene, scam, scfg, plain_spheres())
+    t_phase = phase_seconds("4", t_phase)
 
     # K1 alone: no mx sphere kernel, no triangle or probe kernel
     run = frame_run("headline", "headline", "headline", built,
@@ -1284,6 +1308,7 @@ def spheres_path(dev):
     if run.timed.image.shape != (cfg.ny, cfg.nx, 3):
         raise AssertionError(f"bad image: shape {run.timed.image.shape}")
     BENCH_READINGS["headline"] = run.timed.seconds
+    phase_seconds("5", t_phase)
     k1_rec = record("spheres_hit_feat", "spheres.cu",
                     OPS + "pallas_spheres.py:73", launches, max(err1, err2),
                     ms, plain_ms, bnd)
@@ -1314,6 +1339,7 @@ def staircase_path(dev):
     after the last full-size frame but the dragon's, as config 4's does)
     and the kernel's JSON records (features mode, the nearest hit of the
     path, and any-hit, its shadow rays)."""
+    t_phase = time.perf_counter()
     built = bench.build_frame(bench.FRAMES["staircase"], dev)
     cfg, scene, cam = built.cfg, built.scene, built.cam
     view = wf.make_view(scene, cfg)
@@ -1326,15 +1352,18 @@ def staircase_path(dev):
     times = tri_shapes({"primary": (o1, d1, t1, False),
                         "bounce-2": (o2, d2, t2, False),
                         "NEE shadows": (*shadow, True)}, view, cfg.epsilon)
+    t_phase = phase_seconds("6", t_phase)
 
     scfg = RenderConfig(**SMALL)
     sscene, scam = procedural_staircase_scene(scfg.nx, scfg.ny, device=dev)
     small_renders("staircase", sscene, scam, scfg, plain)
+    t_phase = phase_seconds("7", t_phase)
 
     run = frame_run("staircase", "staircase", "staircase", built,
                     TIER_KERNELS["brute"])
     launches = {k.split(".")[1]: v for k, v in run.timed.launches.items()}
     BENCH_READINGS["staircase"] = run.timed.seconds
+    phase_seconds("8", t_phase)
     # profiled later: a profiler session slows the host's launches of the
     # frames that follow it in the process (PERF.md)
     profile = functools.partial(profile_frame, "staircase-toy", scene, cam,
@@ -1687,6 +1716,7 @@ def graph_record(name, source, replaces, launches, check, graph, pool,
 def staircase_hires_path(dev):
     """Phases 9, 11 and 12. Returns config 4's profile (phase 14, to run
     after the timed frames) and the JSON records of K8 and K9."""
+    t_phase = time.perf_counter()
     frame = bench.FRAMES["staircase_hires"]
     built = bench.build_frame(frame, dev)
     scene, cam = built.scene, built.cam
@@ -1710,6 +1740,7 @@ def staircase_hires_path(dev):
         cfg.epsilon)
     graph = graph_phase(tag, kern, {**rays, **pool}, checks, cfg.epsilon,
                         BVH4_SASS)
+    t_phase = phase_seconds("9", t_phase)
 
     scfg = RenderConfig(**SMALL)
     sscene, scam = procedural_staircase_scene(scfg.nx, scfg.ny, device=dev,
@@ -1728,6 +1759,7 @@ def staircase_hires_path(dev):
     phase("small", f"staircase-hires bvh4=False (heap kernels "
           f"{dict(cb.LAUNCHES)}) vs BVH4: rmse {r:.3e} ssim {s:.6f} max "
           f"|diff| {np.abs(img_h - img4).max():.3e}")
+    t_phase = phase_seconds("11", t_phase)
 
     # config 4: the bench's staircase-hires frame (2 spp, timed and
     # gated), then 100 spp on the warm frame
@@ -1746,6 +1778,7 @@ def staircase_hires_path(dev):
           f"{t.wall:.3f} s), {paths / t.seconds / 1e6:.3f} Mpaths/s, "
           f"{t.iters} regen iterations ({t.seconds / t.iters * 1e3:.2f} ms "
           f"each), kernel launches {launches}, mean {t.image.mean():.4f}")
+    phase_seconds("12", t_phase)
     # profiled later: a profiler session slows the host's launches of the
     # frames timed after it
     profile = functools.partial(profile_frame, "config 4", scene, cam, cfg,
@@ -2401,28 +2434,17 @@ def micro_bound(key, lanes, steps, clusters=0):
     return bound(flops, nbytes)
 
 
-def cases_module(name):
-    """tests/<name>.py of this checkout (a kernel's edge inputs, such as
-    K19/K20's leaf_cases or K22-K24's multirow_cases; they import no JAX),
-    loaded by its path."""
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        f"{name}.py")
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+cases_module = common.cases_module
 
 
-def leaf_checks(dev):
+def leaf_checks(dev, dump):
     """K19/K20 before phase 16's run: the build's SASS (``leaf_sass``:
     raises on another form; K19 holds the bulk copy and the mbarrier wait,
     K20 neither), each launch spread over more than one block, and both
     kernels bit-equal to the plain version at 0, 1 and each case's leaves
     on every case of tests/leaf_cases.py. Returns (SASS, launch shapes,
-    ptxas lines)."""
+    ptxas lines). ``dump``: the build's SASS."""
     lib = _build.build("tpu_micro")
-    dump = common.sass_dump(lib)
     sass = um.leaf_sass(dump)
     ops = {("E8" if "leaf_smem" in n else "E9"):
            {common.opcode(i) for _, i in c}
@@ -2450,7 +2472,68 @@ def leaf_checks(dev):
                     raise AssertionError(f"{exp} on the edge case {name} at "
                                          f"{k} leaves: kernel != plain on "
                                          f"{int((got != want).sum())} lanes")
-    return sass, shapes, um.leaf_ptxas(lib.with_suffix(".log").read_text())
+    ptx = um.kernel_ptxas(lib.with_suffix(".log").read_text())
+    return sass, shapes, {k: ptx[k] for k in ("E8", "E9")}
+
+
+def micro_checks(dev, dump):
+    """K17b/K17c before phase 16's run: the build's SASS (``vote_sass``:
+    one block-wide barrier in K17b's step loop; ``onehot_sass``: one 16 B
+    load a lane in K17c's), both kernels bit-equal to their plain versions
+    with NaN equal to NaN (``tpu_micro.same``) at 0, 1 and each case's
+    steps on every E4 and E7 case of tests/micro_cases.py, K17c's view
+    bit-equal to the plain view, and every table of its ``REFUSED``
+    refused (ROADMAP C-20). ``dump``: the build's SASS. Returns (K17b's
+    SASS, K17c's, ptxas lines by kernel)."""
+    lib = _build.build("tpu_micro")
+    vote, onehot = um.vote_sass(dump), um.onehot_sass(dump)
+    if vote[1] != 1:
+        raise AssertionError(f"K17b's step loop holds {vote[1]} block-wide "
+                             f"barriers, not one")
+    if onehot[1:] != (1, 1):
+        raise AssertionError(f"K17c's step loop holds {onehot[1]} global "
+                             f"loads, {onehot[2]} of 16 B, not one")
+    cases = cases_module("micro_cases")
+    on = lambda arrays: [torch.from_numpy(a).to(dev) for a in arrays]
+    for name, steps in cases.VOTE_CASES.items():
+        rows, x = on(cases.vote_case(name))
+        for k in sorted({0, 1, steps}):
+            got, want = um.row_vote_chain(rows, x, k), um._row_vote_ref(
+                rows, x, k)
+            torch.cuda.synchronize()
+            if not um.same(got, want):
+                raise AssertionError(f"K17b on the case {name} at {k} steps:"
+                                     f" kernel != plain on "
+                                     f"{um.differ(got, want)} lanes")
+    for name, steps in cases.ONEHOT_CASES.items():
+        table, idx = on(cases.onehot_case(name))
+        view = um.onehot_view(table)
+        if not torch.equal(view.view(torch.int16),
+                           um._view_ref(table).view(torch.int16)):
+            raise AssertionError(f"K17c's view of the case {name} != plain")
+        for k in sorted({0, 1, steps}):
+            got, want = um.onehot_chain(table, idx, k), um._onehot_ref(
+                table, idx, k)
+            torch.cuda.synchronize()
+            if not um.same(got, want):
+                raise AssertionError(f"K17c on the case {name} at {k} steps:"
+                                     f" kernel != plain on "
+                                     f"{um.differ(got, want)} lanes")
+    _, idx = on(cases.onehot_case("ties"))
+    for name in cases.REFUSED:
+        try:
+            um.onehot_chain(*on([cases.refused_table(name)]), idx, 1)
+        except ValueError:
+            continue
+        raise AssertionError(f"K17c took the table {name}, which is not "
+                             f"finite in bf16 (C-20)")
+    phase("kernel", f"K17b/K17c: bit-equal to plain (NaN equal to NaN) on "
+          f"the cases {', '.join(cases.VOTE_CASES)} and "
+          f"{', '.join(cases.ONEHOT_CASES)}; the tables "
+          f"{', '.join(cases.REFUSED)} refused; step loops {vote} (K17b: "
+          f"instructions, barriers, shuffles) and {onehot} (K17c: "
+          f"instructions, loads, 16 B loads)")
+    return vote, onehot, um.kernel_ptxas(lib.with_suffix(".log").read_text())
 
 
 def micro_phase(dev):
@@ -2461,24 +2544,31 @@ def micro_phase(dev):
     the TPU's lanes and at 131,072, K17b (E4), K18 (E5), K19 (E8) and K20
     (E9), each held bit-equal to its plain version at 3 steps and at the
     lower step count of its pair, then timed in turns at the TPU file's
-    pairs (K19 with K20: the A/B of a leaf read from shared memory as a
-    broadcast against per-lane loads); beside K17a and K17c one
-    ``torch.gather`` at the same lanes (one step's gather, not the chain).
-    Records at the lower step count. Returns the JSON records."""
+    pairs, device time a call in a CUDA graph (K19 with K20: the A/B of a
+    leaf read from shared memory as a broadcast against per-lane loads);
+    beside K17a and K17c one ``torch.gather`` at the same lanes (one
+    step's gather, not the chain). K17b/K17c's checks (``micro_checks``)
+    come before too. Records at the lower step count, and one for K17c's
+    view build. Returns the JSON records."""
     t_phase = time.perf_counter()
     inp = um.probe_inputs(dev)
-    k18_sass = um.copy_sass(common.sass_dump(_build.build("tpu_micro")))
+    dump = common.sass_dump(_build.build("tpu_micro"))
+    k18_sass = um.copy_sass(dump)
     if k18_sass[1:] != (1, 1):
         raise AssertionError(f"K18's chain loop holds {k18_sass[1]} bulk "
                              f"copies and {k18_sass[2]} mbarrier waits, "
                              f"not one each")
-    leaf_sass, leaf_shapes, leaf_ptx = leaf_checks(dev)
+    leaf_sass, leaf_shapes, leaf_ptx = leaf_checks(dev, dump)
+    vote_sass, onehot_sass, ptx = micro_checks(dev, dump)
+    own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
+    warps = um.source_constant(own, "kVoteWarps", um.TILE // 32)
+    threads = um.source_constant(own, "kOnehotThreads", 256)
     lo8 = um.STEPS["E8"][0]
     clusters = len(set(um.chain_clusters(inp["blocks"][:um.LEAF_CLUSTERS],
                                          inp["x"], lo8)))
     torch.cuda.synchronize()
     bench.reset_launches((um,))
-    r = um.measure(inp, rounds=1)
+    r = um.measure(inp, rounds=2)
     launches = {f"tpu_micro.{k}": v for k, v in r["launches"].items()}
     for mode in ("l2", "smem"):  # the walk's latency floor and its context
         if (f"e3_{mode}", um.TILE) in r["kernels"]:
@@ -2504,6 +2594,49 @@ def micro_phase(dev):
             lib += (f"; chain loop {k18_sass} (instructions, bulk copies, "
                     f"waits), issue-rate floor {rec['floor_ms']:.4f} ms, "
                     f"{k18_sass[0] / um.WARP_ISSUE_RATE * 1e9:.1f} ns a copy")
+        if key == "e4":
+            # the issue-rate floor of the step loop's SASS over the SM's 4
+            # schedulers; the latency floor: one warp's step, then K17a
+            # smem's on-chip round trip (the partials), this run's
+            one = vote_sass[0] / um.WARP_ISSUE_RATE * 1e9
+            floor = um.vote_floor(vote_sass[0], warps)
+            trip = ROUND_TRIPS.get("k17a_smem", float("nan"))
+            # the bytes the chain really reads: its distinct 32 B rows once,
+            # x in and acc out
+            rows_bytes = r["e4_rows"] * 32 + 8 * lanes
+            rec.update(ns_a_step=v["ns"], sass=vote_sass, warps=warps,
+                       ptxas=ptx.get("E4"), floor_ms=floor * lo / 1e6,
+                       latency_floor_ns=one + trip, rows=r["e4_rows"],
+                       rows_bytes=rows_bytes,
+                       rows_bytes_ms=rows_bytes / common.HBM_RATE * 1e3)
+            lib += (f"; {warps} warps, {ptx.get('E4')}; step loop "
+                    f"{vote_sass} (instructions, barriers, shuffles), "
+                    f"issue-rate floor {floor:.1f} ns a step "
+                    f"({rec['floor_ms']:.4f} ms), one warp's step {one:.1f}"
+                    f" ns + K17a smem's round trip {trip:.1f} ns = latency "
+                    f"floor {one + trip:.1f} ns; {r['e4_rows']} distinct "
+                    f"rows, {rows_bytes} B with x and acc: "
+                    f"{rec['rows_bytes_ms']:.7f} ms at the memory rate")
+        if key == "e7":
+            # the latency floor: one warp's step, then K17a smem's on-chip
+            # round trip (a row that hits the L1); the 256 KB view does not
+            # stay whole in an SM's L1, so K17a l2's trip stands beside it
+            one = onehot_sass[0] / um.WARP_ISSUE_RATE * 1e9
+            floor = um.onehot_floor(onehot_sass[0], lanes, threads)
+            trip = ROUND_TRIPS.get("k17a_smem", float("nan"))
+            l2_trip = ROUND_TRIPS.get("k17a_l2", float("nan"))
+            rec.update(ns_a_step=v["ns"], sass=onehot_sass, threads=threads,
+                       ptxas=ptx.get("E7"), floor_ms=floor * lo / 1e6,
+                       latency_floor_ns=one + trip, l2_trip_ns=l2_trip,
+                       view_ms=r["e7_view_ms"])
+            lib += (f"; blocks of {threads}, {ptx.get('E7')}; step loop "
+                    f"{onehot_sass} (instructions, loads, 16 B loads), "
+                    f"issue-rate floor {floor:.1f} ns a step "
+                    f"({rec['floor_ms']:.4f} ms), one warp's step {one:.1f}"
+                    f" ns + K17a smem's round trip {trip:.1f} ns = latency "
+                    f"floor {one + trip:.1f} ns (K17a l2's trip "
+                    f"{l2_trip:.1f} ns beside it); the view build alone "
+                    f"{r['e7_view_ms'] * 1e3:.2f} us in each call")
         if key in ("e8", "e9"):
             exp = v["exp"]
             sass, shape = leaf_sass[exp], leaf_shapes[exp]
@@ -2535,12 +2668,29 @@ def micro_phase(dev):
             v["exp"], f"a step, {v['ns'] / lanes:.4f} a lane-step")
         phase("kernel", f"{k_id} {v['exp']} {key} at {lanes} lanes: "
               f"bit-equal to plain at {um.CHECK_STEPS} and {lo} steps; "
-              f"{v['ns']:.1f} ns {per} (t({lo}) {v['t'][0]:.4f} ms, "
+              f"{v['ns']:.1f} ns {per} (device time a call in a CUDA "
+              f"graph; t({lo}) {v['t'][0]:.4f} ms, "
               f"t({hi}) {v['t'][1]:.4f} ms, readings "
               f"{min(v['readings'][0]):.4f}-{max(v['readings'][0]):.4f} / "
               f"{min(v['readings'][1]):.4f}-{max(v['readings'][1]):.4f}); "
               f"plain t({lo}) {v['plain_ms']:.3f} ms{lib}; bound "
               f"{bnd[0]:.5f} ms by {bnd[1]}")
+    # K17c's view build, launched by each K17c call: its own record
+    table = inp["table"]
+    view_bnd = bound(0, 4 * um.ROWS * um.T + 2 * um.ROWS * um.T)
+    view_rec = record(f"tpu_micro_e7_view_{um.T}", "tpu_micro.cu",
+                      f"experiments/tpu_micro.py:{MICRO['e7'][1]}",
+                      launches["tpu_micro.e7_view"], 0.0, r["e7_view_ms"],
+                      cuda_ms(lambda: um._view_ref(table)), view_bnd)
+    view_rec.update(ptxas=ptx.get("E7 view"), library_ms=common.graph_ms(
+        lambda: um._view_ref(table), um.AB_CALLS))
+    recs.append(view_rec)
+    phase("kernel", f"K17c view build onehot_view_kernel ({um.T} rows): "
+          f"bit-equal to plain on every E7 case; {r['e7_view_ms']:.4f} ms "
+          f"(device time in a CUDA graph), plain {view_rec['plain_ms']:.4f} "
+          f"ms, one table.t().to(bf16) {view_rec['library_ms']:.4f} ms in a "
+          f"graph; {ptx.get('E7 view')}; bound {view_bnd[0]:.5f} ms by "
+          f"{view_bnd[1]}")
     phase("kernel", f"micro: E4's vote margin (smallest |sum| / sum|near| "
           f"over {um.STEPS['E4'][0]} steps) {r['e4_margin']:.3e}; E8/E9 "
           f"{r['e8_hits']} of {um.TILE} lanes hit within "
@@ -2553,9 +2703,10 @@ def micro_phase(dev):
 WALK_FLOPS = 2 * SLAB_FLOPS + 2
 # round trips measured earlier in this run, ns: K15a's 4 KB bulk copy
 # (phase 15, "k15a") and K17a's dependent load a step at 1,024 lanes from
-# shared memory and from the L2 (phase 16, "k17a_smem", "k17a_l2"): the
-# chains' latency floors in phase 17 (the walk's node pairs stay on chip,
-# so its floor takes the smem trip; the L2's stands beside it)
+# shared memory and from the L2 (phase 16, "k17a_smem", "k17a_l2", device
+# time in CUDA graphs): the chains' latency floors in phases 16 and 17
+# (the walk's node pairs stay on chip, so its floor takes the smem trip;
+# the L2's stands beside it)
 ROUND_TRIPS: dict = {}
 
 
@@ -2948,6 +3099,7 @@ def dragon_path(dev):
     records of K5, K6, the heap tier's variants (K10, K10b, K11, K5/K6
     fast_math), the packet walk (K12a, K12b) and the walk probes (K13,
     K16)."""
+    t_phase = time.perf_counter()
     built = bench.build_frame(bench.FRAMES["dragon"], dev)
     cfg, scene, cam = built.cfg, built.scene, built.cam
     if wf.mesh_tier(scene, cfg) != "heap":
@@ -2972,10 +3124,13 @@ def dragon_path(dev):
                                     **pool}, res, cfg.epsilon, HEAP_SASS)
     variants, mx_graph, rg_graph, fm_graph = heap_variants_phase(
         scene, cam, cfg, tabs, rays, pool, res)
+    t_phase = phase_seconds("10", t_phase)
     mr_recs = mr_phase(tabs, {"primary": rays["primary"],
                               "NEE shadows": rays["NEE shadows"], **pool},
                        cfg.epsilon, res)
+    phase_seconds("10c", t_phase)
     probe_recs = walk_probe_phase(tabs, rays, pool, cfg.epsilon)
+    t_phase = time.perf_counter()  # phase 10d prints its own
 
     run = frame_run("dragon", "dragon", "dragon", built, TIER_KERNELS["heap"])
     base, launches = run.timed.image, run.timed.launches
@@ -3007,6 +3162,7 @@ def dragon_path(dev):
               f"{s:.6f} max |diff| {np.abs(img - base).max():.3e} (bound: "
               f"{bound_text})")
     mx_frame_checks(scene, cam, cfg, base, knob_imgs["mx_leaf=True"])
+    phase_seconds("13", t_phase)
     mx_l = knob_launches["mx_leaf=True"]
     rg_l = knob_launches["regroup=True"]
     fm_l = knob_launches["fast_math=True"]
@@ -3429,7 +3585,9 @@ def main():
     phase("device", f"{torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
+    t_phase = phase_seconds("1", t_start)
     build_all()
+    phase_seconds("2", t_phase)
     # the oracle of phase 19's gates renders on the host (at a lower
     # priority) beside phases 3-13 and 20; the rocks' takes minutes
     pool = multiprocessing.get_context("spawn").Pool(
@@ -3481,9 +3639,11 @@ def main():
                 rec[f"launches_{name}"] = ran[modes[rec["name"]]]
     # phase 14 after every timed frame: a profiler session slows the
     # host's later launches in the process
+    t_phase = time.perf_counter()
     for profile in (config4_profile, stair_profile, headline_profile,
                     *dragon_profiles):
         profile()
+    phase_seconds("14", t_phase)
     kernels += [*leaf_probe_phase(dev), *micro_phase(dev),
                 *packet8_phase(dev), *layout_phase(dev)]
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")

@@ -36,6 +36,7 @@ from tpu_pathtracer_torch.experiments import regroup_probe as rp
 from tpu_pathtracer_torch.experiments import shapecast_probe as sc
 from tpu_pathtracer_torch.experiments import sphere_layout_probe as sl
 from tpu_pathtracer_torch.experiments import tpu_micro as um
+from tpu_pathtracer_torch.experiments import yardsticks
 from tpu_pathtracer_torch.models.mesh import procedural_staircase_scene
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.models.spheres import random_spheres_scene
@@ -1360,18 +1361,21 @@ def micro():
                                  ("e5", 128), ("e8", 1024), ("e9", 1024)])
 def test_tpu_micro_kernel_bit_equal(micro, key):
     """K17a-K20, each mode at the TPU shape and (K17a, K17c) at 131,072
-    lanes, bit-equal to its plain version over a few steps (K19 and K20
-    also at 200 leaves, the lower count of their pair)."""
+    lanes, bit-equal to its plain version over a few steps and at the
+    lower count of its pair for K17b (2,000 steps), K17c (50), K19 and
+    K20 (200 leaves); the call timed in a graph (``Run.timed``) too."""
     _, runs = micro
-    exp, kern, ref, _ = runs[key]
-    name = key[0]
+    run = runs[key]
+    exp, name = run.exp, key[0]
     before = um.LAUNCHES[name]
-    steps_list = (0, 1, 3, 17, 64) + ((200,) if exp in ("E8", "E9") else ())
+    lo = {"E4": 2000, "E7": 50, "E8": 200, "E9": 200}.get(exp)
+    steps_list = (0, 1, 3, 17, 64) + ((lo,) if lo else ())
     for steps in steps_list:
-        k, p = kern(steps), ref(steps)
+        k, p = run.kern(steps), run.ref(steps)
         torch.cuda.synchronize()
         assert torch.equal(k, p), (key, steps)
-    assert um.LAUNCHES[name] == before + len(steps_list)
+    assert torch.equal(run.timed(3), run.ref(3))
+    assert um.LAUNCHES[name] == before + len(steps_list) + 1
     if exp in ("E8", "E9"):
         assert (k < um.FAR).any() and (k == um.FAR).any()
 
@@ -1392,6 +1396,12 @@ def test_tpu_micro_wrappers_refuse_what_the_kernels_do_not_take(micro):
     with pytest.raises(ValueError, match="shape"):
         um.onehot_chain(table[:4].contiguous(),
                         um.lanes_of(inp, "E7", False), 1)
+    for name in micro_cases.REFUSED:  # C-20: not finite in bf16
+        bad = torch.from_numpy(micro_cases.refused_table(name)).to(table)
+        before = dict(um.LAUNCHES)
+        with pytest.raises(ValueError, match="C-20"):
+            um.onehot_chain(bad, um.lanes_of(inp, "E7", False), 1)
+        assert um.LAUNCHES == before
     with pytest.raises(TypeError):
         um.row_vote_chain(inp["rows"], x.double(), 1)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1430,6 +1440,72 @@ def test_tpu_micro_copy_edge_inputs_bit_equal(dev, name):
         k, p = um.copy_chain(blocks, steps), um._copy_ref(blocks, steps)
         torch.cuda.synchronize()
         assert torch.equal(k, p), (name, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(micro_cases.VOTE_CASES))
+def test_tpu_micro_vote_cases_bit_equal(dev, name):
+    """K17b on tests/micro_cases.py's E4 cases (a NaN row word, 0 x inf,
+    a NaN lane, near = +0, 0/1/17 steps, T = 2), bit-equal to its plain
+    version with NaN equal to NaN at 0, 1 and the case's steps."""
+    rows, x = (torch.from_numpy(a).to(dev)
+               for a in micro_cases.vote_case(name))
+    for k in sorted({0, 1, micro_cases.VOTE_CASES[name]}):
+        got, want = um.row_vote_chain(rows, x, k), um._row_vote_ref(rows, x, k)
+        torch.cuda.synchronize()
+        assert um.same(got, want), (name, k, um.differ(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(micro_cases.ONEHOT_CASES))
+def test_tpu_micro_onehot_cases_bit_equal(dev, name):
+    """K17c on tests/micro_cases.py's E7 cases (ties to even, the largest
+    finite bf16, -0, int(acc[0]) saturated, T = 2 at 1 lane), bit-equal to
+    its plain version at 0, 1 and the case's steps; its view build
+    bit-equal to the plain view."""
+    table, idx = (torch.from_numpy(a).to(dev)
+                  for a in micro_cases.onehot_case(name))
+    view = um.onehot_view(table)
+    assert torch.equal(view.view(torch.int16),
+                       um._view_ref(table).view(torch.int16))
+    for k in sorted({0, 1, micro_cases.ONEHOT_CASES[name]}):
+        got, want = um.onehot_chain(table, idx, k), um._onehot_ref(table, idx,
+                                                                    k)
+        torch.cuda.synchronize()
+        assert um.same(got, want), (name, k, um.differ(got, want))
+
+
+@pytest.mark.gpu
+def test_tpu_micro_vote_and_onehot_sass(dev):
+    """K17b's step loop holds one block-wide barrier, K17c's one 16 B load
+    a lane (``vote_sass``, ``onehot_sass`` on the package's build), and
+    every kVoteWarps, both K17c block sizes and each yardstick of
+    ``experiments/yardsticks`` build and are bit-equal to the plain
+    version on the seeded inputs, uncounted."""
+    dump = common.sass_dump(_build.build("tpu_micro"))
+    assert um.vote_sass(dump)[1] == 1
+    assert um.onehot_sass(dump)[1:] == (1, 1)
+    own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
+    inp = um.probe_inputs(dev)
+    idx = um.lanes_of(inp, "E7", False)
+    texts = {f"w{w}": common.variant(own, f"kVoteWarps:{w}")
+             for w in um.VOTE_WARPS}
+    texts.update({f"t{t}": common.variant(own, f"kOnehotThreads:{t}")
+                  for t in (32, 256)})
+    texts.update({n: yardsticks.source(n) for n in yardsticks.names()})
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(texts)) as ex:  # one nvcc a source
+        libs = list(ex.map(lambda kv: um.source_lib(f"test_{kv[0]}",
+                                                    kv[1])[0],
+                           texts.items()))
+    before = dict(um.LAUNCHES)
+    for lib in libs:
+        for k in (1, 3, 64):
+            assert torch.equal(um._row_vote(inp["rows"], inp["x"], k, lib),
+                               um._row_vote_ref(inp["rows"], inp["x"], k))
+            assert torch.equal(um._onehot(inp["table"], idx, k, lib),
+                               um._onehot_ref(inp["table"], idx, k))
+    assert um.LAUNCHES == before
 
 
 @pytest.mark.gpu

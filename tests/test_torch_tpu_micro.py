@@ -3,9 +3,13 @@
 K17a-K17c, K18, K19 and K20 against the TPU kernels of
 ``experiments/tpu_micro.py`` run in interpret mode, and E1 and E6 against
 its XLA ``run`` functions, on the TPU file's seeded inputs at a few steps;
-K18 also on the edge inputs of ``tests/micro_cases.py`` (E5's kernel
-rebuilt at their block count), and its SASS counter (``copy_sass``) on a
-listing written out by hand.
+K17b, K17c and K18 also on the edge inputs of ``tests/micro_cases.py``
+(E5's kernel rebuilt at their block count; cases of another T or lane
+count than the TPU file's are held against the plain version only), the
+SASS counters (``copy_sass``, ``vote_sass``, ``onehot_sass``) on listings
+written out by hand, a model of each K17b layout's sum against
+``block_sum``, and the yardsticks' patch anchors against
+``csrc/tpu_micro.cu``.
 
 The TPU file is loaded by its path (its ``main`` is guarded). Each of its
 experiments is called once with ``pl.pallas_call`` recording the callable
@@ -13,7 +17,10 @@ it builds, in interpret mode, and with ``timed_slope`` recording the
 ``run`` it would time; the callables then run on the inputs here.
 
 Tolerances. E3, E4, E5 and E7: the same float32 operations in the same
-order (E4's vote depends only on the sign of its sum), so bit-equal. E8
+order (E4's vote depends only on the sign of its sum), so bit-equal; on
+the cases that hold NaN, bit-equal with NaN equal to NaN (the same NaN
+lanes, the same bits elsewhere: ``tpu_micro.same``), since ``torch.equal``
+is false on NaN. E8
 and E9: XLA contracts the test's multiply-adds into FMAs (ROADMAP C-2),
 and the test's t cancels: on the seeded inputs both sides lie up to ~3e-5
 from the float64 value. So t is held, on the lanes both sides hit and
@@ -42,6 +49,8 @@ import torch
 from jax.experimental import pallas as pl
 
 from tpu_pathtracer_torch.experiments import tpu_micro as um
+from tpu_pathtracer_torch.experiments import yardsticks
+from tpu_pathtracer_torch.ops import _build
 import leaf_cases
 import micro_cases
 from sass_listing import listing
@@ -479,3 +488,286 @@ def test_copy_sass_counts_the_chain_loop():
     with pytest.raises(ValueError, match="bulk copy"):
         um.copy_sass(listing(name, [ln for ln in chain
                                     if not ln.startswith("UBLKCP")]))
+
+
+def _same(got, want):
+    """Bit-equal, NaN equal to NaN (``tpu_micro.same``), on tensors or
+    arrays."""
+    t = lambda a: a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.array(a, np.float32))
+    got, want = t(got), t(want)
+    assert um.same(got, want), f"{um.differ(got, want)} lanes differ"
+
+
+def _jax_cases(cases):
+    return [n for n in cases if n not in micro_cases.PLAIN_ONLY]
+
+
+@pytest.mark.parametrize("name", list(micro_cases.VOTE_CASES))
+def test_e4_cases_match_jax_kernel(jmicro, name):
+    """K17b's plain version on tests/micro_cases.py's E4 cases at 0, 1 and
+    the case's steps: against E4's TPU kernel in interpret mode (T = 2
+    against the wrapper's CPU path only: the TPU file fixes T), bit-equal
+    with NaN equal to NaN."""
+    rows, x = micro_cases.vote_case(name)
+    steps = micro_cases.VOTE_CASES[name]
+    tr, tx = torch.from_numpy(rows), torch.from_numpy(x)
+    for k in sorted({0, 1, steps}):
+        got = um._row_vote_ref(tr, tx, k)
+        _same(um.row_vote_chain(tr, tx, k), got)
+        if name in micro_cases.PLAIN_ONLY:
+            continue
+        _same(got, jmicro["E4"](_steps(k), jnp.asarray(rows), jnp.asarray(x)))
+
+
+def _fmax_near(rows, x, i):
+    """near of row ``i`` with a max that drops NaN (fmaxf, the first
+    form's)."""
+    r = rows[i]
+    t = [(x - r[k]) * r[k + 3] for k in range(3)]
+    return np.fmax(np.fmax(t[0], t[1]), t[2])
+
+
+@pytest.mark.parametrize("name", ["nan_row", "zero_inf", "nan_lane",
+                                  "zero_near"])
+def test_vote_cases_hold_what_they_say(name):
+    """Each E4 case holds its edge at the first step (row 1): NaN where
+    ``jnp.maximum`` gives it and a max that drops NaN would not, or near
+    = +0 on every lane and the (3i + 7) branch."""
+    rows, x = micro_cases.vote_case(name)
+    tr, tx = torch.from_numpy(rows), torch.from_numpy(x)
+    acc = um._row_vote_ref(tr, tx, 1)  # acc = the first step's near
+    trail = []
+    um._row_vote_ref(tr, tx, 2, trail=trail)
+    dropped = _fmax_near(rows, x, 1)
+    nan = acc.isnan().numpy()
+    if name == "nan_row":
+        assert nan.all() and not np.isnan(dropped).any()
+    elif name == "zero_inf":
+        assert sorted(zip(*np.nonzero(nan))) == [(0, 5), (3, 77)]
+        assert dropped[0, 5] == np.inf and dropped[3, 77] == -np.inf
+    elif name == "nan_lane":
+        assert list(zip(*np.nonzero(nan))) == [(2, 40)]
+    else:
+        assert not nan.any() and (acc == 0).all()
+        assert not torch.signbit(acc).any()
+        assert um.block_sum(acc).item() == 0.0
+    # a NaN or zero sum votes no: the first step takes the (3i + 7) branch
+    assert [int(i) for i in trail] == [1, 10]
+
+
+def _layout_total(near, warps):
+    """A model of csrc/tpu_micro.cu's row_vote_kernel at ``warps`` warps:
+    each thread's lanes p, p + sub, ... of its 32-lane group added in the
+    thread (offsets 16 .. sub), the group's shuffle-down tree over its sub
+    threads, then the 32 group partials summed by every thread, as the
+    kernel does it (8 float4 added in registers) and as the ``vote_shfl``
+    yardstick does it (an xor butterfly in every lane). Returns the
+    kernel's total and each lane's butterfly total [32]."""
+    per = um.TILE // (32 * warps)
+    sub = 32 // per
+    t = near.reshape(32, per, sub).transpose(1, 2)  # [g, p, j]: lane j sub + p
+    h = per // 2
+    while h:
+        t = t[..., :h] + t[..., h:2 * h]
+        h //= 2
+    w = t[..., 0]  # [g, p]
+    off = sub // 2
+    while off:
+        w = torch.cat([w[:, :off] + w[:, off:2 * off], w[:, off:]], dim=1)
+        off //= 2
+    part = w[:, 0]
+    q = part.reshape(8, 4)  # the slot as 8 float4
+    a = q[:4] + q[4:]  # a0..a3 = q0 + q4, ..., q3 + q7
+    a = (a[0] + a[2]) + (a[1] + a[3])
+    total = (a[0] + a[2]) + (a[1] + a[3])
+    tot = part  # lane L of a warp holds group L's partial
+    off = 16
+    while off:
+        tot = tot + tot[torch.arange(32) ^ off]
+        off //= 2
+    return total, tot
+
+
+@pytest.mark.parametrize("warps", um.VOTE_WARPS)
+def test_vote_layout_sums_like_block_sum(warps):
+    """At every kVoteWarps the kernel's layout sums the tile in
+    ``block_sum``'s order: every lane's total bit-equal to it, on values
+    whose sum cancels (a changed order would show), and NaN on a NaN."""
+    rng = np.random.RandomState(11)
+    for scale in (1.0, 1e6):
+        near = torch.from_numpy((rng.randn(8, 128) * scale)
+                                .astype(np.float32))
+        want = um.block_sum(near)
+        total, lanes = _layout_total(near, warps)
+        assert total.view(torch.int32) == want.view(torch.int32)
+        assert (lanes.view(torch.int32) == want.view(torch.int32)).all()
+    assert near.sum() != want or near.double().sum() != want
+    near[3, 3] = float("nan")
+    total, lanes = _layout_total(near, warps)
+    assert total.isnan() and lanes.isnan().all()
+
+
+@pytest.mark.parametrize("name", list(micro_cases.ONEHOT_CASES))
+def test_e7_cases_match_jax_kernel(jmicro, name):
+    """K17c's plain version on tests/micro_cases.py's E7 cases at 0, 1 and
+    the case's steps: against E7's TPU kernel in interpret mode (T = 2 and
+    1 lane against the wrapper's CPU path only), bit-equal with NaN equal
+    to NaN; and the kernel's form, the table rounded once into its view
+    and a row fetched a step, gives the same bits."""
+    table, idx = micro_cases.onehot_case(name)
+    steps = micro_cases.ONEHOT_CASES[name]
+    tt, ti = torch.from_numpy(table), torch.from_numpy(idx)
+    view = um.onehot_view(tt)
+    assert view.shape == (table.shape[1], 8) and view.dtype == torch.bfloat16
+    for k in sorted({0, 1, steps}):
+        got = um._onehot_ref(tt, ti, k)
+        _same(um.onehot_chain(tt, ti, k), got)
+        i = ti[0].long()
+        acc = torch.zeros_like(got)
+        for _ in range(k):  # the kernel: one 16 B row a lane a step
+            acc = acc + view[i].float().t()
+            i = um._int32_mod(i * um.LCG + um._f2i(acc[0]), table.shape[1])
+        _same(acc, got)
+        if name not in micro_cases.PLAIN_ONLY:
+            _same(got, jmicro["E7"](_steps(k), jnp.asarray(table),
+                                    jnp.asarray(idx)))
+    if name == "saturate":
+        ints = um._f2i(um._onehot_ref(tt, ti, steps)[0])
+        assert (ints == 2 ** 31 - 1).any() and (ints == -2 ** 31).any()
+    if name == "bf16_max":
+        assert um._onehot_ref(tt, ti, steps).isinf().any()
+
+
+def test_onehot_view_packs_two_columns_a_word():
+    """The view's row r as four 32-bit words: column 2k's bf16 in word k's
+    low half and column 2k + 1's in its high half (csrc/tpu_micro.cu
+    onehot_view_kernel); ties round to even."""
+    table, _ = micro_cases.onehot_case("ties")
+    u = table.view(np.uint32).astype(np.uint64)
+    bits = u >> 16
+    assert (u[1:] & 0xFFFF == 0x8000).all()
+    rne = (u + 0x7FFF + (bits & 1)) >> 16  # to nearest, ties to even
+    words = um.onehot_view(torch.from_numpy(table)).view(torch.int32).numpy()
+    words = words.view(np.uint32)
+    for k in range(4):
+        assert (words[:, k] & 0xFFFF == rne[2 * k]).all()
+        assert (words[:, k] >> 16 == rne[2 * k + 1]).all()
+    assert (rne[1:] != bits[1:]).any() and (rne[1:] == bits[1:]).any()
+
+
+@pytest.mark.parametrize("name", list(micro_cases.REFUSED))
+def test_e7_refuses_tables_not_finite_in_bf16(jmicro, name):
+    """C-20 in E7: one value that is not finite in bf16 (a NaN, an inf,
+    3.4e38 rounding to inf) makes the TPU kernel's column NaN on every
+    lane, through the one-hot product's 0 x inf; the port refuses such a
+    table."""
+    table = micro_cases.refused_table(name)
+    _, idx = micro_cases.onehot_case("ties")
+    want = np.asarray(jmicro["E7"](_steps(1), jnp.asarray(table),
+                                   jnp.asarray(idx)))
+    assert np.isnan(want[2]).all()
+    assert not np.isnan(np.delete(want, 2, 0)).any()
+    with pytest.raises(ValueError, match="C-20"):
+        um.onehot_chain(torch.from_numpy(table), torch.from_numpy(idx), 1)
+    with pytest.raises(ValueError, match="C-20"):
+        um.check_table(torch.from_numpy(table))
+
+
+def test_vote_and_onehot_sass_count_the_step_loop():
+    """K17b's step loop (the loop that holds its BAR) and K17c's (the one
+    that holds its LDG, in onehot_kernel and not the view build) in
+    hand-written listings, with their issue-rate floors; raises without
+    them."""
+    vote = "_ZN12_GLOBAL__N_115row_vote_kernelEPKfiS1_iPf"
+    body = ["MOV R1, c[0x0][0x28]", "loop:", "LDG.E.CONSTANT R4, [R2.64]",
+            "FMNMX.NAN R5, R4, R6, !PT", "SHFL.DOWN PT, R7, R5, 0x2, 0x1f",
+            "STS [R8], R7", "BAR.SYNC.DEFER_BLOCKING 0x0", "LDS R9, [R10]",
+            "SHFL.BFLY PT, R11, R9, 0x10, 0x1f", "@P0 BRA {loop}", "EXIT",
+            "end:", "BRA {end}"]
+    assert um.vote_sass(listing(vote, body)) == (8, 1, 2)
+    with pytest.raises(ValueError, match="BAR"):
+        um.vote_sass(listing(vote, [b for b in body if "BAR" not in b]))
+    # 8 warps over 4 schedulers: 2 cycles an instruction
+    assert um.vote_floor(99, 8) == pytest.approx(99 * 2 / 1.98e9 * 1e9)
+    onehot = "_ZN12_GLOBAL__N_113onehot_kernelEPK5uint4PKiiiiPf"
+    view = "_ZN12_GLOBAL__N_118onehot_view_kernelEPKfiP5uint4"
+    body = ["MOV R1, c[0x0][0x28]", "loop:",
+            "LDG.E.128.CONSTANT R4, [R2.64]", "IMAD.U32 R8, R4, 0x10000, RZ",
+            "FADD R9, R9, R8", "F2I.TRUNC.NTZ R10, R9", "@P0 BRA {loop}",
+            "EXIT", "end:", "BRA {end}"]
+    dump = (listing(view, ["LDG.E R4, [R2.64]", "EXIT"])
+            + listing(onehot, body))
+    assert um.onehot_sass(dump) == (5, 1, 1)
+    first = [b.replace("LDG.E.128.CONSTANT", "LDG.E.STRONG.GPU") for b in body]
+    assert um.onehot_sass(listing(onehot, first)) == (5, 1, 0)
+    # 256 lanes in one block: 8 warps on one SM; 131,072 in blocks of 256:
+    # 4 blocks (32 warps) on the fullest SM; blocks of 32 at 256 lanes: 1
+    one = 1 / 1.98e9 * 1e9
+    assert um.onehot_floor(20, 256, 256) == pytest.approx(40 * one)
+    assert um.onehot_floor(20, 131_072, 256) == pytest.approx(160 * one)
+    assert um.onehot_floor(20, 256, 32) == pytest.approx(20 * one)
+
+
+def test_kernel_ptxas_and_source_constants():
+    """ptxas's lines by kernel (the mangled name's length prefix keeps
+    ``onehot_kernel`` and ``onehot_view_kernel`` apart), and a source's
+    constants (the first forms have no kVoteWarps: one warp a lane)."""
+    log = ("ptxas info    : Function properties for _ZN12_GLOBAL__N_118"
+           "onehot_view_kernelEPKfiP5uint4\n"
+           "ptxas info    : Used 12 registers, 372 bytes cmem[0]\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_113"
+           "onehot_kernelEPK5uint4PKiiiiPf\n"
+           "    0 bytes stack frame, 0 bytes spill stores\n"
+           "ptxas info    : Used 30 registers, 400 bytes cmem[0]\n")
+    assert um.kernel_ptxas(log) == {
+        "E7 view": "Used 12 registers, 372 bytes cmem[0]",
+        "E7": "Used 30 registers, 400 bytes cmem[0]"}
+    own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
+    assert um.source_constant(own, "kVoteWarps", 32) in um.VOTE_WARPS
+    assert um.source_constant(own, "kOnehotThreads", 256) in (32, 256)
+    assert um.source_constant("no constants", "kVoteWarps", 32) == 32
+
+
+@pytest.mark.parametrize("name", yardsticks.names())
+def test_yardstick_anchors_match_the_source(name):
+    """Every yardstick's patch anchors occur once in its csrc/ file, so its
+    source (cited by PERF.md) can be rebuilt from this checkout."""
+    text = yardsticks.source(name)
+    own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
+    assert text != own and "__global__" in text
+    with pytest.raises(ValueError, match="anchor"):
+        yardsticks.patch(own, [("no such anchor", "")])
+
+
+def _mod_small(n, T):
+    """csrc/tpu_micro.cu mod_small in float32 and int64: the quotient by
+    T's float inverse (__int2float_rn, a float32 product, __float2int_rz),
+    then the two corrections."""
+    inv = np.float32(1) / np.float32(T)
+    q = np.trunc(n.astype(np.float32) * inv).astype(np.int64)
+    r = n - q * T
+    r = np.where(r < 0, r + T, r)
+    return np.where(r >= T, r - T, r)
+
+
+@pytest.mark.parametrize("T", [2, 3, 5, 7, 1000, um.T, um.T + 1, 2 ** 20 + 7,
+                               99_999_989, 429_496_729])
+def test_vote_candidates_mod_is_exact(T):
+    """K17b's next-row candidates, 5i + 1 and 3i + 7 mod T, by the
+    kernel's division-free mod (off by at most one in the quotient,
+    corrected): equal to the plain version's % for every i in [0, T) (a
+    sample with the edges where T is large: i near each multiple of T /
+    5 and T / 3)."""
+    if T <= 2 ** 20:
+        i = np.arange(T, dtype=np.int64)
+    else:
+        rng = np.random.RandomState(5)
+        near = [k * T // d + e for d in (3, 5) for k in range(d + 1)
+                for e in range(-3, 4)]
+        i = np.unique(np.clip(np.concatenate(
+            [rng.randint(0, T, 200_000), near, [0, T - 1]]), 0, T - 1))
+    for a, b in ((5, 1), (3, 7)):
+        n = i * a + b
+        assert (n < 2 ** 31).all()
+        np.testing.assert_array_equal(_mod_small(n, T), n % T)

@@ -1,6 +1,7 @@
 // The TPU micro-benchmarks of experiments/tpu_micro.py, for NVIDIA Hopper
 // (sm_90a): six chains of dependent steps, each the GPU form of one TPU
-// kernel body, computing that body's function on the same inputs.
+// kernel body, computing that body's function on the same inputs, and the
+// bf16 view of E7's table that its chain reads.
 //
 // Replaces (experiments/tpu_micro.py):
 //   * E3 `kernel` :123 (through _pallas_steps_runner :98, pallas_call
@@ -11,14 +12,36 @@
 //     dynamic shared memory first;
 //   * E4 `kernel` :154: one (8, 128) tile against a row i of a (T, 8)
 //     table read as a broadcast; near = max of three slab terms, acc +=
-//     near, and i steps by a block-wide vote on sum(near) > 0. The sum is
-//     a warp shuffle tree, then the 32 warp partials through shared memory
-//     and the same tree in warp 0; the plain version sums in this order;
+//     near, and i steps by a block-wide vote on sum(near) > 0. The vote
+//     couples all 1,024 lanes every step, so the tile stays one block (a
+//     vote across blocks would cost a grid barrier a step): kVoteWarps
+//     warps, kPer = 32 / kVoteWarps lanes a thread. Thread p of a 32-lane
+//     group's 32 / kPer threads holds lanes p, p + 32 / kPer, ... and adds
+//     them in the first log2 kPer levels of the group's shuffle tree; the
+//     shuffles finish it, one thread a group writes the partial to a slot
+//     of a two-slot buffer in shared memory (by step parity), and after
+//     the step's one __syncthreads every thread reads the 32 partials (8
+//     float4 broadcasts) and adds them in the same tree in registers, so
+//     every warp takes the same next i with no second barrier and no
+//     serial stage. Both candidate rows, (5i + 1) % T and (3i + 7) % T,
+//     come from i by a division-free mod (mod_small), not by an integer
+//     division after the vote. This is the plain version's tree
+//     (block_sum) in every layout. The maxima are PTX
+//     max.NaN, NaN if either operand is NaN, as jnp.maximum and
+//     torch.maximum: fmaxf, which the first form used, drops a NaN (a NaN
+//     word of the row, a 0 x inf slab term, a NaN lane of x);
 //   * E7 `kernel` :254: the one-hot MXU fetch of 8 columns. The one-hot
-//     product selects one bf16-rounded element a column, so its GPU form
-//     is a per-lane gather of the 8 values, each rounded with
-//     __float2bfloat16_rn. L2 only: the (8, 16384) table in bf16 (256 KB)
-//     exceeds a block's 227 KB of shared memory;
+//     product selects one bf16-rounded element a column, and rounding the
+//     table once gives the same bits as rounding each fetch, so each call
+//     first writes the [8, T] f32 table as a view of [T] rows of 8 bf16
+//     (16 B, __float2bfloat16_rn; onehot_view_kernel, on the same stream),
+//     and a lane's step is one 16 B load of its row, widened to f32 (the
+//     first form made 8 loads of 4 B a step, one 32 B sector each). The
+//     wrapper refuses a table that is not finite in bf16 (ROADMAP C-20:
+//     the TPU's product turns such a column into NaN on every lane).
+//     Each call builds the view into the caller's scratch
+//     (tpu_micro_onehot_rows); the first forms' entry, tpu_micro_onehot,
+//     took none, and an A/B calls it where a source has no other;
 //   * E5 `kernel` :187 (pallas_call :206): a chain of blocking 8 KB copies
 //     of a (16, 128) block into shared memory, of which row 0 is added to
 //     acc; the next block's index follows from the data just copied,
@@ -97,6 +120,28 @@
 // 1,001 ns: ray 0's loads from the L2, its test and the hand-off, or the
 // consumers' loads and tests). The card-wide FP32 bound, 1024 x 128 x 46
 // operations a leaf, is 90 ns.
+//
+// E4 and E7 (experiments/tpu_micro.py row_vote_ab, onehot_ab; PERF.md §6
+// K17b/K17c, device time a call in a CUDA graph in turns on an H100, ns a
+// step). K17b's step is one chain: i, the row's load (an L1 hit: the
+// 2,000-step run visits 287 rows), the slab terms, the group's tree and
+// shuffles, the barrier, the partials' tree, the select. At 4 warps (8
+// lanes a thread) it reads 237 against the first form's 482 (two barriers
+// and a serial warp-0 stage over 32 warps); 8, 16, 32 warps 295, 412,
+// 627: fewer lanes a thread buy nothing once the vote must cross more
+// warps. Yardsticks in experiments/yardsticks: the partials by an xor
+// butterfly of 5 shuffles (vote_shfl) 313; the next row by `%`, an integer
+// division after the vote (vote_div) 276; both candidate rows loaded a
+// step ahead (vote_lead) 253, the rows sitting in the L1. Its issue-rate
+// floor (172 SASS a warp's step, 4 warps on 4 schedulers) is 87 ns and a
+// warp's step and K17a's on-chip round trip 120 ns: it runs at 2x that.
+// K17c's step is one 16 B __ldg of the view, 8 widened adds and the LCG
+// (24 SASS): 193-196 at the TPU's 256 lanes (one block of 256 threads; 8
+// blocks of 32, kOnehotThreads 32, ties at 198), about an L2 round trip
+// (K17a l2: 198), since the 256 KB view does not stay whole in one SM's
+// L1; 474-484 at 131,072 lanes, where the L1s serve part of the rows
+// (__ldcg, L2 only, the onehot_ldcg yardstick: 207 and 1,185); the first
+// form 1,001 and 8,077. The view build adds 6-7 us a call.
 
 #include <cstdint>
 
@@ -123,6 +168,8 @@ constexpr int kE9Rays = 8;              // E9: rays a block
 constexpr int kLeafStages = 3;          // E8: the ring's stages
 constexpr int kLeafCopyRows = 9;        // E8: rows a copy stages (9 or 16)
 constexpr int kChainRing = 4;           // E9: the ring of c's slots
+constexpr int kVoteWarps = 4;           // E4: warps of the tile (4-32)
+constexpr int kOnehotThreads = 256;     // E7: threads a block (32 or 256)
 constexpr float kFar = 1e30f;
 constexpr float kTMin = 1e-3f;
 constexpr float kEpsA = 1e-7f;
@@ -167,8 +214,29 @@ gather_kernel(const float* __restrict__ table, const int* __restrict__ idx0,
   out[lane] = acc;
 }
 
+// K17c's view: row r of the [8, T] table as 8 bf16 in 16 B, column 2k in
+// the low half of word k and column 2k + 1 in its high half.
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
 __global__ void __launch_bounds__(256)
-onehot_kernel(const float* __restrict__ table, const int* __restrict__ idx0,
+onehot_view_kernel(const float* __restrict__ table, int T,
+                   uint4* __restrict__ view) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= T) return;
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = bf16_bits(table[static_cast<size_t>(2 * k) * T + r]) |
+           bf16_bits(table[static_cast<size_t>(2 * k + 1) * T + r]) << 16;
+  view[r] = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// K17c: a lane's step is one 16 B load of its row of the view, its 8 bf16
+// widened to f32 (a bf16 is the high half of its f32) and added.
+__global__ void __launch_bounds__(kOnehotThreads)
+onehot_kernel(const uint4* __restrict__ view, const int* __restrict__ idx0,
               int T, int L, int steps, float* __restrict__ out) {
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= L) return;
@@ -177,11 +245,14 @@ onehot_kernel(const float* __restrict__ table, const int* __restrict__ idx0,
   float acc[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
+#pragma unroll 1
   for (int s = 0; s < steps; ++s) {
+    const uint4 q = __ldg(view + idx);
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const float v = __ldcg(table + static_cast<size_t>(c) * T + idx);
-      acc[c] += __bfloat162float(__float2bfloat16_rn(v));
+    for (int k = 0; k < 4; ++k) {
+      acc[2 * k] += __uint_as_float(w[k] << 16);
+      acc[2 * k + 1] += __uint_as_float(w[k] & 0xffff0000u);
     }
     idx = lcg(idx, acc[0], mask);
   }
@@ -189,41 +260,101 @@ onehot_kernel(const float* __restrict__ table, const int* __restrict__ idx0,
   for (int c = 0; c < kCols; ++c) out[static_cast<size_t>(c) * L + l] = acc[c];
 }
 
-// Lane 0 gets v[0] + v[16], then + v[8] ..., the plain version's tree.
-__device__ __forceinline__ float warp_tree(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-  return v;
+// n % T for 0 <= n < 6 T: E4's candidates 5i + 1 and 3i + 7 with 0 <= i <
+// T, T >= 2. The quotient (0 to 5) from T's float inverse is off by at
+// most one, which the two corrections take back.
+__device__ __forceinline__ int mod_small(int n, int T, float inv) {
+  const int q = __float2int_rz(__int2float_rn(n) * inv);
+  int r = n - q * T;
+  if (r < 0) r += T;
+  if (r >= T) r -= T;
+  return r;
 }
 
-__global__ void __launch_bounds__(kTile)
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// jnp.maximum's max (and torch.maximum's): NaN if either operand is NaN,
+// where fmaxf returns the other one.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
+// E4's tile over kVoteWarps warps: thread p of the kSub threads of 32-lane
+// group g holds lanes 32 g + p + j kSub, j < kPer.
+struct VoteGrid {
+  static_assert(kVoteWarps == 4 || kVoteWarps == 8 || kVoteWarps == 16 ||
+                    kVoteWarps == 32,
+                "4, 8, 16 or 32 warps: 8, 4, 2 or 1 lanes a thread");
+  static constexpr int kThreads = 32 * kVoteWarps;
+  static constexpr int kPer = kTile / kThreads;  // lanes a thread
+  static constexpr int kSub = 32 / kPer;         // threads a group
+};
+
+__global__ void __launch_bounds__(VoteGrid::kThreads)
 row_vote_kernel(const float* __restrict__ rows, int T,
                 const float* __restrict__ x, int steps,
                 float* __restrict__ out) {
-  __shared__ float part[kTile / 32];
-  __shared__ float total;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const float xv = x[t];
-  float acc = 0.f;
-  int i = 1;
-  for (int s = 0; s < steps; ++s) {
-    const float* r = rows + static_cast<size_t>(i) * kRowW;
-    const float t0 = (xv - __ldg(r + 0)) * __ldg(r + 3);
-    const float t1 = (xv - __ldg(r + 1)) * __ldg(r + 4);
-    const float t2 = (xv - __ldg(r + 2)) * __ldg(r + 5);
-    const float near = fmaxf(fmaxf(t0, t1), t2);
-    acc += near;
-    const float w = warp_tree(near);
-    if (lane == 0) part[warp] = w;
-    __syncthreads();
-    if (warp == 0) {
-      const float p = warp_tree(part[lane]);
-      if (lane == 0) total = p;
-    }
-    __syncthreads();  // part[] is read before the next step rewrites it
-    i = total > 0.f ? (i * 5 + 1) % T : (i * 3 + 7) % T;
+  constexpr int kPer = VoteGrid::kPer, kSub = VoteGrid::kSub;
+  __shared__ __align__(16) float part[2][kTile / 32];  // by step parity
+  const int lane = threadIdx.x & 31;
+  const int g = (threadIdx.x >> 5) * kPer + lane / kSub, p = lane % kSub;
+  const int base = 32 * g + p;
+  float xv[kPer], acc[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    xv[j] = x[base + j * kSub];
+    acc[j] = 0.f;
   }
-  out[t] = acc;
+  const float inv = 1.0f / static_cast<float>(T);
+  int i = 1;
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    // both candidates by a division-free mod, which ptxas schedules in the
+    // vote's shadow: left to itself the compiler selects the numerator
+    // after the vote and runs an integer division there, on the chain
+    int up = mod_small(i * 5 + 1, T, inv);
+    int down = mod_small(i * 3 + 7, T, inv);
+    asm volatile("" : "+r"(up), "+r"(down));
+    const float* r = rows + static_cast<size_t>(i) * kRowW;
+    const float r0 = __ldg(r + 0), r1 = __ldg(r + 1), r2 = __ldg(r + 2);
+    const float r3 = __ldg(r + 3), r4 = __ldg(r + 4), r5 = __ldg(r + 5);
+    float v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const float t0 = (xv[j] - r0) * r3;
+      const float t1 = (xv[j] - r1) * r4;
+      const float t2 = (xv[j] - r2) * r5;
+      v[j] = max_nan(max_nan(t0, t1), t2);
+      acc[j] += v[j];
+    }
+    // the group's tree: offsets 16 .. kSub in the thread, then shuffles
+#pragma unroll
+    for (int h = kPer / 2; h > 0; h >>= 1) {
+#pragma unroll
+      for (int j = 0; j < h; ++j) v[j] += v[j + h];
+    }
+    float w = v[0];
+#pragma unroll
+    for (int off = kSub / 2; off > 0; off >>= 1)
+      w += __shfl_down_sync(kFull, w, off);
+    float* slot = part[s & 1];
+    if (p == 0) slot[g] = w;
+    __syncthreads();  // the slot written by step s + 2 is read by now
+    // every thread: the 32 partials as 8 float4 (broadcasts), block_sum's
+    // tree over them in registers (offsets 16, 8, 4, 2, 1)
+    const float4* q = reinterpret_cast<const float4*>(slot);
+    float4 a0 = add4(q[0], q[4]), a1 = add4(q[1], q[5]);
+    const float4 a2 = add4(q[2], q[6]), a3 = add4(q[3], q[7]);
+    a0 = add4(add4(a0, a2), add4(a1, a3));
+    const float total = (a0.x + a0.z) + (a0.y + a0.w);
+    i = total > 0.f ? up : down;
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) out[base + j * kSub] = acc[j];
 }
 
 __global__ void __launch_bounds__(kCopyThreads)
@@ -539,19 +670,37 @@ extern "C" int tpu_micro_gather(int mode, const float* table, const int* idx,
 extern "C" int tpu_micro_row_vote(const float* rows, int T, const float* x,
                                   int steps, float* out, void* stream) {
   if (T < 2 || steps < 0) return static_cast<int>(cudaErrorInvalidValue);
-  row_vote_kernel<<<1, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, T, x, steps, out);
+  row_vote_kernel<<<1, VoteGrid::kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(rows, T, x, steps,
+                                                         out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// E7: table [8, T] (T a power of two), idx [L], out [8, L].
-extern "C" int tpu_micro_onehot(const float* table, const int* idx, int T,
-                                int L, int steps, float* out, void* stream) {
+// E7's view of table [8, T]: view [T] rows of 16 B, 16-byte aligned.
+extern "C" int tpu_micro_onehot_view(const float* table, int T, void* view,
+                                     void* stream) {
+  if (T < 1 || reinterpret_cast<uintptr_t>(view) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  onehot_view_kernel<<<(T + 255) / 256, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      table, T, static_cast<uint4*>(view));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// E7: the view of table [8, T] (T a power of two) built into view (T * 16
+// B, 16-byte aligned, the caller's scratch), then the chain over idx [L]
+// into out [8, L]. The first forms' entry, tpu_micro_onehot, took no
+// scratch; this one replaces it.
+extern "C" int tpu_micro_onehot_rows(const float* table, void* view,
+                                     const int* idx, int T, int L, int steps,
+                                     float* out, void* stream) {
   if (L < 1 || steps < 0 || !pow2(T))
     return static_cast<int>(cudaErrorInvalidValue);
-  onehot_kernel<<<(L + 255) / 256, 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(table, idx, T, L,
-                                                       steps, out);
+  const int e = tpu_micro_onehot_view(table, T, view, stream);
+  if (e != 0) return e;
+  onehot_kernel<<<(L + kOnehotThreads - 1) / kOnehotThreads, kOnehotThreads,
+                  0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(view), idx, T, L, steps, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -297,19 +297,39 @@ def package_ptxas(name: str) -> List[str]:
     return ptxas_lines(_build.build(name).with_suffix(".log").read_text())
 
 
-def graph_rounds(names: List, cells: List, call: Callable,
-                 rounds: int, calls: int = 20) -> Dict:
-    """{(name, cell): median ms} of ``call(name, cell)``, each timed by
-    :func:`graph_ms` (``calls`` calls a graph) in ``rounds`` rounds, the
-    names in order in even rounds and in reverse in odd ones, every cell
-    of a name in a row."""
+def graph_readings(names: List, cells: List, call: Callable,
+                   rounds: int, calls: int = 20, reps: int = 5) -> Dict:
+    """{(name, cell): [ms, one a round]} of ``call(name, cell)``, each
+    timed by :func:`graph_ms` (``calls`` calls a graph, the median of
+    ``reps`` replays) in ``rounds`` rounds, the names in order in even
+    rounds and in reverse in odd ones, every cell of a name in a row."""
     times: Dict = {}
     for r in range(rounds):
         for name in names if r % 2 == 0 else names[::-1]:
             for cell in cells:
                 times.setdefault((name, cell), []).append(
-                    graph_ms(lambda: call(name, cell), calls))
-    return {k: statistics.median(v) for k, v in times.items()}
+                    graph_ms(lambda: call(name, cell), calls, reps))
+    return times
+
+
+def cases_module(name: str):
+    """``tests/<name>.py`` of this checkout (a kernel's edge inputs, such as
+    K19/K20's leaf_cases or K17b/K17c's micro_cases; they import no JAX),
+    loaded by its path: the A/Bs and ``chip_smoke.py`` hold kernels to
+    them on the card."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[2] / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def graph_rounds(names: List, cells: List, call: Callable,
+                 rounds: int, calls: int = 20) -> Dict:
+    """{(name, cell): median ms} of :func:`graph_readings`."""
+    return {k: statistics.median(v) for k, v in
+            graph_readings(names, cells, call, rounds, calls).items()}
 
 
 def sass_dump(lib: Path) -> str:
