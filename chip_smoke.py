@@ -136,8 +136,14 @@ line each; any failure raises and exits non-zero:
      issue-rate floor of the build's SASS (``iter_ablate.mode_sass``;
      each mode must keep its leaf round's shuffles, K13_SHFL), and the
      split of its time into node walk (noleaf), leaf-row fetch (nomt -
-     noleaf) and leaf arithmetic (full - nomt); K16 (``dual_probe.dual_steps`` at R = 1, 2, 4 rays a thread;
-     step counts bit-equal to the plain node phase) timed in turns;
+     noleaf) and leaf arithmetic (full - nomt); K16
+     (``dual_probe.dual_steps`` at R = 1, 2, 4 rays a thread in one
+     persistent wave of the same warps an SM, rays refilled lane by lane
+     from a counter; step counts bit-equal to the plain node phase),
+     device time a call in a CUDA graph in turns, beside its warps an
+     SM (equal at every R, checked), the issue-rate floor of the build's
+     SASS (``dual_probe.walk_sass``: the refill's atomic checked) and the
+     latency floor with K17a's round trips measured in the phase;
  11. small: staircase-hires 96x64, 4 spp, depth 8, kernels vs plain, and
      with bvh4=False (through K5/K6) against the BVH4 render;
  12. config 4: the bench's staircase-hires frame, 1200x800 at 2 spp,
@@ -180,7 +186,10 @@ line each; any failure raises and exits non-zero:
      and the latency the prefetch hides;
  16. the TPU micro-benchmarks on the TPU file's seeded inputs, counts from
      0 (``tpu_micro.measure``): K17a (the per-lane gather, modes l2 and
-     smem) and K17c (the one-hot fetch: the table's bf16 view built in
+     smem; smem's row staged by one bulk copy on an mbarrier, its SASS
+     checked by ``tpu_micro.gather_sass``: one UBLKCP, one
+     SYNCS.PHASECHK, no staging loop; held on every E3 case of
+     tests/micro_cases.py) and K17c (the one-hot fetch: the table's bf16 view built in
      each call by its own kernel, then one 16 B row a lane a step) at the
      TPU's lanes and at 131,072, K17b (the row broadcast and block vote:
      one block, one barrier a step, every warp summing the group partials
@@ -2199,8 +2208,15 @@ def walk_probe_phase(tabs, rays, pool, eps):
     (``iter_ablate.mode_sass``: a slot, a node step, a leaf round), which
     must keep every broadcast's shuffle (K13_SHFL). K16
     (``dual_probe.measure``) at R = 1, 2, 4 held bit-equal to the plain
-    node phase and timed in turns. Bounds from the node steps and leaf
-    slots the counters report and the distinct rows the plain walks read.
+    node phase and timed in turns, device time a call in a CUDA graph,
+    beside its resident warps an SM (equal at every R, else it raises),
+    the issue-rate floor of the build's SASS (``dual_probe.walk_sass``:
+    raises unless each form's walk loop holds the refill's atomic) and
+    the latency floor (the longest ray's steps, each a walk loop's issue
+    on one warp and one of K17a's round trips, ``l2`` and ``smem``,
+    measured here by ``tpu_micro.round_trips``). Bounds from the node
+    steps and leaf slots the counters report and the distinct rows the
+    plain walks read.
     Returns the JSON records of K13's three modes (the primary rays' no-
     culling reading, the others beside it) and K16's three forms."""
     t_phase = time.perf_counter()
@@ -2222,6 +2238,8 @@ def walk_probe_phase(tabs, rays, pool, eps):
                 o, d, tm, tabs, eps, at_k5_hits=hits, rounds=2,
                 time_plain=(name, hits) == ("primary", False))
     k16 = dp.measure(rays["primary"][0], rays["primary"][1], tabs, rounds=2)
+    # K17a's dependent load a step, l2 and smem, for K16's latency floor
+    trips = um.round_trips(um.probe_inputs(rays["primary"][0].x.device))
     launches = {**{f"iter_ablate.{k}": v for k, v in ia.LAUNCHES.items()},
                 **{f"dual_probe.{k}": v for k, v in k16["launches"].items()}}
     if min(launches.values()) <= 0:
@@ -2276,22 +2294,41 @@ def walk_probe_phase(tabs, rays, pool, eps):
         recs.append(rec)
 
     n = rays["primary"][0].x.shape[0]
-    total = k16["total"]
+    total, longest = k16["total"], k16["longest"]
     bnd = bound(3 * n + total * 2 * SLAB_FLOPS,
                 n * (24 + 4) + k16["nodes"] * HEAP_NODE)
+    # raises unless each R form's walk loop holds the refill's atomic
+    sass16 = dp.walk_sass(common.sass_dump(_build.build("dual_probe")))
+    if len(set(k16["warps"].values())) != 1:
+        raise AssertionError(f"K16's R forms run different warps an SM: "
+                             f"{k16['warps']}")
     text = []
     for r in dp.RAYS_PER_THREAD:
         t, readings = k16["ms"][r], k16["readings"][r]
-        text.append(f"R={r} {t:.3f} ms ({t * 1e6 / total:.3f} ns a step; "
-                    f"readings {min(readings):.3f}-{max(readings):.3f})")
-        recs.append(record(f"dual_probe_r{r}", "dual_probe.cu",
-                           "experiments/dual_probe.py:37",
-                           launches[f"dual_probe.r{r}"], 0.0, t,
-                           k16["plain_ms"], bnd))
-    phase("kernel", f"K16 dragon primary: {n} rays, {total} interior steps, "
-          f"bit-equal to the plain node phase at every R; in turns "
-          + ", ".join(text) + f"; plain {k16['plain_ms']:.3f} ms (bound "
-          f"{bnd[0]:.4f} ms by {bnd[1]}); launches {launches}; phase 10d "
+        floor = dp.issue_floor_ms(sass16[r], total, n, r)
+        lat = {m: dp.latency_floor_ms(sass16[r], longest, trips[m])
+               for m in um.GATHER_MODES}
+        text.append(f"R={r} {t:.4f} ms ({t * 1e6 / total:.3f} ns a step; "
+                    f"readings {min(readings):.4f}-{max(readings):.4f}; "
+                    f"{k16['warps'][r]} warps an SM; walk loop {sass16[r]} "
+                    f"(a pass, a refill, atomics), issue-rate floor "
+                    f"{floor:.4f} ms, latency floor {lat['l2']:.4f} (l2) / "
+                    f"{lat['smem']:.4f} ms (smem))")
+        rec = record(f"dual_probe_r{r}", "dual_probe.cu",
+                     "experiments/dual_probe.py:37",
+                     launches[f"dual_probe.r{r}"], 0.0, t, k16["plain_ms"],
+                     bnd)
+        rec.update(warps_per_sm=k16["warps"][r], ns_a_step=t * 1e6 / total,
+                   sass=sass16[r], floor_ms=floor,
+                   latency_floor_ms=lat, longest=longest)
+        recs.append(rec)
+    phase("kernel", f"K16 dragon primary: {n} rays, {total} interior steps "
+          f"(the longest ray {longest}), bit-equal to the plain node phase "
+          f"at every R; device time a call in a CUDA graph, 2 rounds in "
+          f"turns: " + ", ".join(text) + f"; plain {k16['plain_ms']:.3f} ms "
+          f"(bound {bnd[0]:.4f} ms by {bnd[1]}); K17a's round trips "
+          f"(1,024 lanes, this run) l2 {trips['l2']:.1f} ns, smem "
+          f"{trips['smem']:.1f} ns; launches {launches}; phase 10d "
           f"in {time.perf_counter() - t_phase:.1f} s")
     return recs
 
@@ -2477,16 +2514,24 @@ def leaf_checks(dev, dump):
 
 
 def micro_checks(dev, dump):
-    """K17b/K17c before phase 16's run: the build's SASS (``vote_sass``:
-    one block-wide barrier in K17b's step loop; ``onehot_sass``: one 16 B
-    load a lane in K17c's), both kernels bit-equal to their plain versions
-    with NaN equal to NaN (``tpu_micro.same``) at 0, 1 and each case's
-    steps on every E4 and E7 case of tests/micro_cases.py, K17c's view
-    bit-equal to the plain view, and every table of its ``REFUSED``
-    refused (ROADMAP C-20). ``dump``: the build's SASS. Returns (K17b's
-    SASS, K17c's, ptxas lines by kernel)."""
+    """K17a-K17c before phase 16's run: the build's SASS (``gather_sass``:
+    one bulk copy, one mbarrier wait and no staging loop in K17a smem;
+    ``vote_sass``: one block-wide barrier in K17b's step loop;
+    ``onehot_sass``: one 16 B load a lane in K17c's), the kernels
+    bit-equal to their plain versions with NaN equal to NaN
+    (``tpu_micro.same``) at 0, 1 and each case's steps on every E3 (both
+    modes), E4 and E7 case of tests/micro_cases.py, K17c's view bit-equal
+    to the plain view, and every table of its ``REFUSED`` refused (ROADMAP
+    C-20). ``dump``: the build's SASS. Returns (K17a's SASS by mode,
+    K17b's, K17c's, ptxas lines by kernel)."""
     lib = _build.build("tpu_micro")
     vote, onehot = um.vote_sass(dump), um.onehot_sass(dump)
+    gather = um.gather_sass(dump)
+    if gather["smem"][2:] != (1, 1, 0):
+        raise AssertionError(f"K17a smem's build holds {gather['smem'][2]} "
+                             f"bulk copies, {gather['smem'][3]} mbarrier "
+                             f"waits and {gather['smem'][4]} staging loops, "
+                             f"not 1, 1 and 0")
     if vote[1] != 1:
         raise AssertionError(f"K17b's step loop holds {vote[1]} block-wide "
                              f"barriers, not one")
@@ -2495,6 +2540,17 @@ def micro_checks(dev, dump):
                              f"loads, {onehot[2]} of 16 B, not one")
     cases = cases_module("micro_cases")
     on = lambda arrays: [torch.from_numpy(a).to(dev) for a in arrays]
+    for name, steps in cases.GATHER_CASES.items():
+        table, idx = on(cases.gather_case(name))
+        for k in sorted({0, 1, steps}):
+            want = um._gather_ref(table, idx, k)
+            for m in um.GATHER_MODES:
+                got = um.gather_chain(table, idx, k, m)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K17a {m} on the case {name} at "
+                                         f"{k} steps: kernel != plain on "
+                                         f"{um.differ(got, want)} lanes")
     for name, steps in cases.VOTE_CASES.items():
         rows, x = on(cases.vote_case(name))
         for k in sorted({0, 1, steps}):
@@ -2527,13 +2583,16 @@ def micro_checks(dev, dump):
             continue
         raise AssertionError(f"K17c took the table {name}, which is not "
                              f"finite in bf16 (C-20)")
-    phase("kernel", f"K17b/K17c: bit-equal to plain (NaN equal to NaN) on "
-          f"the cases {', '.join(cases.VOTE_CASES)} and "
+    phase("kernel", f"K17a-K17c: bit-equal to plain (NaN equal to NaN) on "
+          f"the cases {', '.join(cases.GATHER_CASES)} (K17a, both modes), "
+          f"{', '.join(cases.VOTE_CASES)} and "
           f"{', '.join(cases.ONEHOT_CASES)}; the tables "
-          f"{', '.join(cases.REFUSED)} refused; step loops {vote} (K17b: "
-          f"instructions, barriers, shuffles) and {onehot} (K17c: "
-          f"instructions, loads, 16 B loads)")
-    return vote, onehot, um.kernel_ptxas(lib.with_suffix(".log").read_text())
+          f"{', '.join(cases.REFUSED)} refused; step loops {gather} (K17a by "
+          f"mode: instructions, gathers, bulk copies, waits, staging "
+          f"loops), {vote} (K17b: instructions, barriers, shuffles) and "
+          f"{onehot} (K17c: instructions, loads, 16 B loads)")
+    return (gather, vote, onehot,
+            um.kernel_ptxas(lib.with_suffix(".log").read_text()))
 
 
 def micro_phase(dev):
@@ -2559,7 +2618,7 @@ def micro_phase(dev):
                              f"copies and {k18_sass[2]} mbarrier waits, "
                              f"not one each")
     leaf_sass, leaf_shapes, leaf_ptx = leaf_checks(dev, dump)
-    vote_sass, onehot_sass, ptx = micro_checks(dev, dump)
+    gather_sass, vote_sass, onehot_sass, ptx = micro_checks(dev, dump)
     own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
     warps = um.source_constant(own, "kVoteWarps", um.TILE // 32)
     threads = um.source_constant(own, "kOnehotThreads", 256)
@@ -2588,6 +2647,33 @@ def micro_phase(dev):
         rec["library_ms"] = v["library_ms"]
         lib = ("" if v["library_ms"] is None else
                f", one torch.gather {v['library_ms']:.4f} ms")
+        if key.startswith("e3"):
+            # the per-call intercept; the issue-rate floor of a step's SASS
+            # in each warp of the fullest SM; l2: the 32 B sectors a step
+            # over the step, the L2's rate this chain reaches
+            mode = key[3:]
+            sass = gather_sass[mode]
+            floor = um.gather_floor(sass, lanes)
+            icpt = v["t"][0] - lo * v["ns"] / 1e6
+            rec.update(ns_a_step=v["ns"], intercept_ms=icpt, sass=sass,
+                       floor_ns=floor, ptxas=ptx.get(f"E3 {mode}"))
+            lib += (f"; intercept {icpt * 1e3:.2f} us; {ptx.get(f'E3 {mode}')}"
+                    f"; step loop {sass} (instructions, gathers, bulk copies, "
+                    f"waits, staging loops), issue-rate floor {floor:.1f} ns "
+                    f"a step")
+            if mode == "l2":
+                rec["sectors_tb_s"] = lanes * 32 / v["ns"] / 1e3
+                lib += (f"; {rec['sectors_tb_s']:.2f} TB/s of 32 B sectors "
+                        f"a step")
+            else:  # a warp's gather takes its bank conflicts' wavefronts
+                waves = um.smem_wavefronts(
+                    inp["table"], um.lanes_of(inp, "E3", lanes > um.TILE),
+                    um.STEPS["E3"][1], lo)
+                rec.update(wavefronts=waves,
+                           bank_floor_ns=um.bank_floor(waves, lanes))
+                lib += (f"; {waves:.3f} wavefronts a warp's gather (steps "
+                        f"{lo}-{um.STEPS['E3'][1]}), bank floor "
+                        f"{rec['bank_floor_ns']:.1f} ns a step")
         if key == "e5":
             rec.update(ns_a_copy=v["ns"], sass=k18_sass,
                        floor_ms=k18_sass[0] * lo / um.WARP_ISSUE_RATE * 1e3)

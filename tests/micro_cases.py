@@ -49,6 +49,18 @@ K17c (``onehot_kernel``: E7's one-hot fetch of 8 bf16-rounded columns),
 
 ``REFUSED`` (E7 tables the wrapper refuses, ROADMAP C-20): a NaN, an inf,
 and 3.4e38, which rounds to inf in bf16.
+
+K17a (``gather_kernel``: E3's per-lane gather chain, both modes),
+``GATHER_CASES`` (all plain only: the TPU file fixes (8, 16384) and
+(8, 128)), each with an idx of T - 1 in the first and last lane of every
+row; ``GATHER_SHAPES[name]`` is its (R, T, L):
+
+  * ``t2``: T = 2 (8 B, a row under the bulk copy's 16 B grain), 32 lanes;
+  * ``t32768``: T = 32,768, the wrapper's largest row in ``smem`` (a
+    128 KB bulk copy), 1,024 lanes;
+  * ``l32``, ``l1024``, ``l131072``: T = 16,384 at 32, 1,024 and 131,072
+    lanes a row (one block of 32 and of 1,024 threads, 128 blocks of one
+    row).
 """
 
 import numpy as np
@@ -87,6 +99,10 @@ VOTE_CASES = {"nan_row": 17, "zero_inf": 17, "nan_lane": 17, "zero_near": 17,
 ONEHOT_CASES = {"ties": 17, "bf16_max": 17, "neg_zero": 17, "saturate": 17,
                 "t2_one_lane": 17}
 PLAIN_ONLY = ("t2", "t2_one_lane")
+GATHER_SHAPES = {"t2": (2, 2, 32), "t32768": (2, 32_768, 1024),
+                 "l32": (8, um.T, 32), "l1024": (1, um.T, 1024),
+                 "l131072": (1, um.T, 131_072)}
+GATHER_CASES = {name: 17 for name in GATHER_SHAPES}
 # the last float32 below the tie that rounds bf16's largest finite value
 # (0x7F7F) up to inf
 BF16_MAX_F32 = np.array(0x7F7F7FFF, np.uint32).view(np.float32)
@@ -133,6 +149,16 @@ def onehot_case(name):
     elif name == "t2_one_lane":
         table, idx = table[:, :2].copy(), np.array([[1]], np.int32)
     return table.astype(np.float32), idx
+
+
+def gather_case(name):
+    """The case's (table [R, T] f32, idx [R, L] int32 in [0, T)) of
+    ``GATHER_SHAPES``: the table ``RandomState(0).rand``, the indices
+    ``RandomState(3)``, T - 1 in each row's first and last lane."""
+    rows, t, lanes = GATHER_SHAPES[name]
+    idx = np.random.RandomState(3).randint(0, t, (rows, lanes))
+    idx[:, 0] = idx[:, -1] = t - 1
+    return um._rand(0, (rows, t)), idx.astype(np.int32)
 
 
 def refused_table(name):

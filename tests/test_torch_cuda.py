@@ -14,6 +14,7 @@ one. The file imports no JAX, so it runs on a machine without it:
 (``--noconftest``: the suite's conftest configures JAX.)
 """
 
+import ctypes
 import dataclasses
 from unittest import mock
 
@@ -1231,18 +1232,109 @@ def test_iter_ablate_kernel_bit_equal(dev, n, ppl):
     assert all(ia.LAUNCHES[m] == before[m] + 3 for m in ia.MODES)
 
 
-@pytest.mark.gpu
-def test_dual_probe_kernel_bit_equal(dev):
-    """K16 at R = 1, 2 and 4 against the plain node phase, bit for bit;
-    n is no multiple of 128 R, so the last threads hold fewer rays."""
-    mesh, o, d, _ = _bvh_inputs(dev, n=40_003, seed=8, ppl=64)
+DUAL_CASES = ("ragged", "n0", "n1", "n31", "n33", "wave_less_one",
+              "first_leaf_1", "zero_direction", "non_finite_origins")
+
+
+def _dual_case(dev, case):
+    """K16's inputs for ``case``: a random soup's heap (64 a leaf) and
+    rays; ``ragged``: 40,003 rays; ``n0`` .. ``n33``: that many;
+    ``wave_less_one``: one ray less than the R = 1 wave's lanes (every
+    lane but the last takes one ray, none a second); ``first_leaf_1``: the
+    root a leaf (every ray pops at once); ``zero_direction``: a third of
+    the rays with a zero direction component (1 / 0 = inf) and -0 in
+    another; ``non_finite_origins``: NaN and inf origin components."""
+    n = {"n0": 0, "n1": 1, "n31": 31, "n33": 33}.get(case, 40_003)
+    if case == "wave_less_one":
+        n = dp.wave(1)[0] * dp.THREADS - 1
+    mesh, o, d, _ = _bvh_inputs(dev, n=n, seed=8, ppl=64)
     tabs = cb.heap_tables(mesh)
+    if case == "first_leaf_1":
+        tabs = tabs._replace(nodes=tabs.nodes[:2].contiguous(), first_leaf=1)
+    elif case == "zero_direction":
+        d.x[::3] = 0.0
+        d.y[1::3] = -0.0
+    elif case == "non_finite_origins":
+        o.x[::7] = float("nan")
+        o.y[1::7] = float("inf")
+        o.z[2::7] = -float("inf")
+    return o, d, tabs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DUAL_CASES)
+def test_dual_probe_kernel_bit_equal(dev, case):
+    """K16 at R = 1, 2 and 4 against the plain node phase, bit for bit, on
+    each of DUAL_CASES (``_dual_case``); every launch counted."""
+    o, d, tabs = _dual_case(dev, case)
     want = dp._dual_steps_ref(o, d, tabs)
     before = dict(dp.LAUNCHES)
     for r in dp.RAYS_PER_THREAD:
-        assert torch.equal(dp.dual_steps(o, d, tabs, r), want)
-    assert int(want.min()) >= 1 and int(want.max()) > 10
-    assert all(dp.LAUNCHES[k] == before[k] + 1 for k in dp.LAUNCHES)
+        assert torch.equal(dp.dual_steps(o, d, tabs, r), want), r
+    n = o.x.shape[0]
+    assert all(dp.LAUNCHES[k] == before[k] + (n > 0) for k in dp.LAUNCHES)
+    if case == "ragged":
+        assert int(want.min()) >= 1 and int(want.max()) > 10
+    if case == "first_leaf_1":
+        assert not want.any()
+
+
+@pytest.mark.gpu
+def test_dual_probe_counter_resets_in_graph_replays(dev):
+    """Two replays of one captured CUDA graph of K16 at each R give the
+    plain counts: the C entry zeroes the ray counter on the stream in
+    every call, so no replay starts where the last one ended."""
+    o, d, tabs = _dual_case(dev, "ragged")
+    want = dp._dual_steps_ref(o, d, tabs)
+    for r in dp.RAYS_PER_THREAD:
+        dp.dual_steps(o, d, tabs, r)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            dp.dual_steps(o, d, tabs, r)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = dp.dual_steps(o, d, tabs, r)
+        for _ in range(2):
+            got.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", yardsticks.names("dual_probe.cu"))
+def test_dual_probe_yardsticks_bit_equal(dev, name):
+    """Each K16 yardstick (a patch of ``csrc/dual_probe.cu``) builds and
+    is bit-equal to the plain node phase at every R on the ragged and
+    first_leaf_1 cases, uncounted."""
+    lib = dp.bind(ctypes.CDLL(str(common.build(
+        f"test_dual_{name}", yardsticks.source(name), None)[0])))
+    before = dict(dp.LAUNCHES)
+    for case in ("ragged", "first_leaf_1"):
+        o, d, tabs = _dual_case(dev, case)
+        want = dp._dual_steps_ref(o, d, tabs)
+        for r in dp.RAYS_PER_THREAD:
+            assert torch.equal(dp._walk(o, d, tabs, r, lib), want), (case, r)
+    assert dp.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_dual_probe_waves_keep_the_warps_an_sm(dev):
+    """Every R form launches one wave of the same blocks, all resident at
+    once (the occupancy calculator's blocks an SM at least the wave's),
+    so the resident warps an SM are equal at R = 1, 2 and 4; its build's
+    walk loop holds the refill's one atomic (``walk_sass``)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = {r: dp.wave(r) for r in dp.RAYS_PER_THREAD}
+    warps = {r: dp.warps_per_sm(r) for r in dp.RAYS_PER_THREAD}
+    assert len(set(warps.values())) == 1, warps
+    for grid, per_sm, resident in waves.values():
+        assert grid == sms * per_sm and resident >= per_sm
+    sass = dp.walk_sass(common.sass_dump(_build.build("dual_probe")))
+    assert set(sass) == set(dp.RAYS_PER_THREAD)
+    assert all(c[2] == 1 for c in sass.values()), sass
 
 
 LEAFMT_VISITS = (0, 1, 2, 7, 611, 612, 1153)
@@ -1348,20 +1440,37 @@ def test_dma_probe_kernel_bit_equal(dev):
 
 @pytest.fixture(scope="module")
 def micro():
+    """The TPU file's inputs and ``tpu_micro._runs`` of every kernel, with
+    K17a's runs in both modes on each case of micro_cases.GATHER_CASES
+    (keyed by mode and case name)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernel has no CPU mode")
-    inp = um.probe_inputs(torch.device("cuda"))
-    return inp, um._runs(inp, um.KERNELS)
+    dev = torch.device("cuda")
+    inp = um.probe_inputs(dev)
+    runs = um._runs(inp, um.KERNELS)
+    for name in micro_cases.GATHER_CASES:
+        table, idx = (torch.from_numpy(a).to(dev)
+                      for a in micro_cases.gather_case(name))
+        for m in um.GATHER_MODES:
+            kern = lambda s, t=table, i=idx, m=m: um.gather_chain(t, i, s, m)
+            runs[(f"e3_{m}", name)] = um.Run(
+                "E3", kern, lambda s, t=table, i=idx: um._gather_ref(t, i, s),
+                None, kern)
+    return inp, runs
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("key", [("e3_l2", 1024), ("e3_l2", 131_072),
                                  ("e3_smem", 1024), ("e3_smem", 131_072),
                                  ("e7", 256), ("e7", 131_072), ("e4", 1024),
-                                 ("e5", 128), ("e8", 1024), ("e9", 1024)])
+                                 ("e5", 128), ("e8", 1024), ("e9", 1024)]
+                         + [(f"e3_{m}", c) for c in micro_cases.GATHER_CASES
+                            for m in ("l2", "smem")])
 def test_tpu_micro_kernel_bit_equal(micro, key):
     """K17a-K20, each mode at the TPU shape and (K17a, K17c) at 131,072
-    lanes, bit-equal to its plain version over a few steps and at the
+    lanes, and K17a in both modes on each of micro_cases.GATHER_CASES (T =
+    2 and 32,768, 32 to 131,072 lanes a row, an idx of T - 1), bit-equal to
+    its plain version over a few steps (0 and 1 among them) and at the
     lower count of its pair for K17b (2,000 steps), K17c (50), K19 and
     K20 (200 leaves); the call timed in a graph (``Run.timed``) too."""
     _, runs = micro
@@ -1393,6 +1502,14 @@ def test_tpu_micro_wrappers_refuse_what_the_kernels_do_not_take(micro):
         um.gather_chain(table, idx[:, :100].contiguous(), 1)
     with pytest.raises(ValueError, match="power of two"):
         um.gather_chain(table[:, :1000].contiguous(), idx, 1)
+    # K17a smem's bulk copy reads a 16-byte aligned table; l2 reads words
+    flat = torch.empty(table.numel() + 1, device=table.device)
+    shifted = flat[1:].view(table.shape)
+    shifted.copy_(table)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        um.gather_chain(shifted, idx, 1, "smem")
+    assert torch.equal(um.gather_chain(shifted, idx, 3),
+                       um._gather_ref(table, idx, 3))
     with pytest.raises(ValueError, match="shape"):
         um.onehot_chain(table[:4].contiguous(),
                         um.lanes_of(inp, "E7", False), 1)
@@ -1478,13 +1595,17 @@ def test_tpu_micro_onehot_cases_bit_equal(dev, name):
 @pytest.mark.gpu
 def test_tpu_micro_vote_and_onehot_sass(dev):
     """K17b's step loop holds one block-wide barrier, K17c's one 16 B load
-    a lane (``vote_sass``, ``onehot_sass`` on the package's build), and
-    every kVoteWarps, both K17c block sizes and each yardstick of
-    ``experiments/yardsticks`` build and are bit-equal to the plain
-    version on the seeded inputs, uncounted."""
+    a lane (``vote_sass``, ``onehot_sass`` on the package's build), K17a
+    smem's build one bulk copy, one mbarrier wait and no staging loop
+    (``gather_sass``), and every kVoteWarps, both K17c block sizes and
+    each yardstick of ``experiments/yardsticks`` that patches
+    ``tpu_micro.cu`` build and are bit-equal to the plain version on the
+    seeded inputs (K17a at 131,072 lanes but ``gather_noload``, which
+    leaves the gather out), uncounted."""
     dump = common.sass_dump(_build.build("tpu_micro"))
     assert um.vote_sass(dump)[1] == 1
     assert um.onehot_sass(dump)[1:] == (1, 1)
+    assert um.gather_sass(dump)["smem"][2:] == (1, 1, 0)
     own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
     inp = um.probe_inputs(dev)
     idx = um.lanes_of(inp, "E7", False)
@@ -1492,19 +1613,27 @@ def test_tpu_micro_vote_and_onehot_sass(dev):
              for w in um.VOTE_WARPS}
     texts.update({f"t{t}": common.variant(own, f"kOnehotThreads:{t}")
                   for t in (32, 256)})
-    texts.update({n: yardsticks.source(n) for n in yardsticks.names()})
+    texts.update({n: yardsticks.source(n)
+                  for n in yardsticks.names("tpu_micro.cu")})
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(len(texts)) as ex:  # one nvcc a source
         libs = list(ex.map(lambda kv: um.source_lib(f"test_{kv[0]}",
                                                     kv[1])[0],
                            texts.items()))
     before = dict(um.LAUNCHES)
-    for lib in libs:
+    gather = um.lanes_of(inp, "E3", True)
+    for name, lib in zip(texts, libs):
         for k in (1, 3, 64):
             assert torch.equal(um._row_vote(inp["rows"], inp["x"], k, lib),
                                um._row_vote_ref(inp["rows"], inp["x"], k))
             assert torch.equal(um._onehot(inp["table"], idx, k, lib),
                                um._onehot_ref(inp["table"], idx, k))
+            if name == "gather_noload":  # another function: no gather
+                continue
+            for m in um.GATHER_MODES:
+                assert torch.equal(um._gather(inp["table"], gather, k, m,
+                                              lib),
+                                   um._gather_ref(inp["table"], gather, k))
     assert um.LAUNCHES == before
 
 

@@ -5,11 +5,12 @@ K17a-K17c, K18, K19 and K20 against the TPU kernels of
 its XLA ``run`` functions, on the TPU file's seeded inputs at a few steps;
 K17b, K17c and K18 also on the edge inputs of ``tests/micro_cases.py``
 (E5's kernel rebuilt at their block count; cases of another T or lane
-count than the TPU file's are held against the plain version only), the
-SASS counters (``copy_sass``, ``vote_sass``, ``onehot_sass``) on listings
-written out by hand, a model of each K17b layout's sum against
-``block_sum``, and the yardsticks' patch anchors against
-``csrc/tpu_micro.cu``.
+count than the TPU file's are held against the plain version only), and
+K17a's cases there (all of another T or lane count) against a numpy
+chain; the SASS counters (``copy_sass``, ``vote_sass``, ``onehot_sass``,
+``gather_sass``) on listings written out by hand, a model of each K17b
+layout's sum against ``block_sum``, and every yardstick's patch anchors
+against its ``csrc/`` file.
 
 The TPU file is loaded by its path (its ``main`` is guarded). Each of its
 experiments is called once with ``pl.pallas_call`` recording the callable
@@ -709,6 +710,110 @@ def test_vote_and_onehot_sass_count_the_step_loop():
     assert um.onehot_floor(20, 256, 32) == pytest.approx(20 * one)
 
 
+GATHER = "_ZN12_GLOBAL__N_113gather_kernelILi{m}EEEvPKfPKiiiiPf"
+
+
+def _gather_step(load):
+    return [load, "FADD R7, R7, R5", "F2I.TRUNC.NTZ R8, R7",
+            "IMAD R9, R9, 0x19660d, R8", "LOP3.LUT R9, R9, R10, RZ, 0xc0, !PT",
+            "IMAD.SHL.U32 R6, R9, 0x4, RZ"]
+
+
+def _gather_listing(m, unroll=4, staged=False):
+    """K17a's ``gather_kernel<m>``: the step loop unrolled ``unroll``
+    times; in smem (m = 1) the row staged by one bulk copy and a wait
+    (a spin loop on the mbarrier's parity), or with ``staged`` by a loop
+    of per-thread loads and stores and a barrier (the first form)."""
+    load = "LDS R5, [R6]" if m else "LDG.E.STRONG.GPU R5, desc[UR4][R6.64]"
+    head = ["LDC R1, c[0x0][0x28]"]
+    if m and staged:
+        head += ["stage:", "LDG.E R4, desc[UR4][R2.64]", "STS [R3], R4",
+                 "IADD3 R3, R3, 0x1000, RZ", "@P2 BRA {stage}",
+                 "BAR.SYNC.DEFER_BLOCKING 0x0"]
+    elif m:
+        head += ["SYNCS.EXCH.64 URZ, [UR4], UR6",
+                 "UBLKCP.S.G [UR8], [UR10], UR12",
+                 "BAR.SYNC.DEFER_BLOCKING 0x0", "LDG.E R9, desc[UR4][R2.64]",
+                 "wait:", "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], RZ",
+                 "@!P0 BRA {wait}"]
+    body = (["loop:"] + _gather_step(load) * unroll
+            + ["IADD3 R14, R14, -0x4, RZ", "ISETP.NE.AND P1, PT, R14, RZ, PT",
+               "@P1 BRA {loop}"])
+    return listing(GATHER.format(m=m), head + body + [
+        "STG.E desc[UR4][R2.64], R7", "EXIT", "end:", "BRA {end}"])
+
+
+def test_gather_sass_counts_the_step_loop():
+    """K17a's step loops in hand-written listings: instructions (a step's
+    6 times the unroll, the counter and the branch), gathers, and smem's
+    bulk copy, wait and staging loops; the first form's staging loop is
+    counted; raises without a mode's step loop. The issue-rate floor: a
+    step's instructions in each warp of the fullest SM over its 4
+    schedulers (32 warps an SM at 131,072 lanes, 4 at 1,024)."""
+    l2 = _gather_listing(0)
+    assert um.gather_sass(l2 + _gather_listing(1)) == {
+        "l2": (27, 4, 0, 0, 0), "smem": (27, 4, 1, 1, 0)}
+    first = um.gather_sass(_gather_listing(0, 1)
+                           + _gather_listing(1, 1, staged=True))
+    assert first == {"l2": (9, 1, 0, 0, 0), "smem": (9, 1, 0, 0, 1)}
+    with pytest.raises(ValueError, match="modes"):
+        um.gather_sass(l2)
+    one = 1 / 1.98e9 * 1e9
+    assert um.gather_floor((27, 4), 131_072) == pytest.approx(27 / 4 * 8 * one)
+    assert um.gather_floor((27, 4), 1024) == pytest.approx(27 / 4 * one)
+
+
+def test_smem_wavefronts_count_bank_conflicts():
+    """A warp's gather takes as many shared-memory wavefronts as the most
+    distinct words it reads in one bank: 1 for 32 lanes on one word or on
+    32 banks, 32 for 32 words of bank 0, 2 for two words of one bank; the
+    bank floor is those wavefronts for each warp of the fullest SM, one a
+    cycle at 1,980 MHz (32 warps an SM at 131,072 lanes in 8 rows)."""
+    table = torch.zeros((1, 1024))
+    bank0 = [32 * k for k in range(32)]
+    for want, idx in ((1, [5] * 32), (1, list(range(32))), (32, bank0),
+                      (2, [0, 32] + list(range(2, 32)))):
+        assert um.smem_wavefronts(table, torch.tensor([idx]), 1) == want
+    # the chain's second step: acc 0 keeps the LCG on idx * 1664525 mod T
+    step2 = torch.tensor([[(k * um.LCG) % 1024 for k in bank0]])
+    assert um.smem_wavefronts(table, torch.tensor([bank0]), 2, 1) == \
+        um.smem_wavefronts(table, step2, 1)
+    one = 1 / 1.98e9 * 1e9
+    assert um.bank_floor(3.5, 131_072) == pytest.approx(3.5 * 32 * one)
+    assert um.bank_floor(3.5, 1024) == pytest.approx(3.5 * 4 * one)
+
+
+def _gather_np(table, idx, steps):
+    """E3's chain in numpy: float32 adds, the int32 LCG wrapped and masked
+    (T a power of two), float to int truncated and saturated."""
+    acc = np.zeros(idx.shape, np.float32)
+    i = idx.astype(np.int64)
+    for _ in range(steps):
+        acc = (acc + np.take_along_axis(table, i, 1)).astype(np.float32)
+        a = np.clip(np.trunc(acc.astype(np.float64)), -2 ** 31, 2 ** 31 - 1)
+        i = (i * um.LCG + a.astype(np.int64)) & (table.shape[1] - 1)
+    return acc
+
+
+@pytest.mark.parametrize("name", list(micro_cases.GATHER_CASES))
+def test_gather_cases_match_a_numpy_chain(name):
+    """K17a's plain version on tests/micro_cases.py's E3 cases (T = 2 and
+    32,768, 32 to 131,072 lanes a row), at 0, 1 and the case's steps: the
+    wrapper's CPU path bit-equal to an independent numpy chain (the TPU
+    kernel fixes its shapes, so the cases are plain only); each case holds
+    T - 1 in every row's first and last lane and its shape's T and L."""
+    table, idx = micro_cases.gather_case(name)
+    rows, t, lanes = micro_cases.GATHER_SHAPES[name]
+    assert table.shape == (rows, t) and idx.shape == (rows, lanes)
+    assert (idx[:, 0] == t - 1).all() and (idx[:, -1] == t - 1).all()
+    assert idx.min() >= 0 and idx.max() == t - 1
+    tt, ti = torch.from_numpy(table), torch.from_numpy(idx)
+    for k in sorted({0, 1, micro_cases.GATHER_CASES[name]}):
+        got = um.gather_chain(tt, ti, k, "smem")
+        np.testing.assert_array_equal(got.numpy(), _gather_np(table, idx, k))
+        assert torch.equal(got, um.gather_chain(tt, ti, k, "l2"))
+
+
 def test_kernel_ptxas_and_source_constants():
     """ptxas's lines by kernel (the mangled name's length prefix keeps
     ``onehot_kernel`` and ``onehot_view_kernel`` apart), and a source's
@@ -734,7 +839,7 @@ def test_yardstick_anchors_match_the_source(name):
     """Every yardstick's patch anchors occur once in its csrc/ file, so its
     source (cited by PERF.md) can be rebuilt from this checkout."""
     text = yardsticks.source(name)
-    own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
+    own = (_build.CSRC_DIR / yardsticks.patched_file(name)).read_text()
     assert text != own and "__global__" in text
     with pytest.raises(ValueError, match="anchor"):
         yardsticks.patch(own, [("no such anchor", "")])

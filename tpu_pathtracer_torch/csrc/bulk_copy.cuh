@@ -3,7 +3,7 @@
 // on an mbarrier in shared memory as a count of bytes. Shared by
 // csrc/dma_probe.cu (K15's copy chains), csrc/leafmt_probe.cu (K14's
 // per-warp ring), csrc/regroup_probe.cu (K21's staged window) and
-// csrc/tpu_micro.cu (K18's copy chain).
+// csrc/tpu_micro.cu (K17a's staged row, K18's copy chain, K19's ring).
 //
 // The protocol: an mbarrier is initialised with its arrival count and
 // fenced (bar_init, then bar_init_fence) before a copy may complete on it.

@@ -6,22 +6,47 @@
 // probe :118, pallas_call :134), which runs P in {1, 2, 4} independent
 // 1024-ray packets in one block and issues every packet's slab tests before
 // it consumes any packet's votes. Here a thread takes the place of a
-// packet: it walks R in {1, 2, 4} rays (a template parameter), first
-// loading both children's boxes and slab-testing them for every live ray,
-// then advancing each ray.
+// packet: it holds R in {1, 2, 4} ray slots (a template parameter), first
+// loading both children's boxes and slab-testing them for every live
+// slot, then advancing each slot's ray.
 //
 // Contract. Each ray walks the implicit-heap BVH of bvh.cu with closest
 // fixed at FLT_MAX; a leaf pops at once (there is no leaf phase). The
 // output is each ray's count of interior steps (bvh.cu's node_steps
 // counter), int32 [n]. R does not change the function: every R gives the
-// same counts, bit for bit, as the plain version (dual_probe.py). Thread
-// j of a block walks rays blockIdx*128*R + r*128 + j, r < R.
+// same counts, bit for bit, as the plain version (dual_probe.py).
+//
+// The grid. One persistent wave: kWarpsPerSm / 4 blocks of 128 threads
+// on every SM, the same resident warps an SM at every R (the C entry asks
+// the occupancy calculator for the R form it launches and refuses to
+// launch a smaller wave), so R varies only the independent walks a thread
+// interleaves, the TPU probe's own question. kWarpsPerSm is 16: the R = 4
+// form's registers (the launch bounds cap them at 128) still allow it.
+//
+// Rays refilled lane by lane. The wave first seats R * lanes rays with no
+// counter (slot r of lane g takes ray r * lanes + g). When a slot's ray
+// ends, its count is written and its lane takes the next ray index from a
+// global counter (the wrapper's 4-byte scratch, zeroed by the C entry on
+// the same stream, so every call and every CUDA-graph replay starts from
+// 0; it counts from ray R * lanes on): one refill round a loop iteration,
+// in which the lanes with a free slot are a ballot, lane 0 claims as many
+// indices by one atomicAdd, and each lane takes base + its rank among
+// them. No thread waits on the slowest ray of a fixed batch; the loop
+// still issues every slot's loads before it consumes any.
 //
 // What bounds it: the dependent node loads (two float4 a child box, from
-// the L2), each step waiting on the last; 24 FP32 operations a step.
-// Several rays a thread put R steps' loads in flight at once, at the cost
-// of R times the registers and of a thread that runs until its slowest
-// ray ends.
+// the L1 or the L2), each step waiting on the last; 24 FP32 operations a
+// step. R slots a thread put up to R steps' loads in flight at once, at
+// the cost of R times the registers. On the dragon the longest ray's
+// chain sets the time: 203 interior steps against 13.1 a ray on its
+// 131,072 primary rays, and a call takes 2.1-2.4x that ray's latency
+// floor (a pass of the walk loop issued by one warp and an L2 round trip
+// a step; experiments/dual_probe.py ab, PERF.md §6 K16: 0.112-0.131 ms
+// at R = 1, 2, 4 against the first form's 0.085 / 0.128 / 0.241, whose
+// 1,024 blocks at R = 1 seat every ray at once). Yardsticks in
+// experiments/yardsticks: every ray from the counter (dual_counter_fill),
+// the top 9 levels staged by one bulk copy (dual_treelet); 8 or 32 warps
+// an SM as variants (32 spills at R = 4).
 
 #include <cfloat>
 #include <cstdint>
@@ -33,126 +58,225 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarpsPerSm = 16;  // resident warps an SM, at every R
+constexpr int kBlocksPerSm = kWarpsPerSm * 32 / kThreads;
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kBlocksPerSm >= 1 && kWarpsPerSm * 32 % kThreads == 0,
+              "whole blocks an SM");
+
+// Rows 2l .. 2l + 3 (float4) of the node table: the boxes of node l's two
+// children, rows l << 1 and (l << 1) + 1 of [2 * first_leaf, 8] f32.
+struct Children {
+  float4 la, lb, ra, rb;
+};
+
+__device__ __forceinline__ Children children(const float4* __restrict__ nodes,
+                                             unsigned idx) {
+  const size_t l = static_cast<size_t>(idx) << 1;
+  return {__ldg(nodes + 2 * l), __ldg(nodes + 2 * l + 1),
+          __ldg(nodes + 2 * l + 2), __ldg(nodes + 2 * l + 3)};
+}
+
+// A ray slot: the ray's origin, inverse direction and its signs, its
+// node and bitstack, its interior steps so far and its index.
+struct Slot {
+  float o1, o2, o3, i1, i2, i3;
+  bool n1, n2, n3;
+  unsigned idx, bs;  // idx 0: the slot is free
+  int steps, ray;
+};
+
+__device__ __forceinline__ Slot seat(const float* __restrict__ ox,
+                                     const float* __restrict__ oy,
+                                     const float* __restrict__ oz,
+                                     const float* __restrict__ dx,
+                                     const float* __restrict__ dy,
+                                     const float* __restrict__ dz, int j) {
+  const float i1 = 1.0f / dx[j], i2 = 1.0f / dy[j], i3 = 1.0f / dz[j];
+  return {ox[j], oy[j], oz[j], i1, i2, i3, i1 < 0.f, i2 < 0.f, i3 < 0.f,
+          1u, 1u, 0, j};
+}
 
 template <int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 dual_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
             const float* __restrict__ oz, const float* __restrict__ dx,
             const float* __restrict__ dy, const float* __restrict__ dz,
             const float4* __restrict__ nodes, unsigned first_leaf, int n,
-            int* __restrict__ steps_out) {
-  const int base = blockIdx.x * kThreads * R + threadIdx.x;
+            int* __restrict__ steps_out, int* __restrict__ next) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  const int lanes = gridDim.x * kThreads;  // the wave's
+  const int g = blockIdx.x * kThreads + threadIdx.x;
   const float closest = FLT_MAX;
-  float o1[R], o2[R], o3[R], i1[R], i2[R], i3[R];
-  bool n1[R], n2[R], n3[R];
-  unsigned idx[R], bs[R];
-  int steps[R];
-  bool alive = false;
+  // the first fill, with no counter: slot r takes ray r * lanes + g; the
+  // counter hands out the rays from R * lanes on
+  Slot s[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int j = base + r * kThreads;
-    const bool live = j < n;
-    o1[r] = live ? ox[j] : 0.f;
-    o2[r] = live ? oy[j] : 0.f;
-    o3[r] = live ? oz[j] : 0.f;
-    i1[r] = 1.0f / (live ? dx[j] : 1.f);
-    i2[r] = 1.0f / (live ? dy[j] : 1.f);
-    i3[r] = 1.0f / (live ? dz[j] : 1.f);
-    n1[r] = i1[r] < 0.f;
-    n2[r] = i2[r] < 0.f;
-    n3[r] = i3[r] < 0.f;
-    idx[r] = live ? 1u : 0u;
-    bs[r] = 1u;
-    steps[r] = 0;
-    alive |= live;
+    const int j = r * lanes + g;
+    if (j < n) {
+      s[r] = seat(ox, oy, oz, dx, dy, dz, j);
+    } else {
+      s[r] = {};  // free
+    }
   }
-  while (alive) {
-    // issue: every ray at an interior node loads and tests both children
+  bool more = R * lanes < n;  // the counter may still hold a ray
+  for (;;) {
+    // refill: every lane with a free slot takes one ray
+    bool want = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) want |= s[r].idx == 0u;
+    want &= more;
+    const unsigned ball = __ballot_sync(kFull, want);
+    if (ball != 0u) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(next, __popc(ball));
+      base = R * lanes + __shfl_sync(kFull, base, 0);
+      if (want) {
+        const int j = base + __popc(ball & below);
+        if (j < n) {
+          const Slot fresh = seat(ox, oy, oz, dx, dy, dz, j);
+          bool put = false;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (!put && s[r].idx == 0u) {
+              put = true;
+              s[r] = fresh;
+            }
+          }
+        } else {
+          more = false;
+        }
+      }
+    }
+    bool alive = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) alive |= s[r].idx != 0u;
+    if (!__any_sync(kFull, alive)) break;
+    // issue: every slot at an interior node loads and tests both children
     float lhit[R], rhit[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       lhit[r] = rhit[r] = FLT_MAX;
-      if (idx[r] != 0u && idx[r] < first_leaf) {
-        const size_t l = static_cast<size_t>(idx[r]) << 1;
-        const float4 la = __ldg(nodes + 2 * l);
-        const float4 lb = __ldg(nodes + 2 * l + 1);
-        const float4 ra = __ldg(nodes + 2 * l + 2);
-        const float4 rb = __ldg(nodes + 2 * l + 3);
-        lhit[r] = pt::slab_entry(la.x, la.y, la.z, la.w, lb.x, lb.y, o1[r],
-                                 o2[r], o3[r], i1[r], i2[r], i3[r], n1[r],
-                                 n2[r], n3[r], closest);
-        rhit[r] = pt::slab_entry(ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, o1[r],
-                                 o2[r], o3[r], i1[r], i2[r], i3[r], n1[r],
-                                 n2[r], n3[r], closest);
+      if (s[r].idx != 0u && s[r].idx < first_leaf) {
+        const Children c = children(nodes, s[r].idx);
+        lhit[r] = pt::slab_entry(c.la.x, c.la.y, c.la.z, c.la.w, c.lb.x,
+                                 c.lb.y, s[r].o1, s[r].o2, s[r].o3, s[r].i1,
+                                 s[r].i2, s[r].i3, s[r].n1, s[r].n2,
+                                 s[r].n3, closest);
+        rhit[r] = pt::slab_entry(c.ra.x, c.ra.y, c.ra.z, c.ra.w, c.rb.x,
+                                 c.rb.y, s[r].o1, s[r].o2, s[r].o3, s[r].i1,
+                                 s[r].i2, s[r].i3, s[r].n1, s[r].n2,
+                                 s[r].n3, closest);
       }
     }
-    // consume: advance each ray (pt::heap_node_step's descent), or pop a
-    // ray that stands on a leaf
-    alive = false;
+    // consume: advance each slot's ray (pt::heap_node_step's descent), or
+    // pop a ray that stands on a leaf; a ray that ends writes its count
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (idx[r] == 0u) continue;
-      if (idx[r] >= first_leaf) {
-        pt::pop_bitstack(bs[r], idx[r]);
+      Slot& q = s[r];
+      if (q.idx == 0u) continue;
+      if (q.idx >= first_leaf) {
+        pt::pop_bitstack(q.bs, q.idx);
       } else {
-        ++steps[r];
-        const unsigned l = idx[r] << 1;
+        ++q.steps;
+        const unsigned l = q.idx << 1;
         const bool tl = lhit[r] < closest;
         const bool tr = rhit[r] < closest;
         const unsigned child = l + (rhit[r] < lhit[r] ? 1u : 0u);
         if (tl && tr) {
-          idx[r] = child;
-          bs[r] = (bs[r] << 1) | 1u;
+          q.idx = child;
+          q.bs = (q.bs << 1) | 1u;
         } else if (tl || tr) {
-          idx[r] = child;
-          bs[r] <<= 1;
+          q.idx = child;
+          q.bs <<= 1;
         } else {
-          pt::pop_bitstack(bs[r], idx[r]);
+          pt::pop_bitstack(q.bs, q.idx);
         }
       }
-      alive |= idx[r] != 0u;
+      if (q.idx == 0u) steps_out[q.ray] = q.steps;
     }
   }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int j = base + r * kThreads;
-    if (j < n) steps_out[j] = steps[r];
-  }
+}
+
+// The launch of the R form: one wave of kBlocksPerSm blocks on every SM.
+// Returns 0, or the CUDA error of a query, or cudaErrorLaunchOutOfResources
+// if fewer than kBlocksPerSm blocks of this form fit on an SM.
+template <int R>
+int wave(int* grid, int* resident) {
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, dual_kernel<R>,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *grid = sms * kBlocksPerSm;
+  *resident = per;
+  return per < kBlocksPerSm ? static_cast<int>(cudaErrorLaunchOutOfResources)
+                            : 0;
+}
+
+template <int R>
+int launch(const float* ox, const float* oy, const float* oz,
+           const float* dx, const float* dy, const float* dz,
+           const float4* nodes, unsigned first_leaf, int n, int* steps,
+           int* next, cudaStream_t st) {
+  int grid = 0, resident = 0;
+  const int e = wave<R>(&grid, &resident);
+  if (e != 0) return e;
+  const cudaError_t m = cudaMemsetAsync(next, 0, sizeof(int), st);
+  if (m != cudaSuccess) return static_cast<int>(m);
+  dual_kernel<R><<<grid, kThreads, 0, st>>>(ox, oy, oz, dx, dy, dz, nodes,
+                                            first_leaf, n, steps, next);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches the R-ray form (R = 1, 2 or 4) on `stream`; returns
-// cudaGetLastError() (0 = launched). nodes is bvh.cu's [2*first_leaf, 8]
-// f32 table, 16-byte aligned; steps is int32 [n].
-extern "C" int dual_probe_launch(int R, const float* ox, const float* oy,
-                                 const float* oz, const float* dx,
-                                 const float* dy, const float* dz,
-                                 const float* nodes, int first_leaf, int n,
-                                 int* steps, void* stream) {
+// Launches the R-ray form (R = 1, 2 or 4) on `stream`; returns 0 when
+// launched, else a CUDA error (cudaErrorLaunchOutOfResources: the form
+// does not fit kWarpsPerSm warps on an SM). nodes is bvh.cu's
+// [2*first_leaf, 8] f32 table, 16-byte aligned; steps is int32 [n]; next
+// is the caller's 4-byte scratch, the ray counter, zeroed here first.
+extern "C" int dual_probe_walk(int R, const float* ox, const float* oy,
+                               const float* oz, const float* dx,
+                               const float* dy, const float* dz,
+                               const float* nodes, int first_leaf, int n,
+                               int* steps, int* next, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (first_leaf < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* nd = reinterpret_cast<const float4*>(nodes);
   const unsigned fl = static_cast<unsigned>(first_leaf);
-  const auto grid = [n](int r) {
-    return dim3((n + kThreads * r - 1) / (kThreads * r));
-  };
   switch (R) {
     case 1:
-      dual_kernel<1><<<grid(1), kThreads, 0, st>>>(ox, oy, oz, dx, dy, dz,
-                                                   nd, fl, n, steps);
-      break;
+      return launch<1>(ox, oy, oz, dx, dy, dz, nd, fl, n, steps, next, st);
     case 2:
-      dual_kernel<2><<<grid(2), kThreads, 0, st>>>(ox, oy, oz, dx, dy, dz,
-                                                   nd, fl, n, steps);
-      break;
+      return launch<2>(ox, oy, oz, dx, dy, dz, nd, fl, n, steps, next, st);
     case 4:
-      dual_kernel<4><<<grid(4), kThreads, 0, st>>>(ox, oy, oz, dx, dy, dz,
-                                                   nd, fl, n, steps);
-      break;
+      return launch<4>(ox, oy, oz, dx, dy, dz, nd, fl, n, steps, next, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// The R form's wave, for the records and the checks: its blocks (grid),
+// the blocks of 128 threads it launches on an SM and the most that fit
+// there (the occupancy calculator's). Returns as `wave`.
+extern "C" int dual_probe_shape(int R, int* grid, int* per_sm,
+                                int* resident) {
+  *per_sm = kBlocksPerSm;
+  switch (R) {
+    case 1:
+      return wave<1>(grid, resident);
+    case 2:
+      return wave<2>(grid, resident);
+    case 4:
+      return wave<4>(grid, resident);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -6,10 +6,20 @@
 // Replaces (experiments/tpu_micro.py):
 //   * E3 `kernel` :123 (through _pallas_steps_runner :98, pallas_call
 //     :101): a per-lane gather from an (R, T) table, acc += table[r, idx],
-//     idx = (idx * 1664525 + int(acc)) mod T. Modes: kL2 reads the table
-//     with __ldcg (cached in L2 only, so every step pays an L2 round trip);
-//     kSmem stages the block's table row (T * 4 B, 64 KB at T = 16384) in
-//     dynamic shared memory first;
+//     idx = (idx * 1664525 + int(acc)) mod T, one dependent gather a step.
+//     Modes: kL2 reads the table with __ldcg (cached in L2 only, so every
+//     step pays an L2 round trip); kSmem stages the block's table row
+//     (T * 4 B, 64 KB at T = 16384, 128 KB at 32768) in dynamic shared
+//     memory by one cp.async.bulk on an mbarrier: thread 0 arms it with
+//     expect_tx T * 4 B and issues the copy, one barrier publishes the
+//     mbarrier's init while the copy is in flight, and every warp waits on
+//     its parity after loading its indices (a row under the copy's 16 B
+//     grain, T <= 2, thread 0 stores itself before a plain arrive). The
+//     first form staged the row by each thread's 4 B loads and stores and
+//     a __syncthreads. The step loop is unrolled kGatherUnroll times, so
+//     its counter and branch leave the issue at 131,072 lanes (32 warps
+//     an SM) while the chain a step stays the load, FADD, F2I, IMAD, LOP3
+//     and the address;
 //   * E4 `kernel` :154: one (8, 128) tile against a row i of a (T, 8)
 //     table read as a broadcast; near = max of three slab terms, acc +=
 //     near, and i steps by a block-wide vote on sum(near) > 0. The vote
@@ -109,6 +119,15 @@
 // What bounds them: by design, latency. Each step waits on the one before
 // it (a gather, a copy, a vote); the bounds the records carry (each input
 // read once, or the bytes copied; E8/E9's FP32 operations) are far below.
+// E3 (experiments/tpu_micro.py gather_ab; PERF.md §6 K17a): at 1,024
+// lanes a step is the chain's latency, ~200 ns in kL2 and ~31 in kSmem;
+// at 131,072 lanes (32 warps an SM) kSmem sits at its bank floor, a warp's
+// random gather taking ~3.5 wavefronts (tpu_micro.py smem_wavefronts,
+// bank_floor: 57 ns), above the conversion pipe's ~33 (the yardstick
+// gather_noload, no load), and kL2 moves ~4 TB/s of 32 B sectors. The
+// bulk copy takes ~16-19 us off kSmem's per-call intercept at 1,024
+// lanes; one multicast copy a cluster of 8 (gather_multicast) doubles
+// its step at 131,072 lanes.
 // E5's one warp issues a step's chain loop (its SASS counted by
 // experiments/tpu_micro.py copy_sass) far faster than the copy's round
 // trip, which is the number to read. E8/E9 run at 2-3x their issue-rate
@@ -170,6 +189,7 @@ constexpr int kLeafCopyRows = 9;        // E8: rows a copy stages (9 or 16)
 constexpr int kChainRing = 4;           // E9: the ring of c's slots
 constexpr int kVoteWarps = 4;           // E4: warps of the tile (4-32)
 constexpr int kOnehotThreads = 256;     // E7: threads a block (32 or 256)
+constexpr int kGatherUnroll = 4;        // E3: step loop unrolled
 constexpr float kFar = 1e30f;
 constexpr float kTMin = 1e-3f;
 constexpr float kEpsA = 1e-7f;
@@ -190,23 +210,47 @@ __device__ __forceinline__ unsigned lcg(unsigned idx, float acc,
   return (idx * kLcg + static_cast<unsigned>(__float2int_rz(acc))) & mask;
 }
 
+// K17a's row (T floats) into shared memory, completing on `bar`: one bulk
+// copy, or, for a row under the copy's 16 B grain (T <= 2: 4 or 8 B),
+// thread 0's own stores before a plain arrive (release; the waiters'
+// try_wait acquires).
+__device__ __forceinline__ void stage_row(float* dst, const float* row, int T,
+                                          uint64_t* bar) {
+  const unsigned bytes = static_cast<unsigned>(T) * 4u;
+  if (bytes % 16u == 0u) {
+    pt::arrive_expect_tx(bar, bytes);
+    pt::bulk_copy(dst, row, bytes, bar);
+  } else {
+    dst[0] = row[0];
+    if (T > 1) dst[1] = row[1];
+    pt::bar_arrive(bar);
+  }
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads)
 gather_kernel(const float* __restrict__ table, const int* __restrict__ idx0,
               int T, int L, int steps, float* __restrict__ out) {
-  extern __shared__ float srow[];
+  extern __shared__ __align__(128) float srow[];
+  __shared__ __align__(8) uint64_t full;
   const int r = blockIdx.y;
   const int l = blockIdx.x * blockDim.x + threadIdx.x;
   const float* row = table + static_cast<size_t>(r) * T;
   if (kMode == kSmem) {
-    for (int j = threadIdx.x; j < T; j += blockDim.x) srow[j] = row[j];
-    __syncthreads();
+    if (threadIdx.x == 0) {
+      pt::bar_init(&full, 1);
+      pt::bar_init_fence();
+      stage_row(srow, row, T, &full);
+    }
+    __syncthreads();  // publishes the mbarrier's init; the copy is in flight
   }
   const unsigned mask = static_cast<unsigned>(T) - 1u;
   const size_t lane = static_cast<size_t>(r) * L + l;
   // idx0 lies in [0, T); the mask keeps a caller's bad index in bounds
   unsigned idx = static_cast<unsigned>(idx0[lane]) & mask;
   float acc = 0.f;
+  if (kMode == kSmem) pt::bar_wait(&full, 0);
+#pragma unroll kGatherUnroll
   for (int s = 0; s < steps; ++s) {
     acc += kMode == kSmem ? srow[idx] : __ldcg(row + idx);
     idx = lcg(idx, acc, mask);
@@ -639,14 +683,16 @@ inline bool pow2(int T) { return T > 0 && (T & (T - 1)) == 0; }
 // cudaGetLastError() (0 = launched); pointers are device pointers of
 // contiguous float32 / int32 tensors, checked by the Python wrappers.
 
-// E3: table [R, T] (T a power of two, at most 32768 in kSmem), idx and
-// out [R, L]; L <= 1024 a multiple of 32, or a multiple of 1024.
+// E3: table [R, T] (T a power of two, at most 32768 in kSmem; 16-byte
+// aligned in kSmem, the bulk copy's source), idx and out [R, L]; L <= 1024
+// a multiple of 32, or a multiple of 1024.
 extern "C" int tpu_micro_gather(int mode, const float* table, const int* idx,
                                 int R, int T, int L, int steps, float* out,
                                 void* stream) {
   const int threads = L < kMaxThreads ? L : kMaxThreads;
   if (R < 1 || L < 1 || steps < 0 || !pow2(T) || threads % 32 ||
-      L % threads)
+      L % threads ||
+      (mode == kSmem && reinterpret_cast<uintptr_t>(table) % 16))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(L / threads, R);

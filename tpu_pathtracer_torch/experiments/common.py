@@ -247,6 +247,22 @@ def ab_sources(argv: List[str], new: str):
     return texts, cut, out
 
 
+def ab_texts(ab: List[str], new: str):
+    """An A/B's other sources: :func:`ab_sources` of ``ab`` with
+    ``NAME=yardstick:MODULE`` (a patch of ``new``'s file in
+    ``experiments/yardsticks``) among them. Returns ({name: source text},
+    ``new`` itself left out unless named; DIR of ``--out`` or None)."""
+    from tpu_pathtracer_torch.experiments import yardsticks
+    pick = lambda a: a.split("=", 1)[-1].startswith(yardsticks.PREFIX)
+    yard = {a.split("=", 1)[0]: yardsticks.source(
+                a.split("=", 1)[1][len(yardsticks.PREFIX):])
+            for a in ab if pick(a)}
+    texts, _, out = ab_sources([a for a in ab if not pick(a)], new)
+    texts.pop("new")
+    texts.update(yard)
+    return texts, out
+
+
 # the nearest leaf loops of the heap kernels' split form (csrc/bvh.cu,
 # csrc/bvh_mx.cu) and of their first forms (one thread a ray), and the
 # same loops cut

@@ -6,6 +6,8 @@ latency. The port's counterpart of ``experiments/dual_probe.py``
 share a TPU block.
 
     python -m tpu_pathtracer_torch.experiments.dual_probe [--dragon-ish] [R ...]
+    python -m tpu_pathtracer_torch.experiments.dual_probe parent=FILE.cu \\
+        [NAME=FILE.cu] [NAME=K:V,...] [NAME=yardstick:MODULE] [--out DIR]
 
 The function is each ray's count of interior steps of K5's walk
 (``ops/cuda_bvh.py``) with closest fixed at FLT_MAX and leaves popping at
@@ -13,7 +15,9 @@ once; R (1, 2 or 4) changes only how the kernel schedules it, so every R
 agrees bit for bit with the plain version (``cuda_bvh``'s heap walk with
 a leaf step that does nothing). :func:`dual_steps` dispatches on the
 device of its inputs: CPU tensors go to the plain version, CUDA tensors to
-the kernel or the call raises.
+the kernel or the call raises. The kernel runs one persistent wave with
+the same resident warps an SM at every R (:func:`wave`), its threads
+taking rays from a counter as their slots free up.
 
 ``main()`` builds ``knot_zoo_scene(512, 512, prims_per_leaf=64)``
 (``--dragon-ish``: nu=832, nv=131) and takes the 131,072 diffuse bounce
@@ -21,25 +25,54 @@ stand-ins of ``experiments/incoh_phase.py``'s ``bounce_rays`` (its numpy
 generator, copied in :func:`bounce_rays`: the same rays, unsorted, ROADMAP
 A-12). That generator draws from every heap slot, the sentinel padding
 too, whose rays have non-finite origins and pass every slab test (ROADMAP
-C-16); ``main()`` drops them and says how many, and how many steps they
-would have taken. It runs :func:`measure` on the rest: every R held
-bit-equal to the plain node phase, then the R forms timed in turns (4
-rounds forward and back, each reading the median of 7 calls); it prints
-ms a traversal and ns an interior step for each.
+C-16); ``main()`` walks them apart, held bit-equal too, and says how many
+and how many steps they took. It runs :func:`measure` on the rest: every R
+held bit-equal to the plain node phase, then the R forms timed in turns,
+device time a call in a CUDA graph; it prints ms a traversal and ns an
+interior step for each, and the resident warps an SM.
+
+With sources (``parent=FILE.cu``, say the first form: commit bb9225d's
+``csrc/dual_probe.cu`` saved under a gitignored directory; ``NAME=FILE.cu``;
+``NAME=K:V,...``, this source with its ``constexpr int K`` set to V, say
+``w8=kWarpsPerSm:8``; ``NAME=yardstick:MODULE``, a patch of this source in
+``experiments/yardsticks``, say ``top=yardstick:dual_treelet``) it runs the
+A/B instead (:func:`ab`): on :func:`ray_sets`' three sets (the dragon
+frame's 131,072 primary rays of ``chip_smoke.py`` phase 10d, its
+196,608-lane pool primary and the knot's finite bounce rays above) each
+source at every R held bit-equal to the plain node phase, then timed in
+turns, device time a call in a CUDA graph; it prints ns an interior step,
+the resident warps an SM, the issue-rate floor of each build's SASS
+(:func:`walk_sass`) and the latency floor with K17a's round trips, ``l2``
+and ``smem``, measured in the same call (``tpu_micro.round_trips``).
+``--out DIR`` keeps each build's ptxas lines and SASS.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+import re
 import statistics
 import sys
-from typing import Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpu_pathtracer_torch.experiments.common import (card, distinct, in_turns,
-                                                     median_ms)
+from tpu_pathtracer_torch.experiments import iter_ablate as ia
+from tpu_pathtracer_torch.experiments import tpu_micro as um
+from tpu_pathtracer_torch.experiments.common import (ISSUE_RATE, ab_texts,
+                                                     build, card, distinct,
+                                                     fast_count,
+                                                     graph_readings,
+                                                     branch_target,
+                                                     median_ms, natural_loops,
+                                                     opcode, package_ptxas,
+                                                     sass_dump,
+                                                     sass_functions,
+                                                     split_ab)
 from tpu_pathtracer_torch.models.shapes import knot_zoo_scene
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops import cuda_bvh as cb
@@ -52,8 +85,13 @@ RAYS_PER_THREAD = (1, 2, 4)
 # them to 0 and read them back to show that a run went through the kernel.
 LAUNCHES = {f"r{r}": 0 for r in RAYS_PER_THREAD}
 BOUNCE_RAYS = 131_072  # experiments/incoh_phase.py:30
-ROUNDS = 4
+ROUNDS = 3        # rounds in turns
+GRAPH_CALLS = 20  # calls a CUDA graph
 DRAGON_ISH = {"nu": 832, "nv": 131}
+THREADS = 128     # csrc/dual_probe.cu kThreads
+OUT_OF_RESOURCES = 701  # cudaErrorLaunchOutOfResources: the wave does not fit
+# one warp issues one instruction a cycle at the H100 SXM's 1,980 MHz
+WARP_ISSUE_RATE = 1.98e9
 
 
 @np.errstate(invalid="ignore")  # a sentinel slot's inf - inf
@@ -108,25 +146,33 @@ def _dual_steps_ref(origin: V3, direction: V3, tabs: cb.HeapTables,
     return cnt[4]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dual_probe")
-    fn = lib.dual_probe_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = ([ctypes.c_int] + [p] * 7
-                       + [ctypes.c_int, ctypes.c_int, p, p])
-        fn.restype = ctypes.c_int
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (the package's build or another source's) with its C
+    entries' signatures set: ``dual_probe_walk`` and ``dual_probe_shape``,
+    or the first form's ``dual_probe_launch`` (no counter, a grid of
+    n / (128 R) blocks)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    for name, args in (("dual_probe_walk", [i] + [p] * 7 + [i, i, p, p, p]),
+                       ("dual_probe_launch", [i] + [p] * 7 + [i, i, p, p]),
+                       ("dual_probe_shape", [i, ip, ip, ip])):
+        fn = getattr(lib, name, None)
+        if fn is not None and fn.argtypes is None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
 
 
-def dual_steps(origin: V3, direction: V3, tabs: cb.HeapTables,
-               R: int = 1) -> torch.Tensor:
-    """Each ray's interior steps (int32 [N]) of the node phase, walked R
-    rays a thread on the card."""
-    if R not in RAYS_PER_THREAD:
-        raise ValueError(f"R must be one of {RAYS_PER_THREAD}, not {R}")
-    if not _on_cuda(origin):
-        return _dual_steps_ref(origin, direction, tabs)
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load("dual_probe"))
+
+
+def _walk(origin: V3, direction: V3, tabs: cb.HeapTables, R: int,
+          lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """One launch through ``lib`` (default: the package's build, counted
+    in LAUNCHES; another library's launches are not counted)."""
     dev = origin.x.device
     n = origin.x.shape[0]
     for name, a in zip(("ox", "oy", "oz", "dx", "dy", "dz"),
@@ -140,27 +186,143 @@ def dual_steps(origin: V3, direction: V3, tabs: cb.HeapTables,
         raise ValueError("BVH deeper than the 32-level uint32 bitstack")
     steps = torch.empty((n,), dtype=torch.int32, device=dev)
     if n:
+        own = lib or _lib()
+        args = (R, *(a.data_ptr() for a in (*origin, *direction)),
+                tabs.nodes.data_ptr(), tabs.first_leaf, n, steps.data_ptr())
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _lib().dual_probe_launch(
-                R, *(a.data_ptr() for a in (*origin, *direction)),
-                tabs.nodes.data_ptr(), tabs.first_leaf, n, steps.data_ptr(),
-                stream)
+            if hasattr(own, "dual_probe_walk"):
+                counter = torch.empty((1,), dtype=torch.int32, device=dev)
+                rc = own.dual_probe_walk(*args, counter.data_ptr(), stream)
+            else:  # the first form
+                rc = own.dual_probe_launch(*args, stream)
         if rc != 0:
             raise RuntimeError(f"dual_probe kernel launch failed: CUDA error "
                                f"{rc}")
-        LAUNCHES[f"r{R}"] += 1
+        if lib is None:
+            LAUNCHES[f"r{R}"] += 1
     return steps
+
+
+def dual_steps(origin: V3, direction: V3, tabs: cb.HeapTables,
+               R: int = 1) -> torch.Tensor:
+    """Each ray's interior steps (int32 [N]) of the node phase, walked R
+    rays a thread on the card."""
+    if R not in RAYS_PER_THREAD:
+        raise ValueError(f"R must be one of {RAYS_PER_THREAD}, not {R}")
+    if not _on_cuda(origin):
+        return _dual_steps_ref(origin, direction, tabs)
+    return _walk(origin, direction, tabs, R)
+
+
+def wave(R: int, lib: Optional[ctypes.CDLL] = None) -> Tuple[int, int, int]:
+    """The R form's launch on the current card: (blocks, blocks of 128 it
+    puts on an SM, the most that fit there by the occupancy calculator).
+    Raises on a CUDA error other than the wave not fitting."""
+    grid, per_sm, resident = (ctypes.c_int(), ctypes.c_int(), ctypes.c_int())
+    rc = (lib or _lib()).dual_probe_shape(R, ctypes.byref(grid),
+                                          ctypes.byref(per_sm),
+                                          ctypes.byref(resident))
+    if rc not in (0, OUT_OF_RESOURCES):
+        raise RuntimeError(f"dual_probe_shape failed: CUDA error {rc}")
+    return grid.value, per_sm.value, resident.value
+
+
+def warps_per_sm(R: int, lib: Optional[ctypes.CDLL] = None) -> int:
+    """The resident warps an SM of the R form's wave; raises if fewer of
+    its blocks fit on an SM than it launches there (the C entry then
+    refuses to launch)."""
+    grid, per_sm, resident = wave(R, lib)
+    if resident < per_sm:
+        raise RuntimeError(f"R={R}: {resident} blocks of {THREADS} fit on an "
+                           f"SM, the wave puts {per_sm} there")
+    return per_sm * THREADS // 32
+
+
+def first_form_warps(n: int, R: int, sms: int) -> int:
+    """The first form's warps an SM at ``n`` rays (bb9225d's grid of
+    n / (128 R) blocks of 128 spread evenly over ``sms`` SMs), at most 64
+    (2,048 threads an SM) whatever its registers allow."""
+    return min(math.ceil(math.ceil(n / (THREADS * R)) / sms), 16) * 4
+
+
+def walk_sass(text: str) -> Dict[int, Tuple[int, int, int]]:
+    """{R: (a pass's instructions, a refill's, atomics)} of each R form's
+    walk loop in a ``cuobjdump -sass`` dump (``dual_kernel<R>``): the
+    widest natural loop (``common.natural_loops``) that holds the refill's
+    atomic (``ATOMG``, or ``ATOM``/``RED``). The refill is the stretch that
+    the loop's first branch after its ballot (a ``VOTE.ANY`` into a
+    register) jumps over when no lane wants a ray; a pass is the rest, a
+    node step (or pop) of each of the R slots of a warp's 32 lanes. Both
+    are counted once, but the slow paths of the refill's IEEE divisions
+    (``common.fast_count``). Raises if a form's loop holds no atomic
+    (another form, say the first), no refill stretch holds it, or there
+    is no ``dual_kernel``."""
+    out = {}
+    for name, code in sass_functions(text).items():
+        m = re.search(r"dual_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        what = f"dual_kernel<{m.group(1)}>"
+        count = lambda s, ops: sum(opcode(i).startswith(ops)
+                                   for _, i in code[s[0]:s[1] + 1])
+        loops = [s for s in natural_loops(code)
+                 if count(s, ("ATOM", "RED"))]
+        if not loops:
+            raise ValueError(f"{what}: no loop holds the refill's atomic")
+        lo, hi = max(loops, key=lambda s: s[1] - s[0])
+        addr = {a: k for k, (a, _) in enumerate(code)}
+        ballot = next((k for k in range(lo, hi + 1) if re.match(
+            r"(@!?U?P\w+\s+)?VOTE\.ANY R", code[k][1])), None)
+        jump = next((k for k in range(ballot or hi, hi + 1)
+                     if code[k][1].startswith("@")
+                     and branch_target(code[k][1]) in addr
+                     and k < addr[branch_target(code[k][1])] <= hi),
+                    None) if ballot is not None else None
+        if jump is None:
+            raise ValueError(f"{what}: no branch over a refill after a "
+                             f"ballot")
+        refill = (jump + 1, addr[branch_target(code[jump][1])] - 1)
+        if not count(refill, ("ATOM", "RED")):
+            raise ValueError(f"{what}: the refill holds no atomic")
+        total, part = fast_count(code, (lo, hi)), fast_count(code, refill)
+        out[int(m.group(1))] = (total - part, part,
+                                count((lo, hi), ("ATOM", "RED")))
+    if not out:
+        raise ValueError("no dual_kernel in the SASS")
+    return out
+
+
+def issue_floor_ms(sass: Tuple[int, int, int], steps: int, rays: int,
+                   R: int) -> float:
+    """The least time the card could issue a run of ``rays`` rays and
+    ``steps`` interior steps (:func:`walk_sass`'s (pass, refill, _)): a
+    pass for each step of each of the R slots of a warp's 32 lanes, a
+    refill round for every 32 rays, over 528 schedulers at 1,980 MHz."""
+    return ((steps * sass[0] / R + rays * sass[1]) / 32 / ISSUE_RATE
+            * 1e3)
+
+
+def latency_floor_ms(sass: Tuple[int, int, int], longest: int,
+                     trip_ns: float) -> float:
+    """The least time the longest ray's ``longest`` dependent steps take:
+    each a pass of the walk loop issued by one warp (:func:`walk_sass`'s
+    pass instructions at one a cycle, 1,980 MHz) and one round trip of its
+    node loads (``trip_ns``: K17a's dependent load a step)."""
+    return longest * (sass[0] / WARP_ISSUE_RATE * 1e9 + trip_ns) / 1e6
 
 
 def measure(origin: V3, direction: V3, tabs: cb.HeapTables,
             rays_per_thread=RAYS_PER_THREAD, rounds: int = ROUNDS) -> dict:
     """The probe's one measurement, on the card (``main()`` and
     ``chip_smoke.py`` phase 10d print it): each R runs once and is held
-    bit-equal to the plain node phase, then the R forms are timed in turns.
-    Returns a dict: ``launches`` (LAUNCHES after the checked run),
-    ``total`` (interior steps), ``nodes`` (the distinct node rows read),
-    ``readings`` and ``ms`` (their median) by R, and ``plain_ms``."""
+    bit-equal to the plain node phase, then the R forms are timed in
+    turns, device time a call in a CUDA graph (``common.graph_readings``,
+    GRAPH_CALLS calls a graph, ``rounds`` rounds). Returns a dict:
+    ``launches`` (LAUNCHES after the checked run), ``total`` (interior
+    steps), ``longest`` (the most one ray takes), ``nodes`` (the distinct
+    node rows read), ``warps`` (resident warps an SM), ``readings`` and
+    ``ms`` (their median) by R, and ``plain_ms``."""
     steps = {r: dual_steps(origin, direction, tabs, r)
              for r in rays_per_thread}
     torch.cuda.synchronize()
@@ -174,47 +336,177 @@ def measure(origin: V3, direction: V3, tabs: cb.HeapTables,
                                  f"rays")
     plain_ms = median_ms(lambda: _dual_steps_ref(origin, direction, tabs),
                          reps=2)
-    readings = in_turns({r: (lambda r=r: dual_steps(origin, direction, tabs,
-                                                    r))
-                         for r in rays_per_thread}, rounds)
+    readings = graph_readings(list(rays_per_thread), [0],
+                              lambda r, _: dual_steps(origin, direction,
+                                                      tabs, r),
+                              rounds, GRAPH_CALLS)
+    readings = {r: readings[r, 0] for r in rays_per_thread}
     return {"launches": launches, "total": int(want.sum(dtype=torch.int64)),
-            "nodes": distinct(visits["nodes"]), "readings": readings,
+            "longest": int(want.max()) if want.numel() else 0,
+            "nodes": distinct(visits["nodes"]),
+            "warps": {r: warps_per_sm(r) for r in rays_per_thread},
+            "readings": readings,
             "ms": {r: statistics.median(v) for r, v in readings.items()},
             "plain_ms": plain_ms}
 
 
-def main(argv=None) -> None:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    mesh_kw = {}
-    if argv and argv[0] == "--dragon-ish":
-        mesh_kw = DRAGON_ISH
-        argv = argv[1:]
-    rs = [int(r) for r in argv] or list(RAYS_PER_THREAD)
-    dev = card("dual_probe")
+def _cuda_v3(a: np.ndarray, dev) -> V3:
+    return V3(*(torch.from_numpy(np.ascontiguousarray(a[:, k])).to(dev)
+                for k in range(3)))
+
+
+def knot_bounce(dev, mesh_kw=None):
+    """(tables, finite rays, sentinel rays) of ``main()``'s set: the
+    knot's (``knot_zoo_scene(512, 512, prims_per_leaf=64)``, ``mesh_kw``
+    its nu and nv) :func:`bounce_rays`, split by whether origin and
+    direction are finite; each set (origin, direction)."""
     scene, _ = knot_zoo_scene(512, 512, prims_per_leaf=64, device=dev,
-                              **mesh_kw)
+                              **(mesh_kw or {}))
     o, d = bounce_rays(scene.mesh)
     live = np.isfinite(o).all(1) & np.isfinite(d).all(1)
-    to = lambda a, m: V3(*(torch.from_numpy(np.ascontiguousarray(a[m, k]))
-                           .to(dev) for k in range(3)))
-    tabs = cb.heap_tables(scene.mesh)
-    dropped = dual_steps(to(o, ~live), to(d, ~live), tabs)
-    r = measure(to(o, live), to(d, live), tabs, rs)
-    total = r["total"]
-    lost = int(dropped.sum(dtype=torch.int64))
-    print(f"knot {scene.mesh.num_tris} slots, first_leaf {tabs.first_leaf}: "
-          f"{o.shape[0]} bounce rays drawn, {int((~live).sum())} with a "
-          f"sentinel slot's non-finite origin dropped (they would walk "
-          f"{lost / max(dropped.numel(), 1):.1f} interior steps a ray, "
-          f"{lost / max(lost + total, 1):.1%} of all), {int(live.sum())} "
-          f"walked; {total} interior steps ({total / live.sum():.1f} a ray, "
-          f"bit-equal to the plain node phase at every R; plain "
-          f"{r['plain_ms']:.1f} ms)", flush=True)
+    return (cb.heap_tables(scene.mesh),
+            (_cuda_v3(o[live], dev), _cuda_v3(d[live], dev)),
+            (_cuda_v3(o[~live], dev), _cuda_v3(d[~live], dev)))
+
+
+def ray_sets(dev) -> Dict[str, tuple]:
+    """The A/B's sets, {name: (origin, direction, tables)}: the dragon
+    frame's 131,072 primary rays of ``chip_smoke.py`` phase 10d and its
+    196,608-lane pool primary (``iter_ablate``'s ``--frame`` sets, K5's
+    frame shape), and the knot's finite bounce rays (:func:`knot_bounce`,
+    the TPU probe's set)."""
+    dragon, _, frame = ia._frame_sets(dev)
+    knot, bounce, _ = knot_bounce(dev)
+    return {"dragon primary": (*frame["primary"], dragon),
+            "dragon pool primary": (*frame["pool primary"], dragon),
+            "knot bounce": (*bounce, knot)}
+
+
+def ab(sets: Dict[str, tuple], libs: Dict[str, Optional[ctypes.CDLL]],
+       rays_per_thread=RAYS_PER_THREAD, rounds: int = ROUNDS):
+    """K16's A/B: each of ``libs`` ({name: library with a C entry of
+    either form}, None the package's build) at every R held bit-equal to
+    the plain node phase on each of ``sets`` ({name: (origin, direction,
+    tables)}), then timed in turns, device time a call in a CUDA graph
+    (``common.graph_readings``, GRAPH_CALLS calls a graph, ``rounds``
+    rounds). Returns ({(name, set, R): median ms}, {set: (interior steps,
+    the longest ray's)})."""
+    steps = {}
+    for s, (o, d, tabs) in sets.items():
+        want = _dual_steps_ref(o, d, tabs)
+        steps[s] = (int(want.sum(dtype=torch.int64)), int(want.max()))
+        for name, lib in libs.items():
+            for r in rays_per_thread:
+                got = _walk(o, d, tabs, r, lib)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"{name} R={r} on {s}: step counts differ from the "
+                        f"plain node phase on {int((got != want).sum())} "
+                        f"rays")
+    cells = [(s, r) for s in sets for r in rays_per_thread]
+    readings = graph_readings(
+        list(libs), cells,
+        lambda n, c: _walk(*sets[c[0]], c[1], libs[n]), rounds, GRAPH_CALLS)
+    return ({(n, *c): statistics.median(v) for (n, c), v in
+             readings.items()}, steps)
+
+
+def _ab_main(dev, texts: Dict[str, str], out: Optional[Path],
+             rays_per_thread) -> None:
+    """Build ``texts`` ({name: source}), run :func:`ab` on :func:`ray_sets`
+    and print each source's ns an interior step beside its warps an SM,
+    the issue-rate floor of its build and the latency floor with K17a's
+    round trips measured in this call."""
+    own = _build.build("dual_probe")
+    dumps = {"new": sass_dump(own)}
+    print("[build] new: " + " | ".join(package_ptxas("dual_probe")),
+          flush=True)
+    libs: Dict[str, Optional[ctypes.CDLL]] = {"new": None}
+    with ThreadPoolExecutor(max(1, len(texts))) as ex:  # one nvcc a source
+        built = dict(zip(texts, ex.map(
+            lambda kv: build(f"dual_{kv[0]}", kv[1], out), texts.items())))
+    for name, (path, ptxas) in built.items():
+        libs[name] = bind(ctypes.CDLL(str(path)))
+        dumps[name] = sass_dump(path)
+        print(f"[build] {name}: " + " | ".join(ptxas), flush=True)
+    if out is not None:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "dual_new.sass").write_text(dumps["new"])
+    sets = ray_sets(dev)
+    trips = um.round_trips(um.probe_inputs(dev))
+    r, steps = ab(sets, libs, rays_per_thread)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"K16: each source bit-equal to the plain node phase at every R on "
+          f"every set; device time a call in a CUDA graph ({GRAPH_CALLS} "
+          f"calls a graph), {ROUNDS} rounds in turns; K17a's round trips in "
+          f"this call (1,024 lanes, device time in CUDA graphs): l2 "
+          f"{trips['l2']:.1f} ns, smem {trips['smem']:.1f} ns", flush=True)
+    for s, (o, _, tabs) in sets.items():
+        total, longest = steps[s]
+        n = o.x.shape[0]
+        print(f" {s}: {n} rays, first_leaf {tabs.first_leaf}, {total} "
+              f"interior steps ({total / n:.1f} a ray, the longest "
+              f"{longest})", flush=True)
+        for name, lib in libs.items():
+            try:
+                sass = walk_sass(dumps[name])
+            except ValueError:  # another form (the first)
+                sass = {}
+            for k in rays_per_thread:
+                ms = r[name, s, k]
+                if hasattr(lib or _lib(), "dual_probe_walk"):
+                    warps = f"{warps_per_sm(k, lib)} warps an SM"
+                else:
+                    warps = (f"{math.ceil(n / (THREADS * k))} blocks, up to "
+                             f"{first_form_warps(n, k, sms)} warps an SM")
+                floor = ""
+                if k in sass:
+                    lat = {m: latency_floor_ms(sass[k], longest, trips[m])
+                           for m in trips}
+                    floor = (f"; loop {sass[k]} (a pass, a refill, "
+                             f"atomics), issue-rate floor "
+                             f"{issue_floor_ms(sass[k], total, n, k):.4f} "
+                             f"ms, latency floor {lat['l2']:.4f} (l2) / "
+                             f"{lat['smem']:.4f} ms (smem)")
+                print(f"  {name:10s} R={k}: {ms:.4f} ms, {ms * 1e6 / total:.3f}"
+                      f" ns a step ({warps}{floor})", flush=True)
+
+
+def main(argv=None) -> None:
+    names, ab_args = split_ab(sys.argv[1:] if argv is None else argv)
+    mesh_kw = {}
+    if names and names[0] == "--dragon-ish":
+        mesh_kw = DRAGON_ISH
+        names = names[1:]
+    rs = [int(r) for r in names] or list(RAYS_PER_THREAD)
+    dev = card("dual_probe")
+    if ab_args:
+        texts, out = ab_texts(ab_args,
+                              (_build.CSRC_DIR / "dual_probe.cu").read_text())
+        _ab_main(dev, texts, out, rs)
+        return
+    tabs, (o, d), (so, sd) = knot_bounce(dev, mesh_kw)
+    dropped = dual_steps(so, sd, tabs)
+    if not torch.equal(dropped, _dual_steps_ref(so, sd, tabs)):
+        raise AssertionError("the sentinel rays' step counts differ from the "
+                             "plain node phase")
+    r = measure(o, d, tabs, rs)
+    total, n, lost = r["total"], o.x.shape[0], int(dropped.sum())
+    print(f"knot first_leaf {tabs.first_leaf}: {n + so.x.shape[0]} bounce "
+          f"rays drawn, {so.x.shape[0]} with a sentinel slot's non-finite "
+          f"origin walked apart ({lost / max(dropped.numel(), 1):.1f} "
+          f"interior steps a ray, {lost / max(lost + total, 1):.1%} of all, "
+          f"bit-equal), {n} finite; {total} interior steps "
+          f"({total / n:.1f} a ray, the longest {r['longest']}, bit-equal to "
+          f"the plain node phase at every R; plain {r['plain_ms']:.1f} ms); "
+          f"device time a call in a CUDA graph, {ROUNDS} rounds in turns",
+          flush=True)
     for k in rs:
         ms, readings = r["ms"][k], r["readings"][k]
-        print(f"  R={k}: {ms:7.3f} ms/trav (readings {min(readings):.3f}-"
-              f"{max(readings):.3f}) -> {ms * 1e6 / total:6.3f} ns/step",
-              flush=True)
+        print(f"  R={k}: {ms:7.4f} ms/trav (readings {min(readings):.4f}-"
+              f"{max(readings):.4f}) -> {ms * 1e6 / total:6.3f} ns/step, "
+              f"{r['warps'][k]} warps an SM", flush=True)
 
 
 if __name__ == "__main__":

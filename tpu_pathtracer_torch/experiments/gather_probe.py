@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from tpu_pathtracer_torch.experiments import multirow_probe as mr
+from tpu_pathtracer_torch.experiments import tpu_micro as um
 from tpu_pathtracer_torch.experiments.common import (
     ab_sources, card, graph_rounds, split_ab)
 from tpu_pathtracer_torch.ops import _build
@@ -217,7 +218,7 @@ def ab_main(dev, texts: Dict[str, str], out, sizes) -> None:
     libs, dumps, logs, _ = mr.build_sources(texts, out)
     rays, tabs = probe_inputs(sizes, dev)
     ntab, mr_rays = mr.probe_inputs(device=dev)
-    trips = mr.load_trips_ns(dev)
+    trips = um.round_trips(um.probe_inputs(dev))
     trip = trips["smem"]
     r = walk_ab(walk_runs(rays, tabs, ntab, mr_rays), libs)
     print(f"walk (K24 at S = {', '.join(map(str, sizes))}, K23 at N = "

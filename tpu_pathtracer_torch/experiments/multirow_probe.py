@@ -477,22 +477,6 @@ def walk_bytes(pairs: int) -> int:
     return 48 * pairs + 4 * 7 * TILE + 4 * TILE
 
 
-def load_trips_ns(dev) -> Dict[str, float]:
-    """K17a's ns a step at 1,024 lanes in its two modes (``tpu_micro``'s
-    E3: a dependent load a step from the L2, ``l2``, or from shared memory,
-    ``smem``), device time in CUDA graphs at its pair. ``smem`` prices the
-    walk's fetch, whose few hundred node pairs a launch stay on chip (the
-    latency floor); ``l2`` stands beside it."""
-    from tpu_pathtracer_torch.experiments import tpu_micro as um
-    inp = um.probe_inputs(dev)
-    idx = um.lanes_of(inp, "E3", False)
-    lo, hi = um.STEPS["E3"]
-    modes = ["l2", "smem"]
-    t = graph_rounds(modes, [lo, hi], lambda m, s: um.gather_chain(
-        inp["table"], idx, s, m), 1, calls=4)
-    return {m: (t[m, hi] - t[m, lo]) / (hi - lo) * 1e6 for m in modes}
-
-
 # ---------------------------------------------------------- measurement
 def held(name: str, kerns: dict, plain: Callable, steps) -> float:
     """Run each of ``kerns`` (by mode, ``fn(steps, trace)``) and the plain

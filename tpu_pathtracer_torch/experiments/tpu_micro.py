@@ -14,8 +14,11 @@ shapes):
   E3 (K17a, :func:`gather_chain`): a per-lane gather from an (8, 16384)
      table, acc += table[r, idx], idx = (idx * 1664525 + int(acc)) % T;
      modes ``l2`` (every step an L2 round trip) and ``smem`` (the block's
-     64 KB table row staged in shared memory). At the TPU's (8, 128) lanes
-     and at (8, 16384): 131,072 lanes, whose first 128 a row are the TPU's.
+     64 KB table row staged in shared memory by one bulk copy on an
+     mbarrier). At the TPU's (8, 128) lanes and at (8, 16384): 131,072
+     lanes, whose first 128 a row are the TPU's. :func:`round_trips` gives
+     its ns a step at 1,024 lanes in both modes, the round trips that other
+     probes' latency floors take.
   E4 (K17b, :func:`row_vote_chain`): a scalar row i of a (16384, 8) table
      read as a broadcast against one (8, 128) tile; i steps by a
      block-wide vote on the sign of sum(near). One block of 4 warps, 8
@@ -86,9 +89,16 @@ stay fixed.
 as a patch of this source in ``experiments/yardsticks``, say
 ``lead=yardstick:vote_lead``) and ``NAME=K:V,...`` (this source with its
 ``constexpr int K`` set to V: ``w8=kVoteWarps:8``,
-``t32=kOnehotThreads:32``, ``st2=kLeafStages:2``) add sources with the
-same C entries. With sources only the A/Bs run, of the experiments named among E4, E5, E7, E8 and E9
-(all four if none): :func:`row_vote_ab` (E4) and :func:`onehot_ab` (E7)
+``t32=kOnehotThreads:32``, ``st2=kLeafStages:2``, ``u1=kGatherUnroll:1``)
+add sources with the
+same C entries. With sources only the A/Bs run, of the experiments
+named among E3, E4, E5, E7, E8 and E9 (all if none): :func:`gather_ab`
+(E3) holds each source bit-equal in both modes on the seeded inputs and
+on the E3 cases of ``tests/micro_cases.py`` and times it in turns at 1,024
+and 131,072 lanes, printing ns a step, the per-call intercept, the
+issue-rate floor of its step loop (:func:`gather_sass`), ``l2``'s rate
+of 32 B sectors and ``smem``'s bank floor (:func:`smem_wavefronts`,
+:func:`bank_floor`); :func:`row_vote_ab` (E4) and :func:`onehot_ab` (E7)
 hold each source bit-equal to the plain version on the seeded inputs and
 on the cases of ``tests/micro_cases.py`` (NaN equal to NaN; the
 ``parent`` source's differences there are printed, not raised: they are
@@ -120,7 +130,9 @@ import numpy as np
 import torch
 
 from tpu_pathtracer_torch.experiments.common import (ISSUE_RATE,
-                                                     ab_sources,
+                                                     ab_texts,
+                                                     BARRIER_WAIT,
+                                                     BULK_COPY,
                                                      bulk_chain, build, card,
                                                      cases_module,
                                                      event_ms,
@@ -133,7 +145,6 @@ from tpu_pathtracer_torch.experiments.common import (ISSUE_RATE,
                                                      package_ptxas,
                                                      sass_functions,
                                                      split_ab)
-from tpu_pathtracer_torch.experiments import yardsticks
 from tpu_pathtracer_torch.ops import _build
 from tpu_pathtracer_torch.ops.cuda_spheres import _check
 
@@ -169,9 +180,14 @@ LAUNCHES = {"e3_l2": 0, "e3_smem": 0, "e4": 0, "e5": 0, "e7": 0,
             "e7_view": 0, "e8": 0, "e9": 0}
 ROUNDS = 2     # measure's rounds in turns
 REPS = 3       # calls a reading of main's CUDA-event timing; replays a
-#                reading of measure's CUDA graphs (one call a graph)
+#                reading of measure's CUDA graphs (one call a graph but
+#                E3's)
 AB_ROUNDS = 3  # the A/Bs' rounds in turns
 AB_CALLS = 2   # calls a CUDA graph: a call takes up to tens of milliseconds
+# E3's calls take 10-120 us at its lower step count, where one call a graph
+# lets a replay's launch noise into the slope: measure and round_trips
+# capture 10 a graph
+E3_CALLS = 10
 # one warp issues a chain: one instruction a cycle at the H100 SXM's
 # 1,980 MHz maximum clock; an SM's 4 schedulers issue 4
 WARP_ISSUE_RATE = 1.98e9
@@ -443,6 +459,32 @@ def _launch(keys, entry: str, *args,
             LAUNCHES[key] += 1
 
 
+def _gather(table: torch.Tensor, idx: torch.Tensor, steps: int, mode: str,
+            lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """K17a through ``lib`` (:func:`_launch`) on CUDA tensors."""
+    dev = table.device
+    _dims("table", table, 2)
+    _dims("idx", idx, 2)
+    (r, t), lanes = table.shape, idx.shape[1]
+    _check("table", table, dev, torch.float32, (r, t))
+    _check("idx", idx, dev, torch.int32, (r, lanes))
+    _pow2("T", t)
+    if mode == "smem" and t > 32_768:
+        raise ValueError(f"smem mode stages a table row: T <= 32768, not {t}")
+    if mode == "smem" and table.data_ptr() % 16:
+        raise ValueError("smem mode's bulk copy reads a 16-byte aligned "
+                         "table")
+    if not (lanes % 32 == 0 and (lanes <= 1024 or lanes % 1024 == 0)):
+        raise ValueError(f"L must be a multiple of 32 up to 1024, or of "
+                         f"1024, not {lanes}")
+    out = torch.empty((r, lanes), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _launch(f"e3_{mode}", "tpu_micro_gather", GATHER_MODES.index(mode),
+                table.data_ptr(), idx.data_ptr(), r, t, lanes, int(steps),
+                out.data_ptr(), lib=lib)
+    return out
+
+
 def gather_chain(table: torch.Tensor, idx: torch.Tensor, steps: int,
                  mode: str = "l2") -> torch.Tensor:
     """E3 / K17a: ``steps`` chained per-lane gathers of ``idx`` ([R, L]
@@ -452,23 +494,23 @@ def gather_chain(table: torch.Tensor, idx: torch.Tensor, steps: int,
     dev = _device(steps, table, idx)
     if dev.type == "cpu":
         return _gather_ref(table, idx, steps)
-    _dims("table", table, 2)
-    _dims("idx", idx, 2)
-    (r, t), lanes = table.shape, idx.shape[1]
-    _check("table", table, dev, torch.float32, (r, t))
-    _check("idx", idx, dev, torch.int32, (r, lanes))
-    _pow2("T", t)
-    if mode == "smem" and t > 32_768:
-        raise ValueError(f"smem mode stages a table row: T <= 32768, not {t}")
-    if not (lanes % 32 == 0 and (lanes <= 1024 or lanes % 1024 == 0)):
-        raise ValueError(f"L must be a multiple of 32 up to 1024, or of "
-                         f"1024, not {lanes}")
-    out = torch.empty((r, lanes), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch(f"e3_{mode}", "tpu_micro_gather", GATHER_MODES.index(mode),
-                table.data_ptr(), idx.data_ptr(), r, t, lanes, int(steps),
-                out.data_ptr())
-    return out
+    return _gather(table, idx, steps, mode)
+
+
+def round_trips(inp: Dict[str, torch.Tensor], rounds: int = ROUNDS
+                ) -> Dict[str, float]:
+    """K17a's ns a step at the TPU's 1,024 lanes in each mode (``l2``: an
+    L2 round trip, ``smem``: an on-chip load), the slope over E3's pair of
+    steps, device time a call in a CUDA graph, the modes in turns
+    (``rounds`` rounds): the dependent load a step that other probes'
+    latency floors take. The kernel is not checked here (``measure`` and
+    the card's tests hold it)."""
+    idx = lanes_of(inp, "E3", False)
+    lo, hi = STEPS["E3"]
+    t = graph_rounds(list(GATHER_MODES), [lo, hi],
+                     lambda m, s: gather_chain(inp["table"], idx, s, m),
+                     rounds, calls=E3_CALLS)
+    return {m: (t[m, hi] - t[m, lo]) / (hi - lo) * 1e6 for m in GATHER_MODES}
 
 
 def check_table(table: torch.Tensor) -> None:
@@ -805,7 +847,8 @@ def measure(inp: Dict[str, torch.Tensor], rounds: int = ROUNDS,
     held bit-equal to its plain version there, then timed in turns at its
     pair with the others of its experiment (E8 with E9: their A/B), device
     time a call in a CUDA graph (``common.graph_readings``: one call a
-    graph, the median of REPS replays, ``rounds`` rounds). Returns
+    graph, E3's E3_CALLS, the median of REPS replays, ``rounds`` rounds).
+    Returns
     ``launches`` (LAUNCHES after the checked runs: a graph's replay makes
     no call), ``e4_margin`` (the smallest |sum| / sum|near| of E4's plain
     run at lo), ``e4_rows`` (the distinct rows that run visits),
@@ -861,7 +904,8 @@ def measure(inp: Dict[str, torch.Tensor], rounds: int = ROUNDS,
         lo, hi = STEPS[group]
         readings = graph_readings(keys, [lo, hi],
                                   lambda k, s: runs[k].timed(s), rounds,
-                                  calls=1, reps=REPS)
+                                  calls=E3_CALLS if group == "E3" else 1,
+                                  reps=REPS)
         if events:
             ev = in_turns({(k, s): (lambda k=k, s=s: runs[k].timed(s))
                            for k in keys for s in (lo, hi)}, rounds, REPS)
@@ -972,6 +1016,44 @@ def onehot_sass(text: str) -> Tuple[int, int, int]:
             sum(".128" in op for op in loads))
 
 
+def gather_sass(text: str) -> Dict[str, Tuple[int, int, int, int, int]]:
+    """{mode: (the step loop's instructions, its gathers, bulk copies,
+    mbarrier waits, staging loops)} of K17a in a ``cuobjdump -sass`` dump
+    (``gather_kernel<kL2>``, ``<kSmem>``): the step loop is the widest
+    natural loop that holds the mode's gather (``LDG`` in ``l2``, ``LDS``
+    in ``smem``) and an ``F2I``, its instructions counted but slow paths;
+    its gathers are the steps a pass takes (the unroll), so a step issues
+    instructions / gathers. Bulk copies (``UBLKCP``) and waits
+    (``SYNCS.PHASECHK``) are the function body's, up to its last ``EXIT``
+    (after it, a wait's out-of-line retry repeats the instruction); a
+    staging loop is a natural loop that stores to shared memory (``STS``),
+    as the first form's row copy did. Raises if a mode has no such step
+    loop."""
+    out = {}
+    for name, code in sass_functions(text).items():
+        m = re.search(r"gather_kernelILi(\d)E", name)
+        if not m:
+            continue
+        mode = GATHER_MODES[int(m.group(1))]
+        load = "LDS" if mode == "smem" else "LDG"
+        loops = natural_loops(code)
+        steps = [sp for sp in loops if _loop_count(code, sp, load)
+                 and _loop_count(code, sp, "F2I")]
+        if not steps:
+            raise ValueError(f"gather_kernel {mode}: no step loop holds a "
+                             f"{load} and an F2I")
+        span = max(steps, key=lambda sp: sp[1] - sp[0])
+        last = max(k for k, (_, i) in enumerate(code) if opcode(i) == "EXIT")
+        every = lambda op: sum(opcode(i).startswith(op)
+                               for _, i in code[:last + 1])
+        out[mode] = (fast_count(code, span), _loop_count(code, span, load),
+                     every(BULK_COPY), every(BARRIER_WAIT),
+                     sum(bool(_loop_count(code, sp, "STS")) for sp in loops))
+    if set(out) != set(GATHER_MODES):
+        raise ValueError(f"gather_kernel modes in the SASS: {sorted(out)}")
+    return out
+
+
 def source_constant(text: str, name: str, default: int) -> int:
     """A source's ``constexpr int name``, or ``default`` where it has none
     (a first form)."""
@@ -986,15 +1068,58 @@ def vote_floor(instructions: int, warps: int) -> float:
             / WARP_ISSUE_RATE * 1e9)
 
 
+def sm_warps(lanes: int, threads: int) -> int:
+    """The warps of the fullest SM at ``lanes`` in blocks of ``threads``,
+    the blocks spread evenly over the 132 SMs."""
+    return math.ceil(math.ceil(lanes / threads) / SMS) * math.ceil(
+        threads / 32)
+
+
 def onehot_floor(instructions: int, lanes: int, threads: int) -> float:
     """ns a step: K17c's issue-rate floor at ``lanes`` in blocks of
-    ``threads``, the blocks spread evenly over the 132 SMs: the step
-    loop's instructions in each warp of the fullest SM over its 4
-    schedulers."""
-    blocks = math.ceil(lanes / threads)
-    warps = math.ceil(blocks / SMS) * math.ceil(threads / 32)
+    ``threads``: the step loop's instructions in each warp of the fullest
+    SM (:func:`sm_warps`) over its 4 schedulers."""
+    warps = sm_warps(lanes, threads)
     return (instructions * math.ceil(warps / SM_SCHEDULERS)
             / WARP_ISSUE_RATE * 1e9)
+
+
+def gather_floor(sass: tuple, lanes: int, rows: int = ROWS) -> float:
+    """ns a step: K17a's issue-rate floor at ``lanes`` over ``rows`` rows
+    (blocks of up to 1,024 threads; :func:`onehot_floor`), a step's
+    instructions the step loop's over its gathers (:func:`gather_sass`)."""
+    return onehot_floor(sass[0] / sass[1], lanes, min(lanes // rows, 1024))
+
+
+def smem_wavefronts(table: torch.Tensor, idx: torch.Tensor, steps: int,
+                    start: int = 0) -> float:
+    """The mean shared-memory wavefronts of a warp's gather over steps
+    ``start`` to ``steps`` - 1 of K17a smem's chain (the plain version's
+    indices): each 32-lane warp's largest count of distinct words in one
+    of the 32 banks (word idx in bank idx mod 32; lanes on one word share
+    it)."""
+    i = idx.to(torch.int64)
+    acc = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    total = 0
+    for s in range(steps):
+        if s >= start:
+            w = torch.sort(i.reshape(-1, 32), dim=1).values
+            first = torch.ones_like(w)
+            first[:, 1:] = (w[:, 1:] != w[:, :-1]).to(torch.int64)
+            banks = torch.zeros_like(w).scatter_add_(1, w & 31, first)
+            total += int(banks.max(dim=1).values.sum())
+        acc = acc + torch.gather(table, 1, i)
+        i = _int32_mod(i * LCG + _f2i(acc), table.shape[1])
+    return total / max((steps - start) * idx.numel() // 32, 1)
+
+
+def bank_floor(wavefronts: float, lanes: int, rows: int = ROWS) -> float:
+    """ns a step: the shared-memory floor of K17a smem at ``lanes`` over
+    ``rows`` rows, one wavefront an SM a cycle at 1,980 MHz for each
+    resident warp's gather (``wavefronts`` a warp, :func:`smem_wavefronts`;
+    the warps of the fullest SM, :func:`sm_warps`)."""
+    warps = sm_warps(lanes, min(lanes // rows, 1024))
+    return wavefronts * warps / WARP_ISSUE_RATE * 1e9
 
 
 def leaf_sass(text: str, lanes: Optional[Dict[str, int]] = None
@@ -1049,20 +1174,30 @@ def leaf_sass(text: str, lanes: Optional[Dict[str, int]] = None
 
 
 # the kernels of the experiments, by the name ptxas gives them
-KERNEL_NAMES = {"E4": "row_vote_kernel", "E7": "onehot_kernel",
+KERNEL_NAMES = {"E3 l2": "gather_kernel<0>", "E3 smem": "gather_kernel<1>",
+                "E4": "row_vote_kernel", "E7": "onehot_kernel",
                 "E7 view": "onehot_view_kernel", "E8": "leaf_smem_kernel",
                 "E9": "leaf_lanes_kernel"}
+
+
+def _mangled(name: str) -> str:
+    """The part of a kernel's mangled name that ``name`` ("kernel" or
+    "kernel<k>", an int template argument) gives: <len><name>E, or
+    <len><name>ILi<k>E."""
+    m = re.fullmatch(r"(\w+)<(\d+)>", name)
+    return (f"{len(m[1])}{m[1]}ILi{m[2]}E" if m
+            else f"{len(name)}{name}E")
 
 
 def kernel_ptxas(log: str, names: Dict[str, str] = KERNEL_NAMES
                  ) -> Dict[str, str]:
     """{key: ptxas's register and shared-memory line} of each kernel of
-    ``names`` ({key: kernel name}) in an nvcc log."""
+    ``names`` ({key: kernel name, :func:`_mangled`}) in an nvcc log."""
     out, key = {}, None
     for line in log.splitlines():
-        if "Function properties for" in line:  # a mangled name: <len><name>E
+        if "Function properties for" in line:
             key = next((k for k, n in names.items()
-                        if f"{len(n)}{n}E" in line), None)
+                        if _mangled(n) in line), None)
         elif key and "registers" in line:
             out[key] = line.split(":", 1)[-1].strip()
             key = None
@@ -1112,6 +1247,42 @@ def _case_checks(seeded, cases) -> list:
     return ([(label, a, CHECK_STEPS) for label, a in seeded]
             + [(name, a, k) for name, (a, steps) in cases.items()
                for k in sorted({0, 1, steps})])
+
+
+def gather_ab(table: torch.Tensor, idxs: Dict[int, torch.Tensor],
+              sources: Dict[str, ctypes.CDLL], cases=None,
+              rounds: int = AB_ROUNDS):
+    """K17a's A/B: the package's kernel ("new") and each of ``sources``
+    held bit-equal to the plain version in both modes (:func:`_ab_check`)
+    on the seeded inputs at each of ``idxs`` ({lanes: idx [8, lanes /
+    8]}) at CHECK_STEPS and E3's lower step count, and on each of
+    ``cases`` ({name: ((table, idx), steps)}) at 0, 1 and its steps, then
+    timed in turns at E3's pair, device time a call in a CUDA graph
+    (``common.graph_rounds``). Returns {(name, mode, lanes): ((ms lo, ms
+    hi), ns a step, the per-call intercept in ms: t(lo) - lo x the
+    slope)}."""
+    libs = {"new": None, **sources}
+    lo, hi = STEPS["E3"]
+    seeded = [(f"seeded {n}", (table, i)) for n, i in idxs.items()]
+    checks = _case_checks(seeded, cases or {}) + [
+        (label, a, lo) for label, a in seeded]
+    for mode in GATHER_MODES:
+        _ab_check(f"K17a {mode}", libs,
+                  lambda lib, a, k, m=mode: _gather(*a, k, m, lib),
+                  lambda a, k: _gather_ref(*a, k), checks)
+    cells = [(m, n, k) for m in GATHER_MODES for n in idxs for k in (lo, hi)]
+    times = graph_rounds(list(libs), cells,
+                         lambda n, c: _gather(table, idxs[c[1]], c[2], c[0],
+                                              libs[n]), rounds,
+                         calls=AB_CALLS)
+    out = {}
+    for n in libs:
+        for m in GATHER_MODES:
+            for lanes in idxs:
+                t = (times[n, (m, lanes, lo)], times[n, (m, lanes, hi)])
+                ns = (t[1] - t[0]) / (hi - lo) * 1e6
+                out[n, m, lanes] = (t, ns, t[0] - lo * ns / 1e6)
+    return out
 
 
 def row_vote_ab(rows: torch.Tensor, x: torch.Tensor,
@@ -1255,8 +1426,48 @@ def _ab_main(dev, texts: Dict[str, str], out: Optional[Path],
     inp = probe_inputs(dev)
     own_text = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
     text_of = {"new": own_text, **texts}
-    if "E4" in which or "E7" in which:
+    if "E3" in which or "E4" in which or "E7" in which:
         cases = cases_module("micro_cases")
+    if "E3" in which:
+        gcases = {}
+        for name, steps in cases.GATHER_CASES.items():
+            tab, idx = cases.gather_case(name)
+            gcases[name] = ((torch.from_numpy(tab).to(dev),
+                             torch.from_numpy(idx).to(dev)), steps)
+        idxs = {n: lanes_of(inp, "E3", wide) for n, wide in
+                ((ROWS * TPU_LANES["E3"], False),
+                 (ROWS * WIDE_LANES["E3"], True))}
+        r = gather_ab(inp["table"], idxs, sources, gcases)
+        lo, hi = STEPS["E3"]
+        waves = {n: smem_wavefronts(inp["table"], i, hi, lo)
+                 for n, i in idxs.items()}
+        print(f"K17a: the (8, 16384) table at {' and '.join(map(str, idxs))}"
+              f" lanes, each source (but the diag_ ones) bit-equal to the "
+              f"plain version in both modes at {CHECK_STEPS} and {lo} steps "
+              f"and on every E3 case of tests/micro_cases.py "
+              f"({', '.join(gcases)}) at 0, 1 and its steps; device time a "
+              f"call in a CUDA graph, {AB_ROUNDS} rounds in turns; the "
+              f"intercept is t({lo}) - {lo} x the slope", flush=True)
+        for (name, mode, lanes), ((t_lo, t_hi), ns, icpt) in r.items():
+            try:
+                sass = gather_sass(dumps[name])[mode]
+            except ValueError:
+                floor = ""
+            else:
+                floor = (f"; step loop {sass} (instructions, gathers, bulk "
+                         f"copies, waits, staging loops), issue-rate floor "
+                         f"{gather_floor(sass, lanes):.1f} ns a step, one "
+                         f"warp's step "
+                         f"{sass[0] / sass[1] / WARP_ISSUE_RATE * 1e9:.1f} ns")
+            rate = (f", {lanes * 32 / ns / 1e3:.2f} TB/s of 32 B sectors"
+                    if mode == "l2" else
+                    f", bank floor {bank_floor(waves[lanes], lanes):.1f} ns "
+                    f"({waves[lanes]:.3f} wavefronts a warp's gather)")
+            ptx = kernel_ptxas(logs[name]).get(f"E3 {mode}", "")
+            print(f"  {name:10s} {mode:4s} at {lanes:6d} lanes: {ns:8.1f} ns "
+                  f"a step{rate} (t({lo}) {t_lo:.4f} ms, t({hi}) {t_hi:.4f} "
+                  f"ms, intercept {icpt * 1e3:.2f} us; {ptx}{floor})",
+                  flush=True)
     if "E4" in which:
         vcases = {}
         for name, steps in cases.VOTE_CASES.items():
@@ -1377,14 +1588,7 @@ def _ab_main(dev, texts: Dict[str, str], out: Optional[Path],
 
 def main(argv=None) -> None:
     names, ab = split_ab(sys.argv[1:] if argv is None else argv)
-    own = (_build.CSRC_DIR / "tpu_micro.cu").read_text()
-    yard = {a.split("=", 1)[0]: yardsticks.source(
-                a.split("=", 1)[1][len(yardsticks.PREFIX):])
-            for a in ab if a.split("=", 1)[-1].startswith(yardsticks.PREFIX)}
-    texts, _, out = ab_sources([a for a in ab if a.split("=", 1)[0]
-                                not in yard], own)
-    texts.pop("new")
-    texts.update(yard)
+    texts, out = ab_texts(ab, (_build.CSRC_DIR / "tpu_micro.cu").read_text())
     which = [a.upper() for a in names] or (
         [] if texts else [f"E{i}" for i in range(1, 10)])
     bad = sorted(set(which) - {f"E{i}" for i in range(1, 10)})
@@ -1392,7 +1596,7 @@ def main(argv=None) -> None:
         sys.exit(f"tpu_micro: no experiment {bad}; E1 to E9")
     dev = card("tpu_micro")
     if texts:
-        _ab_main(dev, texts, out, which or ["E4", "E5", "E7", "E8"])
+        _ab_main(dev, texts, out, which or ["E3", "E4", "E5", "E7", "E8"])
         return
     xla_experiments(which, dev)
     kernels = tuple(e for e in KERNELS if e in which)

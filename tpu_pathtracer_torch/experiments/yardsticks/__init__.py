@@ -13,16 +13,23 @@ from __future__ import annotations
 
 import importlib
 import pkgutil
-from typing import List
+from typing import List, Optional
 
 from tpu_pathtracer_torch.ops import _build
 
 PREFIX = "yardstick:"
 
 
-def names() -> List[str]:
-    """The yardsticks, by module name."""
-    return sorted(m.name for m in pkgutil.iter_modules(__path__))
+def names(file: Optional[str] = None) -> List[str]:
+    """The yardsticks, by module name; with ``file``, those that patch
+    ``csrc/<file>``."""
+    out = sorted(m.name for m in pkgutil.iter_modules(__path__))
+    return [n for n in out if file is None or patched_file(n) == file]
+
+
+def patched_file(name: str) -> str:
+    """The ``csrc/`` file the yardstick ``name`` patches."""
+    return importlib.import_module(f"{__name__}.{name}").FILE
 
 
 def patch(text: str, patches) -> str:
