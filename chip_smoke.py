@@ -139,7 +139,8 @@ line each; any failure raises and exits non-zero:
      noleaf) and leaf arithmetic (full - nomt); K16
      (``dual_probe.dual_steps`` at R = 1, 2, 4 rays a thread in one
      persistent wave of the same warps an SM, rays refilled lane by lane
-     from a counter; step counts bit-equal to the plain node phase),
+     from their warp's claims on a counter; step counts bit-equal to the
+     plain node phase, also past every R's first wave of rays),
      device time a call in a CUDA graph in turns, beside its warps an
      SM (equal at every R, checked), the issue-rate floor of the build's
      SASS (``dual_probe.walk_sass``: the refill's atomic checked) and the
@@ -2208,7 +2209,9 @@ def walk_probe_phase(tabs, rays, pool, eps):
     (``iter_ablate.mode_sass``: a slot, a node step, a leaf round), which
     must keep every broadcast's shuffle (K13_SHFL). K16
     (``dual_probe.measure``) at R = 1, 2, 4 held bit-equal to the plain
-    node phase and timed in turns, device time a call in a CUDA graph,
+    node phase (``dual_probe.hold`` also on the primary and pool primary
+    rays together, more than any R's wave seats with no refill) and
+    timed in turns, device time a call in a CUDA graph,
     beside its resident warps an SM (equal at every R, else it raises),
     the issue-rate floor of the build's SASS (``dual_probe.walk_sass``:
     raises unless each form's walk loop holds the refill's atomic) and
@@ -2238,6 +2241,14 @@ def walk_probe_phase(tabs, rays, pool, eps):
                 o, d, tm, tabs, eps, at_k5_hits=hits, rounds=2,
                 time_plain=(name, hits) == ("primary", False))
     k16 = dp.measure(rays["primary"][0], rays["primary"][1], tabs, rounds=2)
+    # every R's refill, R = 4's too, on more rays than its wave seats at once
+    big = [V3(*(torch.cat((a, b)) for a, b in zip(u, v))) for u, v in
+           zip(rays["primary"][:2], pool["pool primary"][:2])]
+    seats = {r: r * dp.lanes(r) for r in dp.RAYS_PER_THREAD}
+    if big[0].x.shape[0] <= max(seats.values()):
+        raise AssertionError(f"K16's check set ({big[0].x.shape[0]} rays) "
+                             f"does not reach the refill: {seats}")
+    dp.hold(*big, tabs)
     # K17a's dependent load a step, l2 and smem, for K16's latency floor
     trips = um.round_trips(um.probe_inputs(rays["primary"][0].x.device))
     launches = {**{f"iter_ablate.{k}": v for k, v in ia.LAUNCHES.items()},
@@ -2305,13 +2316,13 @@ def walk_probe_phase(tabs, rays, pool, eps):
     text = []
     for r in dp.RAYS_PER_THREAD:
         t, readings = k16["ms"][r], k16["readings"][r]
-        floor = dp.issue_floor_ms(sass16[r], total, n, r)
+        floor = dp.issue_floor_ms(sass16[r], total, n, r, dp.lanes(r))
         lat = {m: dp.latency_floor_ms(sass16[r], longest, trips[m])
                for m in um.GATHER_MODES}
         text.append(f"R={r} {t:.4f} ms ({t * 1e6 / total:.3f} ns a step; "
                     f"readings {min(readings):.4f}-{max(readings):.4f}; "
                     f"{k16['warps'][r]} warps an SM; walk loop {sass16[r]} "
-                    f"(a pass, a refill, atomics), issue-rate floor "
+                    f"(a pass, a refill, atomics, a seat), issue-rate floor "
                     f"{floor:.4f} ms, latency floor {lat['l2']:.4f} (l2) / "
                     f"{lat['smem']:.4f} ms (smem))")
         rec = record(f"dual_probe_r{r}", "dual_probe.cu",
@@ -2324,7 +2335,8 @@ def walk_probe_phase(tabs, rays, pool, eps):
         recs.append(rec)
     phase("kernel", f"K16 dragon primary: {n} rays, {total} interior steps "
           f"(the longest ray {longest}), bit-equal to the plain node phase "
-          f"at every R; device time a call in a CUDA graph, 2 rounds in "
+          f"at every R, and on the primary and pool primary rays together "
+          f"({big[0].x.shape[0]}, past every R's first {seats}); device time a call in a CUDA graph, 2 rounds in "
           f"turns: " + ", ".join(text) + f"; plain {k16['plain_ms']:.3f} ms "
           f"(bound {bnd[0]:.4f} ms by {bnd[1]}); K17a's round trips "
           f"(1,024 lanes, this run) l2 {trips['l2']:.1f} ns, smem "

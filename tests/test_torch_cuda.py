@@ -1233,20 +1233,30 @@ def test_iter_ablate_kernel_bit_equal(dev, n, ppl):
 
 
 DUAL_CASES = ("ragged", "n0", "n1", "n31", "n33", "wave_less_one",
-              "first_leaf_1", "zero_direction", "non_finite_origins")
+              "first_leaf_1", "zero_direction", "non_finite_origins",
+              "wave4_plus_33", "r1_lanes", "r1_lanes_plus_one", "r2_lanes",
+              "r2_lanes_plus_one", "r4_lanes", "r4_lanes_plus_one")
 
 
 def _dual_case(dev, case):
     """K16's inputs for ``case``: a random soup's heap (64 a leaf) and
     rays; ``ragged``: 40,003 rays; ``n0`` .. ``n33``: that many;
     ``wave_less_one``: one ray less than the R = 1 wave's lanes (every
-    lane but the last takes one ray, none a second); ``first_leaf_1``: the
+    lane but the last takes one ray, none a second); ``wave4_plus_33``:
+    33 rays more than R = 4 seats with no counter (every R refills);
+    ``rR_lanes`` and ``rR_lanes_plus_one``: as many rays as R seats with
+    no counter, and one more (its first refill); ``first_leaf_1``: the
     root a leaf (every ray pops at once); ``zero_direction``: a third of
     the rays with a zero direction component (1 / 0 = inf) and -0 in
     another; ``non_finite_origins``: NaN and inf origin components."""
     n = {"n0": 0, "n1": 1, "n31": 31, "n33": 33}.get(case, 40_003)
     if case == "wave_less_one":
-        n = dp.wave(1)[0] * dp.THREADS - 1
+        n = dp.lanes(1) - 1
+    elif case == "wave4_plus_33":
+        n = 4 * dp.lanes(4) + 33
+    elif case.endswith("_lanes") or case.endswith("_lanes_plus_one"):
+        r = int(case[1])
+        n = r * dp.lanes(r) + case.endswith("_plus_one")
     mesh, o, d, _ = _bvh_inputs(dev, n=n, seed=8, ppl=64)
     tabs = cb.heap_tables(mesh)
     if case == "first_leaf_1":
@@ -1282,9 +1292,10 @@ def test_dual_probe_kernel_bit_equal(dev, case):
 @pytest.mark.gpu
 def test_dual_probe_counter_resets_in_graph_replays(dev):
     """Two replays of one captured CUDA graph of K16 at each R give the
-    plain counts: the C entry zeroes the ray counter on the stream in
-    every call, so no replay starts where the last one ended."""
-    o, d, tabs = _dual_case(dev, "ragged")
+    plain counts on more rays than any R's wave seats with no counter:
+    the C entry zeroes the ray counter on the stream in every call, so no
+    replay starts where the last one ended."""
+    o, d, tabs = _dual_case(dev, "wave4_plus_33")
     want = dp._dual_steps_ref(o, d, tabs)
     for r in dp.RAYS_PER_THREAD:
         dp.dual_steps(o, d, tabs, r)
@@ -1318,6 +1329,23 @@ def test_dual_probe_yardsticks_bit_equal(dev, name):
         for r in dp.RAYS_PER_THREAD:
             assert torch.equal(dp._walk(o, d, tabs, r, lib), want), (case, r)
     assert dp.LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_dual_probe_trace_counts_the_refills(dev):
+    """The ``dual_trace`` yardstick's counters (``dual_probe.trace``) on
+    more rays than any R's wave seats with no counter: at every R rays
+    are seated after the first pass, by refill rounds and claims, and the
+    warp that walks the longest ray runs at least its steps."""
+    lib = dp.bind(ctypes.CDLL(str(common.build(
+        "test_dual_trace", yardsticks.source("dual_trace"), None)[0])))
+    o, d, tabs = _dual_case(dev, "wave4_plus_33")
+    want = dp._dual_steps_ref(o, d, tabs)
+    for r in dp.RAYS_PER_THREAD:
+        tr = dp.trace(lib, o, d, tabs, r, want)
+        assert tr["latest"] > 0 and tr["longest_seated"] <= tr["latest"], tr
+        assert tr["passes"] >= int(want.max()) and tr["mean_passes"] > 0
+        assert 0 < tr["claim_share"] <= tr["refill_share"] <= 1, tr
 
 
 @pytest.mark.gpu

@@ -434,8 +434,9 @@ DUAL_KERNEL = "_ZN12_GLOBAL__N_111dual_kernelILi{r}EEEvPKfS2_S2_S2_S2_S2_PK6floa
 def _dual_listing(r, atom=True):
     """A walk loop of K16's shape: the refill round (a ballot, lane 0's
     atomic, the index's shuffle and a division with its slow path) skipped
-    when no lane wants a ray, then the slots' loads and tests and the
-    warp's vote to go on."""
+    when no lane wants a ray, then the slots' loads, each slot's seat (a
+    fresh ray's load and reciprocal, its slow path) skipped when it holds
+    none, the slots' tests and the warp's vote to go on."""
     refill = (["VOTE.ANY R5, PT, P0", "ISETP.NE.AND P1, PT, R5, RZ, PT",
                "@!P1 BRA {issue}", "@!P2 BRA {noatom}"]
               + (["ATOMG.E.ADD.STRONG.GPU PT, R7, desc[UR4][R2.64], R6"]
@@ -443,8 +444,14 @@ def _dual_listing(r, atom=True):
               + ["noatom:", "SHFL.IDX PT, R7, R7, RZ, 0x1f",
                  "MUFU.RCP R9, R8", "@!P3 BRA {fast}",
                  "CALL.REL.NOINC {div}", "fast:", "FADD R11, R9, R9"])
+    seats = sum(([f"@!P5 BRA {{seated{k}}}", "LDG.E.CONSTANT R30, "
+                  "desc[UR4][R2.64]", "MUFU.RCP R31, R30",
+                  f"@!P3 BRA {{fast{k}}}", "CALL.REL.NOINC {div}",
+                  f"fast{k}:", "FFMA R31, R31, R30, R31", f"seated{k}:"]
+                 for k in range(r)), [])
     slots = (["issue:"] + ["LDG.E.128.CONSTANT R12, desc[UR4][R14.64]"] * 4 * r
-             + ["FADD R17, -R24, R12"] * 10 * r)
+             + seats + ["FADD R17, -R24, R12"] * 9 * r
+             + ["FMNMX R18, R17, R12, PT"] * r)
     return listing(DUAL_KERNEL.format(r=r),
                    ["LDC R1, c[0x0][0x28]", "loop:"] + refill + slots
                    + ["VOTE.ANY R10, PT, P4", "@P4 BRA {loop}", "EXIT",
@@ -454,14 +461,16 @@ def _dual_listing(r, atom=True):
 def test_walk_sass_counts_the_walk_loop():
     """``walk_sass`` on listings of each R form: the loop that holds the
     refill's atomic, split at the branch after its ballot into a pass and
-    the refill it jumps over, each counted once but the division's slow
-    path (one CALL), with its atomics; it raises on a form without the
-    atomic (the first form's lockstep loop) and on a dump with no K16
-    kernel."""
+    the refill it jumps over, and each slot's seat (a stretch with a
+    reciprocal and no slab test) out of the pass, each counted once but
+    the division's slow path (one CALL), with its atomics; it raises on a
+    form without the atomic (the first form's lockstep loop) and on a
+    dump with no K16 kernel."""
     text = "".join(_dual_listing(r) for r in dp.RAYS_PER_THREAD)
-    # the refill 7 less the CALL; a pass 5 (the ballot's 3, the vote and
-    # the branch back) and 14 a slot
-    assert dp.walk_sass(text) == {r: (5 + 14 * r, 6, 1)
+    # the refill 7 less the CALL; a seat 5 less the CALL; a pass 5 (the
+    # ballot's 3, the vote and the branch back) and 15 a slot (its seat's
+    # branch among them)
+    assert dp.walk_sass(text) == {r: (5 + 15 * r, 6, 1, 4)
                                   for r in dp.RAYS_PER_THREAD}
     with pytest.raises(ValueError, match="atomic"):
         dp.walk_sass(_dual_listing(1, atom=False))
@@ -471,13 +480,21 @@ def test_walk_sass_counts_the_walk_loop():
 
 def test_dual_floors_and_first_form_warps():
     """The issue-rate floor is a pass for each step of each of a warp's 32
-    R slots and a refill round for every 32 rays, over the card's 528
-    schedulers; the latency floor the longest ray's steps, each a pass
-    issued by one warp and a round trip; the first form's warps an SM
-    follow its grid of n / (128 R)."""
-    assert dp.issue_floor_ms((100, 60, 1), 32 * 4 * 1000, 320, 4) == \
-        pytest.approx((1000 * 100 + 10 * 60) / (528 * 1.98e9) * 1e3)
-    assert dp.latency_floor_ms((99, 60, 1), 10, 200.0) == pytest.approx(
+    R slots, a seat for every 32 rays and a refill round for every 32
+    rays past the R x lanes that the wave seats with no refill, over the
+    card's 528 schedulers; the
+    latency floor the longest ray's steps, each a pass issued by one warp
+    and a round trip; the first form's warps an SM follow its grid of
+    n / (128 R)."""
+    assert dp.issue_floor_ms((100, 60, 1, 5), 32 * 4 * 1000, 320, 4,
+                             16) == pytest.approx(
+        (1000 * 100 + 8 * 60 + 10 * 5) / (528 * 1.98e9) * 1e3)
+    # no refill when the wave seats every ray at once
+    for n, lanes in ((320, 80), (319, 80), (1, 67_584)):
+        assert dp.issue_floor_ms((100, 60, 1, 5), 32 * 4 * 1000, n, 4,
+                                 lanes) == pytest.approx(
+            (1000 * 100 + n * 5 / 32) / (528 * 1.98e9) * 1e3)
+    assert dp.latency_floor_ms((99, 60, 1, 5), 10, 200.0) == pytest.approx(
         10 * (50.0 + 200.0) / 1e6)
     # 131,072 rays: 1,024 blocks (8 an SM, 32 warps) at R = 1, 256 at 4
     assert [dp.first_form_warps(131_072, r, 132) for r in (1, 2, 4)] == [

@@ -28,25 +28,33 @@
 // ends, its count is written and its lane takes the next ray index from a
 // global counter (the wrapper's 4-byte scratch, zeroed by the C entry on
 // the same stream, so every call and every CUDA-graph replay starts from
-// 0; it counts from ray R * lanes on): one refill round a loop iteration,
-// in which the lanes with a free slot are a ballot, lane 0 claims as many
+// 0; it counts from ray R * lanes on): one refill round a loop pass, in
+// which the lanes with a free slot are a ballot, lane 0 claims as many
 // indices by one atomicAdd, and each lane takes base + its rank among
-// them. No thread waits on the slowest ray of a fixed batch; the loop
-// still issues every slot's loads before it consumes any.
+// them. Once the counter is spent the warp knows it (a warp-uniform flag)
+// and a pass holds no ballot and no vote: a thread leaves the loop when
+// its slots are empty. No thread waits on the slowest ray of a fixed
+// batch.
+//
+// A pass. Every slot's node loads are issued first, in one straight run
+// (a free slot, or one on a leaf, loads node 0's unused rows); then each
+// slot that steps loads a newly seated ray's origin and direction (its
+// first step: the refill puts no round trip on the chain), tests both
+// children and advances, behind one branch a slot. So R slots put R
+// steps' loads in flight at once, and a pass issues only its live slots'
+// tests.
 //
 // What bounds it: the dependent node loads (two float4 a child box, from
 // the L1 or the L2), each step waiting on the last; 24 FP32 operations a
-// step. R slots a thread put up to R steps' loads in flight at once, at
-// the cost of R times the registers. On the dragon the longest ray's
-// chain sets the time: 203 interior steps against 13.1 a ray on its
-// 131,072 primary rays, and a call takes 2.1-2.4x that ray's latency
-// floor (a pass of the walk loop issued by one warp and an L2 round trip
-// a step; experiments/dual_probe.py ab, PERF.md §6 K16: 0.112-0.131 ms
-// at R = 1, 2, 4 against the first form's 0.085 / 0.128 / 0.241, whose
-// 1,024 blocks at R = 1 seat every ray at once). Yardsticks in
+// step. On the dragon the longest ray's chain sets the time: 203 interior
+// steps (258 passes with its pops) against 13.1 a ray on its 131,072
+// primary rays; that ray is seated in the first pass (PERF.md §6 K16: the
+// readings beside the first form's and the floors; yardsticks in
 // experiments/yardsticks: every ray from the counter (dual_counter_fill),
-// the top 9 levels staged by one bulk copy (dual_treelet); 8 or 32 warps
-// an SM as variants (32 spills at R = 4).
+// the top 9 levels staged by one bulk copy (dual_treelet), 32 rays claimed
+// a warp at a time (dual_batch), every slot's tests in every pass with no
+// branch (dual_straight), the pass in three branch regions a slot
+// (dual_split), the passes and refills counted (dual_trace)).
 
 #include <cfloat>
 #include <cstdint>
@@ -70,31 +78,61 @@ struct Children {
   float4 la, lb, ra, rb;
 };
 
+// A read-only 16-byte load (ld.global.nc, as __ldg), as volatile asm so
+// that the compiler keeps it where it stands and does not sink it into
+// the branch that uses it.
+__device__ __forceinline__ float4 ldg4(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ Children children(const float4* __restrict__ nodes,
                                              unsigned idx) {
   const size_t l = static_cast<size_t>(idx) << 1;
-  return {__ldg(nodes + 2 * l), __ldg(nodes + 2 * l + 1),
-          __ldg(nodes + 2 * l + 2), __ldg(nodes + 2 * l + 3)};
+  return {ldg4(nodes + 2 * l), ldg4(nodes + 2 * l + 1),
+          ldg4(nodes + 2 * l + 2), ldg4(nodes + 2 * l + 3)};
 }
 
-// A ray slot: the ray's origin, inverse direction and its signs, its
-// node and bitstack, its interior steps so far and its index.
+// A ray slot: the ray's origin, inverse direction and its signs (loaded
+// in its first step: fresh until then), its node and bitstack, its
+// interior steps so far and its index.
 struct Slot {
   float o1, o2, o3, i1, i2, i3;
-  bool n1, n2, n3;
+  bool n1, n2, n3, fresh;
   unsigned idx, bs;  // idx 0: the slot is free
   int steps, ray;
 };
 
-__device__ __forceinline__ Slot seat(const float* __restrict__ ox,
-                                     const float* __restrict__ oy,
-                                     const float* __restrict__ oz,
-                                     const float* __restrict__ dx,
-                                     const float* __restrict__ dy,
-                                     const float* __restrict__ dz, int j) {
-  const float i1 = 1.0f / dx[j], i2 = 1.0f / dy[j], i3 = 1.0f / dz[j];
-  return {ox[j], oy[j], oz[j], i1, i2, i3, i1 < 0.f, i2 < 0.f, i3 < 0.f,
-          1u, 1u, 0, j};
+// Ray j seated at the root, its origin and direction not loaded yet.
+__device__ __forceinline__ Slot seated(int j) {
+  Slot q = {};
+  q.fresh = true;
+  q.idx = q.bs = 1u;
+  q.ray = j;
+  return q;
+}
+
+__device__ __forceinline__ void load_ray(Slot& q,
+                                         const float* __restrict__ ox,
+                                         const float* __restrict__ oy,
+                                         const float* __restrict__ oz,
+                                         const float* __restrict__ dx,
+                                         const float* __restrict__ dy,
+                                         const float* __restrict__ dz) {
+  const int j = q.ray;
+  q.o1 = ox[j];
+  q.o2 = oy[j];
+  q.o3 = oz[j];
+  q.i1 = 1.0f / dx[j];
+  q.i2 = 1.0f / dy[j];
+  q.i3 = 1.0f / dz[j];
+  q.n1 = q.i1 < 0.f;
+  q.n2 = q.i2 < 0.f;
+  q.n3 = q.i3 < 0.f;
+  q.fresh = false;
 }
 
 template <int R>
@@ -115,76 +153,70 @@ dual_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int j = r * lanes + g;
-    if (j < n) {
-      s[r] = seat(ox, oy, oz, dx, dy, dz, j);
-    } else {
-      s[r] = {};  // free
-    }
+    s[r] = j < n ? seated(j) : Slot{};
   }
-  bool more = R * lanes < n;  // the counter may still hold a ray
+  bool more = R * lanes < n;  // warp-uniform: the counter may hold a ray
   for (;;) {
-    // refill: every lane with a free slot takes one ray
-    bool want = false;
+    if (more) {
+      // refill: every lane with a free slot takes one ray
+      bool free = false;
 #pragma unroll
-    for (int r = 0; r < R; ++r) want |= s[r].idx == 0u;
-    want &= more;
-    const unsigned ball = __ballot_sync(kFull, want);
-    if (ball != 0u) {
-      int base = 0;
-      if (lane == 0) base = atomicAdd(next, __popc(ball));
-      base = R * lanes + __shfl_sync(kFull, base, 0);
-      if (want) {
+      for (int r = 0; r < R; ++r) free |= s[r].idx == 0u;
+      const unsigned ball = __ballot_sync(kFull, free);
+      if (ball != 0u) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(next, __popc(ball));
+        base = R * lanes + __shfl_sync(kFull, base, 0);
+        more = base + __popc(ball) < n;
         const int j = base + __popc(ball & below);
-        if (j < n) {
-          const Slot fresh = seat(ox, oy, oz, dx, dy, dz, j);
+        if (free && j < n) {
           bool put = false;
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             if (!put && s[r].idx == 0u) {
               put = true;
-              s[r] = fresh;
+              s[r] = seated(j);
             }
           }
-        } else {
-          more = false;
         }
       }
     }
+    // a lane whose slots are empty after the refill has no ray to come
+    // (its warp's counter is spent), and no later pass holds a ballot
     bool alive = false;
 #pragma unroll
     for (int r = 0; r < R; ++r) alive |= s[r].idx != 0u;
-    if (!__any_sync(kFull, alive)) break;
-    // issue: every slot at an interior node loads and tests both children
-    float lhit[R], rhit[R];
+    if (!alive) break;
+    // issue: every slot's node loads, in one straight run
+    bool step[R];
+    Children c[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      lhit[r] = rhit[r] = FLT_MAX;
-      if (s[r].idx != 0u && s[r].idx < first_leaf) {
-        const Children c = children(nodes, s[r].idx);
-        lhit[r] = pt::slab_entry(c.la.x, c.la.y, c.la.z, c.la.w, c.lb.x,
-                                 c.lb.y, s[r].o1, s[r].o2, s[r].o3, s[r].i1,
-                                 s[r].i2, s[r].i3, s[r].n1, s[r].n2,
-                                 s[r].n3, closest);
-        rhit[r] = pt::slab_entry(c.ra.x, c.ra.y, c.ra.z, c.ra.w, c.rb.x,
-                                 c.rb.y, s[r].o1, s[r].o2, s[r].o3, s[r].i1,
-                                 s[r].i2, s[r].i3, s[r].n1, s[r].n2,
-                                 s[r].n3, closest);
-      }
+      step[r] = s[r].idx != 0u && s[r].idx < first_leaf;
+      c[r] = children(nodes, step[r] ? s[r].idx : 0u);
     }
-    // consume: advance each slot's ray (pt::heap_node_step's descent), or
-    // pop a ray that stands on a leaf; a ray that ends writes its count
+    // consume: a slot that steps loads a fresh ray's origin and direction,
+    // tests both children and advances (pt::heap_node_step's descent); a
+    // ray that stands on a leaf pops; a ray that ends writes its count
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       Slot& q = s[r];
       if (q.idx == 0u) continue;
-      if (q.idx >= first_leaf) {
-        pt::pop_bitstack(q.bs, q.idx);
-      } else {
+      if (step[r]) {
+        if (q.fresh) load_ray(q, ox, oy, oz, dx, dy, dz);
+        const float lhit = pt::slab_entry(c[r].la.x, c[r].la.y, c[r].la.z,
+                                          c[r].la.w, c[r].lb.x, c[r].lb.y,
+                                          q.o1, q.o2, q.o3, q.i1, q.i2, q.i3,
+                                          q.n1, q.n2, q.n3, closest);
+        const float rhit = pt::slab_entry(c[r].ra.x, c[r].ra.y, c[r].ra.z,
+                                          c[r].ra.w, c[r].rb.x, c[r].rb.y,
+                                          q.o1, q.o2, q.o3, q.i1, q.i2, q.i3,
+                                          q.n1, q.n2, q.n3, closest);
         ++q.steps;
         const unsigned l = q.idx << 1;
-        const bool tl = lhit[r] < closest;
-        const bool tr = rhit[r] < closest;
-        const unsigned child = l + (rhit[r] < lhit[r] ? 1u : 0u);
+        const bool tl = lhit < closest;
+        const bool tr = rhit < closest;
+        const unsigned child = l + (rhit < lhit ? 1u : 0u);
         if (tl && tr) {
           q.idx = child;
           q.bs = (q.bs << 1) | 1u;
@@ -194,6 +226,8 @@ dual_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
         } else {
           pt::pop_bitstack(q.bs, q.idx);
         }
+      } else {
+        pt::pop_bitstack(q.bs, q.idx);
       }
       if (q.idx == 0u) steps_out[q.ray] = q.steps;
     }

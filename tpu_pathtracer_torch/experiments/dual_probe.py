@@ -17,7 +17,8 @@ a leaf step that does nothing). :func:`dual_steps` dispatches on the
 device of its inputs: CPU tensors go to the plain version, CUDA tensors to
 the kernel or the call raises. The kernel runs one persistent wave with
 the same resident warps an SM at every R (:func:`wave`), its threads
-taking rays from a counter as their slots free up.
+taking rays from their warp's claims on a counter as their slots free
+up.
 
 ``main()`` builds ``knot_zoo_scene(512, 512, prims_per_leaf=64)``
 (``--dragon-ish``: nu=832, nv=131) and takes the 131,072 diffuse bounce
@@ -43,8 +44,10 @@ source at every R held bit-equal to the plain node phase, then timed in
 turns, device time a call in a CUDA graph; it prints ns an interior step,
 the resident warps an SM, the issue-rate floor of each build's SASS
 (:func:`walk_sass`) and the latency floor with K17a's round trips, ``l2``
-and ``smem``, measured in the same call (``tpu_micro.round_trips``).
-``--out DIR`` keeps each build's ptxas lines and SASS.
+and ``smem``, measured in the same call (``tpu_micro.round_trips``); for
+a source with the ``dual_trace`` yardstick's counters
+(``yardstick:dual_trace``) it prints what :func:`trace` reads. ``--out DIR`` keeps each build's ptxas lines
+and SASS.
 """
 
 from __future__ import annotations
@@ -152,12 +155,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (the package's build or another source's) with its C
     entries' signatures set: ``dual_probe_walk`` and ``dual_probe_shape``,
     or the first form's ``dual_probe_launch`` (no counter, a grid of
-    n / (128 R) blocks)."""
+    n / (128 R) blocks), and ``dual_trace``'s ``dual_probe_trace``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     for name, args in (("dual_probe_walk", [i] + [p] * 7 + [i, i, p, p, p]),
                        ("dual_probe_launch", [i] + [p] * 7 + [i, i, p, p]),
-                       ("dual_probe_shape", [i, ip, ip, ip])):
+                       ("dual_probe_shape", [i, ip, ip, ip]),
+                       ("dual_probe_trace", [p, i, p, i, p])):
         fn = getattr(lib, name, None)
         if fn is not None and fn.argtypes is None:
             fn.argtypes = args
@@ -228,6 +232,12 @@ def wave(R: int, lib: Optional[ctypes.CDLL] = None) -> Tuple[int, int, int]:
     return grid.value, per_sm.value, resident.value
 
 
+def lanes(R: int, lib: Optional[ctypes.CDLL] = None) -> int:
+    """The threads of the R form's wave: it seats its first R x lanes
+    rays with no counter."""
+    return wave(R, lib)[0] * THREADS
+
+
 def warps_per_sm(R: int, lib: Optional[ctypes.CDLL] = None) -> int:
     """The resident warps an SM of the R form's wave; raises if fewer of
     its blocks fit on an SM than it launches there (the C entry then
@@ -246,15 +256,19 @@ def first_form_warps(n: int, R: int, sms: int) -> int:
     return min(math.ceil(math.ceil(n / (THREADS * R)) / sms), 16) * 4
 
 
-def walk_sass(text: str) -> Dict[int, Tuple[int, int, int]]:
-    """{R: (a pass's instructions, a refill's, atomics)} of each R form's
-    walk loop in a ``cuobjdump -sass`` dump (``dual_kernel<R>``): the
-    widest natural loop (``common.natural_loops``) that holds the refill's
-    atomic (``ATOMG``, or ``ATOM``/``RED``). The refill is the stretch that
-    the loop's first branch after its ballot (a ``VOTE.ANY`` into a
-    register) jumps over when no lane wants a ray; a pass is the rest, a
-    node step (or pop) of each of the R slots of a warp's 32 lanes. Both
-    are counted once, but the slow paths of the refill's IEEE divisions
+def walk_sass(text: str) -> Dict[int, Tuple[int, int, int, int]]:
+    """{R: (a pass's instructions, a refill's, atomics, a seat's)} of each
+    R form's walk loop in a ``cuobjdump -sass`` dump (``dual_kernel<R>``):
+    the widest natural loop (``common.natural_loops``) that holds the
+    refill's atomic (``ATOMG``, or ``ATOM``/``RED``). The refill is the
+    stretch that the loop's first branch after its ballot (a ``VOTE.ANY``
+    into a register) jumps over when no lane wants a ray. A seat is a
+    stretch of the rest that a forward branch jumps over when its slot
+    holds no newly seated ray: one that holds the ray's reciprocals
+    (``MUFU.RCP``) and no slab test (``FMNMX``); the R of them are counted
+    as one slot's (0 if the loop holds none). A pass is the rest: a node
+    step (or pop) of each of the R slots of a warp's 32 lanes. Each is
+    counted once, but the slow paths of the IEEE divisions
     (``common.fast_count``). Raises if a form's loop holds no atomic
     (another form, say the first), no refill stretch holds it, or there
     is no ``dual_kernel``."""
@@ -272,12 +286,12 @@ def walk_sass(text: str) -> Dict[int, Tuple[int, int, int]]:
             raise ValueError(f"{what}: no loop holds the refill's atomic")
         lo, hi = max(loops, key=lambda s: s[1] - s[0])
         addr = {a: k for k, (a, _) in enumerate(code)}
+        forward = lambda k: (code[k][1].startswith("@")
+                             and branch_target(code[k][1]) in addr
+                             and k < addr[branch_target(code[k][1])] <= hi)
         ballot = next((k for k in range(lo, hi + 1) if re.match(
             r"(@!?U?P\w+\s+)?VOTE\.ANY R", code[k][1])), None)
-        jump = next((k for k in range(ballot or hi, hi + 1)
-                     if code[k][1].startswith("@")
-                     and branch_target(code[k][1]) in addr
-                     and k < addr[branch_target(code[k][1])] <= hi),
+        jump = next((k for k in range(ballot or hi, hi + 1) if forward(k)),
                     None) if ballot is not None else None
         if jump is None:
             raise ValueError(f"{what}: no branch over a refill after a "
@@ -285,31 +299,97 @@ def walk_sass(text: str) -> Dict[int, Tuple[int, int, int]]:
         refill = (jump + 1, addr[branch_target(code[jump][1])] - 1)
         if not count(refill, ("ATOM", "RED")):
             raise ValueError(f"{what}: the refill holds no atomic")
+        seats, k = [], lo
+        while k <= hi:
+            if refill[0] <= k <= refill[1] or not forward(k):
+                k += 1
+                continue
+            s = (k + 1, addr[branch_target(code[k][1])] - 1)
+            if count(s, ("MUFU.RCP",)) and not count(s, ("FMNMX", "ATOM",
+                                                         "RED")):
+                seats.append(s)
+                k = s[1] + 1
+            else:
+                k += 1
+        seat = sum(fast_count(code, s) for s in seats)
         total, part = fast_count(code, (lo, hi)), fast_count(code, refill)
-        out[int(m.group(1))] = (total - part, part,
-                                count((lo, hi), ("ATOM", "RED")))
+        r = int(m.group(1))
+        out[r] = (total - part - seat, part, count((lo, hi), ("ATOM", "RED")),
+                  round(seat / r))
     if not out:
         raise ValueError("no dual_kernel in the SASS")
     return out
 
 
-def issue_floor_ms(sass: Tuple[int, int, int], steps: int, rays: int,
-                   R: int) -> float:
+def issue_floor_ms(sass: Tuple[int, int, int, int], steps: int, rays: int,
+                   R: int, lanes: int) -> float:
     """The least time the card could issue a run of ``rays`` rays and
-    ``steps`` interior steps (:func:`walk_sass`'s (pass, refill, _)): a
-    pass for each step of each of the R slots of a warp's 32 lanes, a
-    refill round for every 32 rays, over 528 schedulers at 1,980 MHz."""
-    return ((steps * sass[0] / R + rays * sass[1]) / 32 / ISSUE_RATE
-            * 1e3)
+    ``steps`` interior steps (:func:`walk_sass`'s (pass, refill, _, seat))
+    on a wave of ``lanes`` threads: a pass for each step of each of the R
+    slots of a warp's 32 lanes, a seat for every 32 rays, and a refill
+    round for every 32 of the rays past the R x ``lanes`` that the wave
+    seats with no refill, over 528 schedulers at 1,980 MHz."""
+    refilled = max(rays - R * lanes, 0)
+    return ((steps * sass[0] / R + refilled * sass[1] + rays * sass[3])
+            / 32 / ISSUE_RATE * 1e3)
 
 
-def latency_floor_ms(sass: Tuple[int, int, int], longest: int,
+def latency_floor_ms(sass: Tuple[int, int, int, int], longest: int,
                      trip_ns: float) -> float:
     """The least time the longest ray's ``longest`` dependent steps take:
     each a pass of the walk loop issued by one warp (:func:`walk_sass`'s
     pass instructions at one a cycle, 1,980 MHz) and one round trip of its
     node loads (``trip_ns``: K17a's dependent load a step)."""
     return longest * (sass[0] / WARP_ISSUE_RATE * 1e9 + trip_ns) / 1e6
+
+
+def hold(origin: V3, direction: V3, tabs: cb.HeapTables,
+         rays_per_thread=RAYS_PER_THREAD,
+         lib: Optional[ctypes.CDLL] = None,
+         visits: Optional[dict] = None,
+         want: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Runs each R form once through ``lib`` (default: the package's
+    build, counted in LAUNCHES) and raises unless its counts equal the
+    plain node phase's (``want``, else run here with ``visits``), bit
+    for bit. Returns the plain counts."""
+    steps = {r: _walk(origin, direction, tabs, r, lib)
+             for r in rays_per_thread}
+    torch.cuda.synchronize()
+    if want is None:
+        want = _dual_steps_ref(origin, direction, tabs, visits)
+    for r, got in steps.items():
+        if not torch.equal(got, want):
+            raise AssertionError(f"R={r}: step counts differ from the plain "
+                                 f"node phase on {int((got != want).sum())} "
+                                 f"of {want.numel()} rays")
+    return want
+
+
+def trace(lib: ctypes.CDLL, origin: V3, direction: V3, tabs: cb.HeapTables,
+          R: int, want: torch.Tensor) -> dict:
+    """One launch through ``lib``, a build with the ``dual_trace``
+    yardstick's counters, read back: ``passes`` (the most a warp ran),
+    ``mean_passes`` (a warp's), ``refill_share`` and ``claim_share`` (the
+    warps' passes that held a refill round, and a claim from the
+    counter), ``longest_seated`` (the pass at which the ray with the most
+    interior steps, ``want``'s, was seated) and ``latest`` (the latest
+    seating pass)."""
+    n, warps = origin.x.shape[0], lanes(R, lib) // 32
+    seat, passes = (ctypes.c_int * n)(), (ctypes.c_int * warps)()
+    stat = (ctypes.c_ulonglong * 2)()
+    for k in range(2):  # zero it, then read this launch's
+        rc = lib.dual_probe_trace(seat, n, passes, warps, stat)
+        if rc:
+            raise RuntimeError(f"dual_probe_trace failed: CUDA error {rc}")
+        if k == 0:
+            _walk(origin, direction, tabs, R, lib)
+    seated = np.frombuffer(seat, dtype=np.int32)
+    ran = np.frombuffer(passes, dtype=np.int32)
+    total = max(int(ran.sum()), 1)
+    return {"passes": int(ran.max()), "mean_passes": float(ran.mean()),
+            "refill_share": stat[0] / total, "claim_share": stat[1] / total,
+            "longest_seated": int(seated[int(want.argmax())]),
+            "latest": int(seated.max())}
 
 
 def measure(origin: V3, direction: V3, tabs: cb.HeapTables,
@@ -323,17 +403,9 @@ def measure(origin: V3, direction: V3, tabs: cb.HeapTables,
     steps), ``longest`` (the most one ray takes), ``nodes`` (the distinct
     node rows read), ``warps`` (resident warps an SM), ``readings`` and
     ``ms`` (their median) by R, and ``plain_ms``."""
-    steps = {r: dual_steps(origin, direction, tabs, r)
-             for r in rays_per_thread}
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
     visits = {"nodes": [], "leaves": []}
-    want = _dual_steps_ref(origin, direction, tabs, visits)
-    for r, got in steps.items():
-        if not torch.equal(got, want):
-            raise AssertionError(f"R={r}: step counts differ from the plain "
-                                 f"node phase on {int((got != want).sum())} "
-                                 f"rays")
+    want = hold(origin, direction, tabs, rays_per_thread, visits=visits)
+    launches = dict(LAUNCHES)
     plain_ms = median_ms(lambda: _dual_steps_ref(origin, direction, tabs),
                          reps=2)
     readings = graph_readings(list(rays_per_thread), [0],
@@ -394,16 +466,12 @@ def ab(sets: Dict[str, tuple], libs: Dict[str, Optional[ctypes.CDLL]],
     steps = {}
     for s, (o, d, tabs) in sets.items():
         want = _dual_steps_ref(o, d, tabs)
-        steps[s] = (int(want.sum(dtype=torch.int64)), int(want.max()))
         for name, lib in libs.items():
-            for r in rays_per_thread:
-                got = _walk(o, d, tabs, r, lib)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"{name} R={r} on {s}: step counts differ from the "
-                        f"plain node phase on {int((got != want).sum())} "
-                        f"rays")
+            try:
+                hold(o, d, tabs, rays_per_thread, lib, want=want)
+            except AssertionError as e:
+                raise AssertionError(f"{name} on {s}: {e}") from None
+        steps[s] = (int(want.sum(dtype=torch.int64)), int(want.max()))
     cells = [(s, r) for s in sets for r in rays_per_thread]
     readings = graph_readings(
         list(libs), cells,
@@ -442,9 +510,11 @@ def _ab_main(dev, texts: Dict[str, str], out: Optional[Path],
           f"calls a graph), {ROUNDS} rounds in turns; K17a's round trips in "
           f"this call (1,024 lanes, device time in CUDA graphs): l2 "
           f"{trips['l2']:.1f} ns, smem {trips['smem']:.1f} ns", flush=True)
-    for s, (o, _, tabs) in sets.items():
+    traced = [k for k, v in libs.items() if hasattr(v, "dual_probe_trace")]
+    for s, (o, d, tabs) in sets.items():
         total, longest = steps[s]
         n = o.x.shape[0]
+        want = _dual_steps_ref(o, d, tabs) if traced else None
         print(f" {s}: {n} rays, first_leaf {tabs.first_leaf}, {total} "
               f"interior steps ({total / n:.1f} a ray, the longest "
               f"{longest})", flush=True)
@@ -457,6 +527,16 @@ def _ab_main(dev, texts: Dict[str, str], out: Optional[Path],
                 ms = r[name, s, k]
                 if hasattr(lib or _lib(), "dual_probe_walk"):
                     warps = f"{warps_per_sm(k, lib)} warps an SM"
+                    if name in traced:
+                        tr = trace(lib, o, d, tabs, k, want)
+                        warps += (
+                            f"; passes: the most {tr['passes']}, a warp's "
+                            f"mean {tr['mean_passes']:.1f}, "
+                            f"{tr['refill_share']:.1%} with a refill round, "
+                            f"{tr['claim_share']:.1%} with a claim; the "
+                            f"longest ray seated at pass "
+                            f"{tr['longest_seated']}, the last at "
+                            f"{tr['latest']}")
                 else:
                     warps = (f"{math.ceil(n / (THREADS * k))} blocks, up to "
                              f"{first_form_warps(n, k, sms)} warps an SM")
@@ -464,9 +544,10 @@ def _ab_main(dev, texts: Dict[str, str], out: Optional[Path],
                 if k in sass:
                     lat = {m: latency_floor_ms(sass[k], longest, trips[m])
                            for m in trips}
+                    issue = issue_floor_ms(sass[k], total, n, k,
+                                           lanes(k, lib))
                     floor = (f"; loop {sass[k]} (a pass, a refill, "
-                             f"atomics), issue-rate floor "
-                             f"{issue_floor_ms(sass[k], total, n, k):.4f} "
+                             f"atomics, a seat), issue-rate floor {issue:.4f} "
                              f"ms, latency floor {lat['l2']:.4f} (l2) / "
                              f"{lat['smem']:.4f} ms (smem)")
                 print(f"  {name:10s} R={k}: {ms:.4f} ms, {ms * 1e6 / total:.3f}"

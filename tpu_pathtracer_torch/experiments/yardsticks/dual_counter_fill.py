@@ -8,18 +8,14 @@ FILE = "dual_probe.cu"
 
 PATCHES = [
     ("""    const int j = r * lanes + g;
-    if (j < n) {
-      s[r] = seat(ox, oy, oz, dx, dy, dz, j);
-    } else {
-      s[r] = {};  // free
-    }
+    s[r] = j < n ? seated(j) : Slot{};
 """,
-     """    s[r] = {};  // free: every ray comes from the counter
+     """    s[r] = Slot{};  // free: every ray comes from the counter
 """),
-    ("""  bool more = R * lanes < n;  // the counter may still hold a ray
+    ("""  bool more = R * lanes < n;  // warp-uniform: the counter may hold a ray
 """,
-     """  bool more = g < lanes;  // the counter may still hold a ray
+     """  bool more = true;  // n > 0: the counter holds a ray
 """),
-    ("""      base = R * lanes + __shfl_sync(kFull, base, 0);""",
-     """      base = __shfl_sync(kFull, base, 0);"""),
+    ("""        base = R * lanes + __shfl_sync(kFull, base, 0);""",
+     """        base = __shfl_sync(kFull, base, 0);"""),
 ]

@@ -49,8 +49,8 @@ __global__ void"""),
   pt::bar_wait(&bar, 0);
   // the first fill, with no counter: slot r takes ray r * lanes + g; the
 """),
-    ("""        const Children c = children(nodes, s[r].idx);""",
-     """        const Children c = s[r].idx < (1u << kTopLevels)
-                               ? top_children(top, s[r].idx)
-                               : children(nodes, s[r].idx);"""),
+    ("""      c[r] = children(nodes, step[r] ? s[r].idx : 0u);""",
+     """      const unsigned at = step[r] ? s[r].idx : 0u;
+      c[r] = at < (1u << kTopLevels) ? top_children(top, at)
+                                     : children(nodes, at);"""),
 ]
